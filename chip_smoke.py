@@ -8,15 +8,25 @@ Phases, each printing one line of its numbers:
   1. device: the card, its power limit, the torch/CUDA versions; builds the
      CUDA kernels from ``src/repro_torch/csrc`` (timed).
   2. kernels: each CUDA kernel against its plain PyTorch version on the card,
-     at the slice's shapes, in f32 and bf16; the bf16 bodies also against
-     the kernels' own order of arithmetic, to within the output's rounding;
-     each timed beside the plain version and one PyTorch library call.
+     at the slices' shapes, in f32 and bf16: K1 flash forward and K2 decode
+     (the bf16 bodies also against the kernels' own order of arithmetic, to
+     within the output's rounding), K3 flash backward and K4 fused policy
+     loss forward and backward (ragged, GQA); each timed beside the plain
+     version and, where one PyTorch call computes the same function, that
+     call.
   3. model: openvla-7b at full width (bf16, random weights from a seed),
      prefill + 7 decode steps on the kernel route, replayed on the plain
      route; every step's action logits compared.
   4. serving: the InferenceService answering 24 requests from 4 client
      threads across a drain-protocol weight swap, with the kernels' launch
      counts proving every layer went through both kernels.
+  5. training: openvla-7b at full width and 8 of its 32 layers (bf16, random
+     weights from a seed), three GIPO train steps (fused loss, grad_accum 2)
+     on the kernel route, with launch counts proving every attention
+     backward ran on K3 and every loss on K4; every gradient leaf nonzero;
+     step 1's metrics and gradients (per leaf and layer) compared with the
+     plain route's; the three steps replayed on the plain route from the
+     same seed and compared.
 
 Every check raises on failure, so the script exits non-zero. The line
 before the last is a JSON summary of every kernel; the last line is
@@ -26,6 +36,7 @@ the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -50,6 +61,50 @@ ORDER_ATOL = 1e-5
 # different points, and that difference passes through 32 bf16 layers.
 # The bound leaves ~3x room over the measurement.
 MODEL_LOGIT_BOUND = 0.1
+# K3 and K4 in bf16 against their plain versions (both f32 inside, from the
+# same bf16 inputs): the outputs may differ by their own bf16 rounding, one
+# ulp (2^-7 relative), plus f32 reordering error, held at 1e-4 of the
+# largest value.
+BWD_BF16_RTOL = 2.0 ** -7
+BWD_BF16_ATOL = 1e-4
+# Training phase: openvla-7b at full width and 8 of its 32 layers (the f32
+# moments and grad accumulator of the full depth do not fit one card).
+TRAIN_LAYERS = 8
+TRAIN_MEM_LIMIT = 70e9
+# Step 1 on the kernel route vs the plain route: the largest relative
+# difference over the loss, every metric and the grad norm (denominators
+# floored at ROUTE_FLOOR). Measured 4.8e-4 on the H100 (adv_mean_raw; the
+# loss 4.0e-4): the routes round attention outputs and gradients to bf16 at
+# different points through 8 bf16 layers. The bound leaves ~3x room.
+ROUTE_BOUND = 1.5e-3
+ROUTE_FLOOR = 1e-3
+# Step 1's gradients, kernel vs plain route, per leaf and per layer of each
+# stacked leaf: |g_kernel - g_plain| / |g_plain| (Frobenius norms), so a
+# wrong dq/dk/dv in one layer cannot hide under the leaves that dominate the
+# global norm. Held for every leaf that the kernels' backward reaches, i.e.
+# all but the value head, whose input is detached: its gradient sees the
+# kernels only through the forward's bf16 rounding of the action tokens'
+# hidden states, which is printed beside it. Measured 1.6e-2 on the H100
+# (layers.attn.wq[7]); the bound leaves ~3x room. (The value head's
+# attention-pool projection measured 0.22: its gradient is a product of the
+# action hiddens centred over the 7 positions, 3% of their norm, so their
+# 5.6e-3 difference between the routes becomes 0.16 there.)
+LEAF_BOUND = 5e-2
+# Steps 1-3 from the same seed-0 state on both routes: the largest relative
+# difference of the loss, KL, entropy and grad norm per step. Measured
+# 6.1e-2 on the H100 (step 2's loss and KL, 6.0e7 vs 5.7e7: the step-2 jump
+# amplifies step 1's 4e-4); the bound leaves ~3x room.
+STEPS_BOUND = 0.2
+STEP_KEYS = ("loss", "kl", "entropy", "grad_norm")
+# kernel-name patterns that group a traced train step's device time
+TRACE_GROUPS = (("K1 flash fwd", ("flash_fwd",)),
+                ("K3 flash bwd", ("flash_bwd",)),
+                ("K4 policy loss", ("policy_rows", "policy_dw")),
+                ("GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+                ("elementwise", ("elementwise",)),
+                ("reduce", ("reduce",)),
+                ("index/embedding", ("index", "embedding", "scatter",
+                                     "gather")))
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -154,22 +209,26 @@ def phase_device():
     return name, smi
 
 
-def _time_flash(case, flush):
-    """Kernel, plain version and library call on one bf16 causal case."""
+def _time_flash(case, flush, *, lse: bool = False):
+    """Kernel, plain version and library call on one bf16 causal case;
+    ``lse`` times the training forward, which also writes the LSE."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_plain_dense,
                                                      flash_attention)
     q, k, v = case["q"], case["k"], case["v"]
     b, t, h, d = q.shape
-    ms, host_ms = _median_ms(lambda: flash_attention(q, k, v), flush=flush)
-    plain_ms, _ = _median_ms(lambda: _plain_dense(q, k, v), flush=flush)
+    ms, host_ms = _median_ms(lambda: flash_attention(q, k, v, return_lse=lse),
+                             flush=flush)
+    plain_ms, _ = _median_ms(lambda: _plain_dense(q, k, v, return_lse=lse),
+                             flush=flush)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib_ms, _ = _median_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), flush=flush)
     pairs = t * (t + 1) // 2                       # causal (q, k) pairs
-    bound_ms, bound_by = _bound(_nbytes(q, k, v, q),
+    bound_ms, bound_by = _bound(_nbytes(q, k, v, q) + lse * b * t * h * 4,
                                 4.0 * d * pairs * b * h, "bfloat16")
-    shape = f"B={b} T=S={t} H={h} KV={k.shape[2]} D={d} bf16"
+    shape = f"B={b} T=S={t} H={h} KV={k.shape[2]} D={d} bf16" \
+        + (" +lse" if lse else "")
     print(f"[kernels] flash {shape}: kernel {ms:.4f} ms | plain "
           f"{plain_ms:.4f} ms | sdpa {lib_ms:.4f} ms | bound "
           f"{bound_ms:.4f} ms ({bound_by}) | host enqueue {host_ms:.4f} ms")
@@ -205,6 +264,109 @@ def _time_decode(case, flush):
                 bound_by=bound_by, library_ms=lib_ms)
 
 
+def _time_flash_bwd(case, flush):
+    """K3, its plain version and the library's flash backward (fed by the
+    library's own forward, timed alone) on one bf16 causal case."""
+    import torch
+    from repro_torch.kernels.flash_attention import (_plain_flash_bwd,
+                                                     flash_attention_bwd)
+    q, k, v, o, lse, do = (case[x] for x in ("q", "k", "v", "o", "lse",
+                                             "do"))
+    b, t, h, d = q.shape
+    ms, host_ms = _median_ms(
+        lambda: flash_attention_bwd(q, k, v, o, lse, do), flush=flush)
+    plain_ms, _ = _median_ms(
+        lambda: _plain_flash_bwd(q, k, v, o, lse, do), flush=flush)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True)
+    lo, llse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    lib_ms, _ = _median_ms(
+        lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, lo, llse, cq, ck, mq, mk, 0.0, True, seed,
+            offset), flush=flush)
+    pairs = t * (t + 1) // 2                 # causal (q, k) pairs per head
+    bound_ms, bound_by = _bound(
+        _nbytes(q, k, v, o, lse, do) + _nbytes(q, k, v),
+        10.0 * d * pairs * b * h, "bfloat16")
+    shape = f"B={b} T=S={t} H={h} KV={k.shape[2]} D={d} bf16"
+    print(f"[kernels] flash_bwd {shape}: kernel {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | sdpa flash bwd {lib_ms:.4f} ms | bound "
+          f"{bound_ms:.4f} ms ({bound_by}) | host enqueue {host_ms:.4f} ms")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+
+
+def _time_policy(case, flush):
+    """K4 forward and backward and their plain versions on one bf16 case.
+    No single PyTorch call computes the fused head + GIPO loss, so there is
+    no library time."""
+    from repro_torch.kernels import gipo_loss as gl
+    args = [case[x] for x in ("h", "w", "tg", "lo", "ad", "mk")]
+    coefs = case["coefs"]
+    n, d = args[0].shape
+    va = args[1].shape[1]
+    out = {}
+    for tag, kern, plain, extra, nflop, outs in (
+            ("fwd", gl.policy_loss_fwd, gl._plain_policy_loss_fwd, (),
+             2.0 * n * d * va, -(-n // gl.BLOCK_N) * 8 * 4),
+            ("bwd", gl.policy_loss_bwd, gl._plain_policy_loss_bwd, (coefs,),
+             6.0 * n * d * va, _nbytes(args[0], args[1]))):
+        ms, host_ms = _median_ms(lambda: kern(*args, 0.2, *extra),
+                                 flush=flush)
+        plain_ms, _ = _median_ms(lambda: plain(*args, 0.2, *extra),
+                                 flush=flush)
+        bound_ms, bound_by = _bound(_nbytes(*args, *extra) + outs, nflop,
+                                    "bfloat16")
+        shape = f"N={n} d={d} Va={va} bf16"
+        print(f"[kernels] policy_loss_{tag} {shape}: kernel {ms:.4f} ms | "
+              f"plain {plain_ms:.4f} ms | library none | bound "
+              f"{bound_ms:.4f} ms ({bound_by}) | host enqueue "
+              f"{host_ms:.4f} ms")
+        out[tag] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None)
+    return out
+
+
+def _policy_case(gen, dev, n, d, va, dtype):
+    import torch
+    return dict(
+        h=torch.randn(n, d, generator=gen, device=dev).to(dtype),
+        w=(torch.randn(d, va, generator=gen, device=dev)
+           * d ** -0.5).to(dtype),
+        tg=torch.randint(0, va, (n,), generator=gen, device=dev,
+                         dtype=torch.int32),
+        lo=torch.randn(n, generator=gen, device=dev) * 0.3 - 5.0,
+        ad=torch.randn(n, generator=gen, device=dev),
+        mk=(torch.rand(n, generator=gen, device=dev) > 0.15).float(),
+        coefs=torch.tensor([0.7, 0.1, -0.01], device=dev) / n)
+
+
+def _check_grad(name, got, exp, dtype):
+    """f32: max abs err <= F32_MAX_ERR, and <= F32_MAX_ERR of the largest
+    value where that is below 1; bf16: within BWD_BF16_RTOL of each value
+    (the output's own rounding) plus BWD_BF16_ATOL of the largest value
+    (f32 reordering). Returns (max abs err, error beyond the bar's
+    rounding term as a fraction of the largest value)."""
+    import torch
+    err = (got.float() - exp.float()).abs()
+    scale = exp.float().abs().max().item()
+    if dtype == torch.float32:
+        worst = err.max().item()
+        if not worst <= F32_MAX_ERR * min(1.0, scale):
+            raise AssertionError(f"{name}: f32 max abs err {worst} > "
+                                 f"{F32_MAX_ERR} x min(1, {scale})")
+        return worst, worst / max(scale, 1e-30)
+    excess = (err - BWD_BF16_RTOL * exp.float().abs()).max().item() \
+        / max(scale, 1e-30)
+    if not excess <= BWD_BF16_ATOL:
+        raise AssertionError(f"{name}: bf16 error {excess} of the largest "
+                             f"value beyond {BWD_BF16_RTOL} relative > "
+                             f"{BWD_BF16_ATOL}")
+    return err.max().item(), excess
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version; returns the JSON entries."""
     import torch
@@ -223,11 +385,14 @@ def phase_kernels(dev):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     # --- K1 flash attention -------------------------------------------------
-    k1 = {}
+    # (36, 275): the training forward's shape; its checked inputs and
+    # outputs feed K3's check and both timings at that shape
+    k1, train_in = {}, {}
     for (b, t, h, kv, d, window) in [(8, 268, 32, 32, 128, None),
                                      (8, 268, 32, 8, 128, None),
                                      (8, 268, 32, 32, 128, 64),
-                                     (8, 13, 32, 32, 128, None)]:
+                                     (8, 13, 32, 32, 128, None),
+                                     (36, 275, 32, 32, 128, None)]:
         for dtype in (torch.float32, torch.bfloat16):
             q = rand(b, t, h, d, dtype=dtype)
             k = rand(b, t, kv, d, dtype=dtype)
@@ -261,12 +426,18 @@ def phase_kernels(dev):
                   f"{order}")
             if (kv, window, dtype) == (32, None, torch.bfloat16):
                 k1[t] = dict(q=q, k=k, v=v, err=err)
+            if b == 36:
+                train_in[dtype] = (q, k, v, out, lse)
+            del q, k, v, out, lse, exp, exp_lse
     entries = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:40",
                     launches=None, max_abs_err=k1[268]["err"],
                     **_time_flash(k1[268], flush),
-                    service=_time_flash(k1[13], flush))]
+                    service=_time_flash(k1[13], flush),
+                    train_shape=dict(_time_flash(k1[275], flush, lse=True),
+                                     max_abs_err=k1[275]["err"]))]
+    del k1
 
     # --- K2 decode attention ------------------------------------------------
     k2 = {}
@@ -303,7 +474,90 @@ def phase_kernels(dev):
                         launches=None, max_abs_err=k2[275]["err"],
                         **_time_decode(k2[275], flush),
                         service=_time_decode(k2[20], flush)))
-    del l2
+
+    # --- K3 flash attention backward ----------------------------------------
+    from repro_torch.kernels.flash_attention import (_plain_flash_bwd,
+                                                     flash_attention_bwd)
+    k3 = {}
+    for (b, t, h, kv, d, window) in [(36, 275, 32, 32, 128, None),
+                                     (4, 275, 32, 8, 128, None),
+                                     (2, 100, 8, 2, 64, 32),
+                                     (3, 50, 4, 4, 128, None)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            if b == 36:                    # K1's checked training case
+                q, k, v, o, lse = train_in.pop(dtype)
+            else:
+                q = rand(b, t, h, d, dtype=dtype)
+                k = rand(b, t, kv, d, dtype=dtype)
+                v = rand(b, t, kv, d, dtype=dtype)
+                o, lse = flash_attention(q, k, v, window=window,
+                                         return_lse=True)
+            do = rand(b, t, h, d, dtype=dtype)
+            got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+            exp = _plain_flash_bwd(q, k, v, o, lse, do, window=window)
+            torch.cuda.synchronize()
+            tag = f"flash_bwd B={b} T=S={t} H={h} KV={kv} D={d} " \
+                  f"w={window} {str(dtype)[6:]}"
+            res = [_check_grad(f"{tag} {n}", x, y, dtype)
+                   for n, x, y in zip(("dq", "dk", "dv"), got, exp)]
+            print(f"[kernels] {tag}: max abs err dq {res[0][0]:.3e} dk "
+                  f"{res[1][0]:.3e} dv {res[2][0]:.3e} | beyond the bar's "
+                  f"rounding term, of the largest value: "
+                  f"{max(r[1] for r in res):.3e}")
+            if (b, dtype) == (36, torch.bfloat16):
+                k3 = dict(q=q, k=k, v=v, o=o, lse=lse, do=do,
+                          err=max(r[0] for r in res))
+            del q, k, v, do, o, lse, got, exp
+    entries.append(dict(name="flash_attention_bwd", route="cuda",
+                        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                        replaces="src/repro/kernels/flash_attention.py:176",
+                        launches=None, max_abs_err=k3["err"],
+                        **_time_flash_bwd(k3, flush)))
+    del k3
+
+    # --- K4 fused policy loss -----------------------------------------------
+    from repro_torch.kernels import gipo_loss as gl
+    k4 = {}
+    for (n, d, va) in [(224, 4096, 256), (3584, 4096, 256), (300, 64, 48),
+                       (37, 128, 128)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            c = _policy_case(gen, dev, n, d, va, dtype)
+            args = [c[x] for x in ("h", "w", "tg", "lo", "ad", "mk")]
+            got = gl._finalize(gl.policy_loss_fwd(*args, 0.2).sum(0))
+            exp = gl._finalize(gl._plain_policy_loss_fwd(*args, 0.2).sum(0))
+            dh, dw = gl.policy_loss_bwd(*args, 0.2, c["coefs"])
+            dh2, dw2 = gl.policy_loss_bwd(*args, 0.2, c["coefs"])
+            edh, edw = gl._plain_policy_loss_bwd(*args, 0.2, c["coefs"])
+            torch.cuda.synchronize()
+            tag = f"policy_loss N={n} d={d} Va={va} {str(dtype)[6:]}"
+            vals = list(got[:3]) + [got[3][x] for x in sorted(got[3])]
+            evals = list(exp[:3]) + [exp[3][x] for x in sorted(exp[3])]
+            ferr = max(abs(x.item() - y.item()) / max(abs(y.item()), 1.0)
+                       for x, y in zip(vals, evals))
+            if not ferr <= F32_MAX_ERR:
+                raise AssertionError(f"{tag}: forward rel err {ferr}")
+            res = [_check_grad(f"{tag} {nm}", x, y, dtype)
+                   for nm, x, y in (("dh", dh, edh), ("dw", dw, edw))]
+            if not (torch.equal(dh, dh2) and torch.equal(dw, dw2)):
+                raise AssertionError(f"{tag}: two backward runs differ")
+            print(f"[kernels] {tag}: forward rel err {ferr:.3e} | max abs "
+                  f"err dh {res[0][0]:.3e} dw {res[1][0]:.3e} | beyond the "
+                  f"bar's rounding term, of the largest value: "
+                  f"{max(r[1] for r in res):.3e} | two runs equal")
+            if dtype == torch.bfloat16 and d == 4096:
+                k4[n] = dict(c, err=max([ferr] + [r[0] for r in res]))
+            del c, args, dh, dw, dh2, dw2, edh, edw
+    t224, t3584 = _time_policy(k4[224], flush), _time_policy(k4[3584], flush)
+    for tag in ("fwd", "bwd"):
+        entries.append(dict(
+            name=f"fused_policy_loss_{tag}", route="cuda",
+            source="src/repro_torch/csrc/gipo_loss.cu",
+            replaces=("src/repro/kernels/gipo_loss.py:301" if tag == "fwd"
+                      else "src/repro/kernels/gipo_loss.py:312"),
+            launches=None, max_abs_err=max(k4[224]["err"],
+                                           k4[3584]["err"]),
+            **t224[tag], large_batch=t3584[tag]))
+    del l2, k4
     return entries
 
 
@@ -507,6 +761,287 @@ def phase_trace(dev, cfg, params):
           f"{100 * (1 - busy_ms / wall_ms):.1f}% | top: {top}")
 
 
+def phase_train(dev):
+    """openvla-7b at full width, TRAIN_LAYERS layers: the kernel route's
+    step-1 gradients (every leaf nonzero) against the plain route's, then
+    three train steps on the kernel route. Returns the launch counts."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import RLConfig, get_config
+    from repro_torch.core import train_step as ts
+    from repro_torch.data.trajectory import dummy_batch
+    from repro_torch.bridge import batch_from_numpy
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import gipo_loss as gl
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves_with_path
+    cfg = dataclasses.replace(get_config("openvla-7b"),
+                              num_layers=TRAIN_LAYERS)
+    # lr 1e-4: the default 3e-6 is below half a bf16 ulp of most weights
+    rl = RLConfig(warmup_steps=1, lr_policy=1e-4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = ts.init_train_state(cfg, 0, device=dev)
+    np_batch = dummy_batch(8, 8, 12, cfg.action_dim, cfg.vocab_size,
+                           cfg.action_vocab_size,
+                           num_prefix=cfg.num_prefix_tokens, seed=0)
+    batch = batch_from_numpy(np_batch, device=dev)
+    p0 = {path: x.clone() for path, x in tree_leaves_with_path(state.params)}
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in p0.values())
+    print(f"[train] openvla-7b x {TRAIN_LAYERS} layers: {n_params / 1e9:.3f}"
+          f" B parameters, state on the card in "
+          f"{time.perf_counter() - t0:.1f} s | allocated "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
+
+    def step1(mode):
+        """Step 1's grads, metrics and grad norm on one route (the stage
+        functions that ``train_step`` composes, before the update)."""
+        slice_i, _ = ts._microbatches(batch, rl.grad_accum)
+        acc = ts.zero_grads_like(state.params)
+        stats = torch.zeros(3, device=dev)
+        with dispatch.forced(mode):
+            for i in range(rl.grad_accum):
+                g, (m, st) = ts.microbatch_grads(state.params, slice_i(i),
+                                                 state.adv_norm, cfg=cfg,
+                                                 rl=rl)
+                acc, stats = ts.accumulate_grads(acc, g, stats, st,
+                                                 rl.grad_accum)
+                del g
+        return acc, dict(m, grad_norm=adamw.global_norm(acc))
+
+    acc, m_kernel = step1("cuda")
+    zero = [".".join(path) for path, g in tree_leaves_with_path(acc)
+            if not bool((g != 0).any())]
+    if zero:
+        raise AssertionError(f"kernel route: leaves with no gradient {zero}")
+    n_leaves = len(list(tree_leaves_with_path(acc)))
+    acc_plain, m_plain = step1("torch")
+    diffs = _leaf_grad_diff(acc, acc_plain)
+    del acc, acc_plain
+    compare_peak = torch.cuda.max_memory_allocated(dev)
+    held = [d for d in diffs if not d[1].startswith("value_head.")]
+    value = [d for d in diffs if d[1].startswith("value_head.")]
+    h_rel, c_rel, c_share = _action_hidden_diff(cfg, state.params, batch)
+    print(f"[train] step 1 gradients, kernel vs plain route, |g_kernel - "
+          f"g_plain| / |g_plain| per leaf and per layer: {len(held)} parts "
+          f"the kernels' backward reaches, worst "
+          f"{', '.join(f'{k} {r:.3e}' for r, k in held[:3])} (bound "
+          f"{LEAF_BOUND}) | value head (input detached): "
+          f"{', '.join(f'{k} {r:.3e}' for r, k in value)}; its input, the "
+          f"action tokens' final hidden states: {h_rel:.3e} apart, "
+          f"{c_rel:.3e} once centred over the action positions (the centred "
+          f"part is {c_share:.3f} of the norm) | max_memory_allocated while "
+          f"both are held {compare_peak / 1e9:.2f} GB")
+    if not held[0][0] <= LEAF_BOUND:
+        raise AssertionError(f"step 1 gradient of {held[0][1]} differs by "
+                             f"{held[0][0]}")
+    worst, worst_key = 0.0, None
+    for k in m_plain:
+        a, b = m_kernel[k].item(), m_plain[k].item()
+        if not (math.isfinite(a) and math.isfinite(b)):
+            raise AssertionError(f"step 1 {k}: kernel {a}, plain {b}")
+        rel = abs(a - b) / max(abs(b), ROUTE_FLOOR)
+        if rel > worst:
+            worst, worst_key = rel, k
+    print(f"[train] step 1, kernel vs plain route: {n_leaves} gradient "
+          f"leaves, all nonzero on the kernel route | max rel diff over "
+          f"loss, {len(m_plain) - 1} metrics and grad norm {worst:.3e} "
+          f"({worst_key}; bound {ROUTE_BOUND}) | loss "
+          f"{m_kernel['loss'].item():.6f} vs {m_plain['loss'].item():.6f}, "
+          f"grad norm {m_kernel['grad_norm'].item():.4f} vs "
+          f"{m_plain['grad_norm'].item():.4f}")
+    if not worst <= ROUTE_BOUND:
+        raise AssertionError(f"step 1 routes differ: {worst_key} by {worst}")
+
+    counters = (flash_attention, flash_attention_bwd, gl.policy_loss_fwd,
+                gl.policy_loss_bwd, decode_attention)
+    want = (TRAIN_LAYERS * rl.grad_accum, TRAIN_LAYERS * rl.grad_accum,
+            rl.grad_accum, rl.grad_accum, 0)
+    totals = [0] * len(counters)
+    step = ts.make_train_step(cfg, rl, device=dev)
+    walls, hist = [], {"cuda": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(3):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dispatch.forced("cuda"):
+            state, metrics = step(state, np_batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = tuple(c.launches for c in counters)
+        if got != want:
+            raise AssertionError(f"step {i + 1}: launches (K1, K3, K4 fwd, "
+                                 f"K4 bwd, K2) {got}, want {want}")
+        totals = [a + b for a, b in zip(totals, got)]
+        hist["cuda"].append({k: v.item() for k, v in metrics.items()})
+        bad = [k for k, v in metrics.items() if not math.isfinite(v.item())]
+        if bad:
+            raise AssertionError(f"step {i + 1}: non-finite metrics {bad}")
+        if i == 0:
+            rel = abs(metrics["loss"].item() - m_kernel["loss"].item()) \
+                / max(abs(m_kernel["loss"].item()), ROUTE_FLOOR)
+            if not rel <= ROUTE_BOUND:
+                raise AssertionError(f"step 1 loss {metrics['loss']} vs the "
+                                     f"gradient pass {m_kernel['loss']}")
+        print(f"[train] step {i + 1}: loss {metrics['loss'].item():.6f} | "
+              f"pg {metrics['pg_loss'].item():.5f} value "
+              f"{metrics['value_loss'].item():.5f} kl "
+              f"{metrics['kl'].item():.5f} entropy "
+              f"{metrics['entropy'].item():.5f} | grad norm "
+              f"{metrics['grad_norm'].item():.4f} | launches K1 {got[0]} K3 "
+              f"{got[1]} K4 fwd {got[2]} bwd {got[3]} | wall "
+              f"{walls[-1] * 1e3:.1f} ms")
+    if int(state.version) != 3 or int(state.opt.step) != 3:
+        raise AssertionError(f"version {int(state.version)}, opt step "
+                             f"{int(state.opt.step)}")
+    flat_mu = [(p, x) for p, x in tree_leaves_with_path(state.opt.mu)]
+    zero_mu = [".".join(p) for p, x in flat_mu if not bool((x != 0).any())]
+    if zero_mu:
+        raise AssertionError(f"first moments all zero: {zero_mu}")
+    now = dict(tree_leaves_with_path(state.params))
+    unchanged = [f"{'.'.join(path)}[{i}]" for path, x in now.items()
+                 if path[0] == "layers" and x.ndim == 3
+                 for i in range(TRAIN_LAYERS)
+                 if torch.equal(x[i], p0[path][i])]
+    if unchanged or torch.equal(now[("action_head", "w")],
+                                p0[("action_head", "w")]):
+        raise AssertionError(f"unchanged after 3 steps: {unchanged} or the "
+                             f"action head")
+    peak = torch.cuda.max_memory_allocated(dev)
+    seq = cfg.num_prefix_tokens + np_batch.obs_tokens.shape[2] \
+        + cfg.action_dim
+    print(f"[train] 3 steps: version 3, every first moment nonzero, every "
+          f"layer matrix and the action head changed | step wall "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms (host clock, "
+          f"synchronized; batch 8 x 9 sequences of {seq} tokens, "
+          f"grad_accum {rl.grad_accum}) | max_memory_allocated "
+          f"{peak / 1e9:.2f} GB")
+    if not max(peak, compare_peak) < TRAIN_MEM_LIMIT:
+        raise AssertionError(f"peak memory {peak / 1e9:.1f} GB in the "
+                             f"steps, {compare_peak / 1e9:.1f} GB in the "
+                             f"step-1 comparison")
+    _trace_train_step(dev, step, state, np_batch)
+
+    # the same three steps on the plain route, from a fresh seed-0 state
+    del state
+    torch.cuda.empty_cache()
+    state = ts.init_train_state(cfg, 0, device=dev)
+    if not all(torch.equal(x, p0[path])
+               for path, x in tree_leaves_with_path(state.params)):
+        raise AssertionError("seed-0 state differs from the first one")
+    del p0
+    hist["torch"] = []
+    with dispatch.forced("torch"):
+        for i in range(3):
+            state, metrics = step(state, np_batch)
+            hist["torch"].append({k: v.item() for k, v in metrics.items()})
+    rows, worst = [], 0.0
+    for i, (mk, mp) in enumerate(zip(hist["cuda"], hist["torch"])):
+        rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), ROUTE_FLOOR)
+               for k in STEP_KEYS}
+        if not all(math.isfinite(mp[k]) for k in mp):
+            raise AssertionError(f"plain route step {i + 1}: {mp}")
+        worst = max([worst] + list(rel.values()))
+        rows.append(f"step {i + 1}: " + ", ".join(
+            f"{k} {mk[k]:.6g} vs {mp[k]:.6g}" for k in STEP_KEYS)
+            + f" (max rel {max(rel.values()):.3e})")
+    print(f"[train] steps 1-3 from the same seed-0 state, kernel vs plain "
+          f"route: {' | '.join(rows)} | max rel diff {worst:.3e} (bound "
+          f"{STEPS_BOUND})")
+    if not worst <= STEPS_BOUND:
+        raise AssertionError(f"steps 1-3 differ between routes by {worst}")
+    return dict(zip(("flash_attention", "flash_attention_bwd",
+                     "fused_policy_loss_fwd", "fused_policy_loss_bwd"),
+                    totals))
+
+
+def _leaf_grad_diff(got, exp):
+    """|got - exp| / |exp| (Frobenius norms) for every leaf, taking each
+    layer of a stacked ``layers`` leaf on its own: [(value, leaf[layer])],
+    largest first, NaN first of all."""
+    import torch
+    from repro_torch.tree import tree_leaves_with_path
+    ref = dict(tree_leaves_with_path(exp))
+    out = []
+    for path, g in tree_leaves_with_path(got):
+        parts = (enumerate(zip(g, ref[path])) if path[0] == "layers"
+                 else [(None, (g, ref[path]))])
+        for i, (a, b) in parts:
+            rel = (torch.linalg.vector_norm(a - b)
+                   / torch.linalg.vector_norm(b)).item()
+            out.append((rel, ".".join(path)
+                        + ("" if i is None else f"[{i}]")))
+    return sorted(out, key=lambda d: (not math.isnan(d[0]), -d[0]))
+
+
+def _action_hidden_diff(cfg, params, batch):
+    """The value head's input, the final hidden states of the action
+    tokens, from one no-grad forward of the first micro-batch's sequences on
+    each route. Returns |h_kernel - h_plain| / |h_plain|, the same for h
+    centred over the action positions, and |centred h| / |h| (plain)."""
+    import torch
+    from repro_torch.core.train_step import _flat
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+    b, tp1, a = batch.actions.shape[:3]
+    b //= 2
+    tokens = torch.cat([_flat(batch.obs_tokens[:b], b, tp1),
+                        _flat(batch.actions[:b], b, tp1)], 1)
+    prefix = _flat(batch.prefix_embeds[:b], b, tp1)
+    h = {}
+    with torch.no_grad():
+        for mode in ("cuda", "torch"):
+            with dispatch.forced(mode):
+                h[mode] = transformer.forward(
+                    cfg, params, tokens, prefix,
+                    head=False)["hidden"][:, -a:].float()
+    c = {m: x - x.mean(1, keepdim=True) for m, x in h.items()}
+    norm = torch.linalg.vector_norm
+    return (*((norm(x["cuda"] - x["torch"]) / norm(x["torch"])).item()
+              for x in (h, c)),
+            (norm(c["torch"]) / norm(h["torch"])).item())
+
+
+def _trace_train_step(dev, step, state, np_batch):
+    """One more train step under torch.profiler: wall, device busy time and
+    the kernels that take it. After the counted steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, np_batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms == 0:
+        print(f"[trace] one train step: wall {wall_ms:.1f} ms traced; device "
+              f"time not measured (the profiler saw no kernels)")
+        return
+    groups = {}
+    for name, ms, n in rows:
+        key = next((g for g, pats in TRACE_GROUPS if any(
+            p in name for p in pats)), "other")
+        t, c = groups.get(key, (0.0, 0))
+        groups[key] = (t + ms, c + n)
+    by_group = "; ".join(f"{g} {t:.1f} ms x{c}" for g, (t, c) in sorted(
+        groups.items(), key=lambda kv: -kv[1][0]))
+    print(f"[trace] one train step (4th), traced: wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"idle {100 * (1 - busy_ms / wall_ms):.1f}% | by kind: {by_group}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -535,8 +1070,16 @@ def main() -> int:
     phase_model(dev, cfg, params0)
 
     launches = phase_serving(dev, cfg, params0, params1)
-    entries[0]["launches"], entries[1]["launches"] = launches
     phase_trace(dev, cfg, params0)
+    del params0, params1
+    torch.cuda.empty_cache()
+    train = phase_train(dev)
+    entries[0]["launches"] = launches[0] + train["flash_attention"]
+    entries[0]["launches_by_path"] = {"serving": launches[0],
+                                      "training": train["flash_attention"]}
+    entries[1]["launches"] = launches[1]
+    for e in entries[2:]:
+        e["launches"] = train[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

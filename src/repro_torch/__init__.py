@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of the AcceRL reproduction (``src/repro`` is the JAX
 reference it is held against).
 
-The module layout mirrors ``repro``: ``configs``, ``kernels``, ``models``,
-``runtime``. The port imports ``torch`` and numpy only; every hot kernel of
-the reference's Pallas set that it carries is a hand-written CUDA kernel for
-Hopper (``csrc/``), with a plain PyTorch version beside it for the CPU.
+The module layout mirrors ``repro``: ``configs``, ``core``, ``data``,
+``kernels``, ``models``, ``optim``, ``runtime``. The port imports ``torch``
+and numpy only; every hot kernel of the reference's Pallas set that it
+carries is a hand-written CUDA kernel for Hopper (``csrc/``), with a plain
+PyTorch version beside it for the CPU.
 """
 from __future__ import annotations
 

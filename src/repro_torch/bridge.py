@@ -5,6 +5,10 @@
 nested dict with torch tensors. Keys are the JAX tree paths, so nothing is
 renamed; stacked per-layer leaves keep their leading ``L`` axis.
 
+``batch_from_numpy`` carries a numpy ``TrajectoryBatch`` (as
+``dummy_batch`` or the reference's rollout makes it) to the device, leaf by
+leaf, with the same dtypes.
+
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays. They are carried
 bit-exactly through a ``uint16`` view, recognised by ``dtype.name`` so this
 module never needs ``ml_dtypes`` on the way in.
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.data.trajectory import TrajectoryBatch
 
 
 def _leaf_to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -53,3 +58,13 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return _tensor_to_leaf(tree)
+
+
+def batch_from_numpy(batch: TrajectoryBatch, *,
+                     device="cuda") -> TrajectoryBatch:
+    """A ``TrajectoryBatch`` of numpy arrays -> the same batch of tensors
+    on ``device`` (``None`` leaves stay ``None``)."""
+    dev = resolve_device(device)
+    return TrajectoryBatch(*(
+        None if x is None else _leaf_to_tensor(np.asarray(x), dev)
+        for x in batch))

@@ -5,6 +5,11 @@ kernel's plain PyTorch version, a CUDA tensor launches the hand-written
 CUDA kernel, which raises if the shape, dtype, layout or device is not one
 it takes. There is no fallback and no environment variable between the two.
 
+``dense_attention`` is differentiable: with grad enabled and an input
+that requires it, it runs ``FlashAttentionFn`` (flash forward saving the
+LSE, flash backward), otherwise the forward kernel alone, as in serving.
+``policy_head_loss`` is the fused action head + GIPO loss (K4).
+
 This module adds only the override ``set_mode`` / ``forced`` (mirroring the
 reference's ``repro.kernels.dispatch``), which tests and ``chip_smoke.py``
 use to run the plain route on the card for comparison:
@@ -19,10 +24,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import gipo_loss as _gl
 from repro_torch.kernels.decode_attention import (_plain_decode,
                                                   decode_attention as
                                                   _kernel_decode)
-from repro_torch.kernels.flash_attention import _plain_dense, flash_attention
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 _plain_dense,
+                                                 flash_attention)
 
 _MODES = ("cuda", "torch")
 _override: Optional[str] = None
@@ -60,7 +68,23 @@ def dense_attention(q, k, v, *, window: Optional[int] = None):
     q: [B,T,H,D]; k/v: [B,T,KV,D] -> [B,T,H,D] in q.dtype."""
     if _forced_plain(q):
         return _plain_dense(q, k, v, causal=True, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, window)
     return flash_attention(q, k, v, causal=True, window=window)
+
+
+def policy_head_loss(hidden, w, targets, logp_old, advantages, mask, *,
+                     sigma: float):
+    """Fused action head + GIPO/entropy/KL loss. hidden: [N, d]; w: [d, Va];
+    targets (int32), logp_old, advantages, mask: [N] -> (pg, entropy, kl,
+    metrics). The kernel route never writes an [N, Va] softmax; the plain
+    route (``forced("torch")``) autodiffs the same forward math."""
+    if _forced_plain(hidden):
+        return _gl.plain_policy_loss(hidden, w, targets, logp_old,
+                                     advantages, mask, sigma)
+    return _gl.fused_policy_loss(hidden, w, targets, logp_old, advantages,
+                                 mask, sigma)
 
 
 def decode_attention(q, k, v, valid):

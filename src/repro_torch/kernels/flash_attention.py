@@ -1,5 +1,6 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_attention.cu`` and
-its plain PyTorch version.
+"""Flash attention, forward (K1) and backward (K3): the CUDA kernels
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` and their
+plain PyTorch versions.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_attn_kernel`` via ``flash_attention``). On this card the serving shapes
@@ -12,6 +13,16 @@ of the CUDA source for the design.
 ``flash_attention`` launches the kernel for CUDA tensors and raises on any
 shape, dtype, layout or device it does not take; a CPU tensor goes to
 ``_plain_dense``. ``flash_attention.launches`` counts kernel launches.
+
+The backward replaces the reference's ``flash_attention_bwd``
+(``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``): dq, dk, dv from the
+saved per-row log-sum-exp, ``p = exp(s - lse)``, ``ds = p∘(dO·Vᵀ − D)``
+with ``D = rowsum(dO∘O)`` (plain torch, outside the kernel, as in the
+reference). One kernel accumulates dq over kv tiles; the other dk/dv over
+q tiles and over the GQA group of its kv head. ``flash_attention_bwd``
+routes like the forward (CPU → ``_plain_flash_bwd``);
+``flash_attention_bwd.launches`` counts its launches.
+``FlashAttentionFn`` ties the two together for autograd.
 """
 from __future__ import annotations
 
@@ -120,3 +131,107 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def _plain_flash_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+                     window: Optional[int] = None):
+    """Plain PyTorch backward: replays ``p = exp(s − lse)`` densely in f32,
+    per q head, then folds dk/dv over each GQA group. Returns (dq, dk, dv)
+    in the inputs' dtypes."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    scale = d ** -0.5
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=2)             # [B,S,H,D]
+    vf = v.float().repeat_interleave(group, dim=2)
+    dd = (dof * out.float()).sum(-1)                           # [B,T,H]
+    sc = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    qpos = torch.arange(t, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    ok = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= (qpos - kpos) < window
+    p = torch.where(ok, torch.exp(sc - lse.transpose(1, 2)[..., None]), 0.0)
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = p * (dp - dd.transpose(1, 2)[..., None])
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
+    dk = dk.reshape(b, s, kv, group, d).sum(3)
+    dv = dv.reshape(b, s, kv, group, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: widest head the backward kernel stages (four [64, D] f32 tiles fit
+#: shared memory up to D = 128)
+BWD_MAX_D = 128
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """Gradients (dq, dk, dv) from the forward's residuals. q/out/do:
+    [B,T,H,D]; k/v: [B,S,KV,D]; lse: [B,T,H] f32 from
+    ``flash_attention(..., return_lse=True)``. dq/dk/dv come out in the
+    inputs' dtype (f32 accumulation)."""
+    if q.device.type == "cpu":
+        return _plain_flash_bwd(q, k, v, out, lse, do, causal=causal,
+                                window=window)
+    check_attention_args(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    if d > BWD_MAX_D:
+        raise ValueError(f"head_dim {d} > {BWD_MAX_D}: the backward kernel "
+                         f"does not take it")
+    for name, x in (("out", out), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype \
+                or x.device != q.device or not x.is_contiguous() \
+                or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{q.dtype} tensor of q's shape on {q.device}")
+    if lse.shape != (b, t, h) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 [B,T,H] tensor "
+                         f"on {q.device}")
+    dd = (do.float() * out.float()).sum(-1)            # D = rowsum(dO∘O)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, t, s, h, kv, d, int(causal), int(window or 0),
+            _DTYPE_CODES[q.dtype], d ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err)
+    with _count_lock:
+        flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal attention with the flash forward (saving the LSE) and the
+    flash backward, routed by device like the wrappers: the reference's
+    ``_flash_with_twin_bwd`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        out, lse = flash_attention(q, k, v, causal=True, window=window,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=True, window=ctx.window)
+        return dq, dk, dv, None

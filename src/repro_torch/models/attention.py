@@ -1,10 +1,11 @@
-"""Grouped-query attention: prefill (emitting the KV cache) and
-single-token decode, as in the reference ``repro/models/attention.py``.
+"""Grouped-query attention: the training forward, prefill (emitting the
+KV cache) and single-token decode, as in the reference
+``repro/models/attention.py``.
 
 The cache may be a ring buffer (``cache_len < t``): slot = pos % cache_len.
-Prefill attention goes through ``dispatch.dense_attention`` and decode
-attention through ``dispatch.decode_attention``: the CUDA kernels for CUDA
-tensors, the plain versions on the CPU.
+Training and prefill attention go through ``dispatch.dense_attention``
+(differentiable) and decode attention through ``dispatch.decode_attention``:
+the CUDA kernels for CUDA tensors, the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -92,6 +93,24 @@ def init_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,
                              device=device),
         length=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
+
+
+def attention_forward(params: Params, x: torch.Tensor, *, rope_theta: float,
+                      window: Optional[int] = None,
+                      positions: Optional[torch.Tensor] = None,
+                      block: Optional[int] = None) -> torch.Tensor:
+    """Full causal self-attention for training / teacher-forced scoring
+    (the reference's dense path). The reference's blockwise path for
+    ``t > block`` is not ported yet and raises."""
+    b, t, _ = x.shape
+    if block is not None and t > block:
+        raise NotImplementedError(
+            f"blockwise attention (t={t} > block={block}) is not ported yet")
+    if positions is None:
+        positions = torch.arange(t, device=x.device)[None, :]
+    q, k, v = _project_qkv(params, x, positions, rope_theta)
+    out = dispatch.dense_attention(q, k, v, window=window)
+    return _out_proj(out, params["wo"])
 
 
 def attention_prefill(params: Params, x: torch.Tensor, *, rope_theta: float,

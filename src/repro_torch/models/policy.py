@@ -1,14 +1,15 @@
-"""The VLA policy's serving half: backbone + slimmed action head + value
-head, as in the reference ``repro/models/policy.py``.
+"""The VLA policy: backbone + slimmed action head + value head, as in the
+reference ``repro/models/policy.py``.
 
 An env step consumes an observation embedding (stub frontend) plus the
 instruction tokens and emits ``action_dim`` discrete action tokens, their
-behaviour log-probs μ and the value V(o_t). Teacher-forced scoring (the
-trainer's pass) belongs to the training slice of the port.
+behaviour log-probs μ and the value V(o_t) (``sample_action_sequence``).
+The trainer scores recorded steps teacher-forced (``policy_forward``, or
+``policy_forward_hidden`` for the fused-loss path).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +32,76 @@ def init_policy_params(cfg: ModelConfig, seed: int = 0, *,
     params["value_head"] = value_head_init(
         gen, cfg.d_model, cfg.max_episode_steps, dev)
     return params
+
+
+class PolicyOutput(NamedTuple):
+    logits: torch.Tensor       # [B, A, Va] f32 — per action-token logits
+    value: torch.Tensor        # [B]
+    hidden: torch.Tensor       # [B, S, d]
+    aux: Dict[str, float]
+
+
+class PolicyHidden(NamedTuple):
+    pred_hidden: torch.Tensor  # [B, A, d] — hidden at the position that
+    #                            predicts each action token (pre head)
+    value: torch.Tensor        # [B]
+    aux: Dict[str, float]
+
+
+def _teacher_forced(cfg: ModelConfig, params: Params,
+                    obs_tokens: torch.Tensor, action_tokens: torch.Tensor,
+                    step_t: torch.Tensor,
+                    prefix_embeds: Optional[torch.Tensor], *,
+                    remat: bool, head: bool):
+    """Shared teacher-forced pass. Returns (transformer out, pred slice,
+    value); ``pred`` selects the positions prefix + T_obs + k − 1 that
+    predict action token k, in one place for both paths."""
+    a = action_tokens.shape[1]
+    tokens = torch.cat([obs_tokens, action_tokens], dim=1)
+    out = transformer.forward(cfg, params, tokens,
+                              prefix_embeds=prefix_embeds, remat=remat,
+                              head=head)
+    t_total = out["hidden"].shape[1]
+    pred = slice(t_total - a - 1, t_total - 1)
+    act_hidden = out["hidden"][:, t_total - a:]                  # [B, A, d]
+    value = value_head(params["value_head"], act_hidden, step_t)
+    return out, pred, value
+
+
+def policy_forward(cfg: ModelConfig, params: Params,
+                   obs_tokens: torch.Tensor, action_tokens: torch.Tensor,
+                   step_t: torch.Tensor,
+                   prefix_embeds: Optional[torch.Tensor] = None, *,
+                   remat: bool = False) -> PolicyOutput:
+    """Teacher-forced scoring of one env step. obs_tokens: [B, T_obs];
+    action_tokens: [B, A]; step_t: [B]. Logits for action token k are read
+    at the position preceding it."""
+    out, pred, value = _teacher_forced(cfg, params, obs_tokens,
+                                       action_tokens, step_t, prefix_embeds,
+                                       remat=remat, head=True)
+    return PolicyOutput(logits=out["logits"][:, pred], value=value,
+                        hidden=out["hidden"], aux=out["aux"])
+
+
+def policy_forward_hidden(cfg: ModelConfig, params: Params,
+                          obs_tokens: torch.Tensor,
+                          action_tokens: torch.Tensor, step_t: torch.Tensor,
+                          prefix_embeds: Optional[torch.Tensor] = None, *,
+                          remat: bool = False) -> PolicyHidden:
+    """Teacher-forced scoring that stops before the action head; the fused
+    loss (``dispatch.policy_head_loss``) applies the head blockwise."""
+    out, pred, value = _teacher_forced(cfg, params, obs_tokens,
+                                       action_tokens, step_t, prefix_embeds,
+                                       remat=remat, head=False)
+    return PolicyHidden(pred_hidden=out["hidden"][:, pred], value=value,
+                        aux=out["aux"])
+
+
+def action_log_prob(logits: torch.Tensor,
+                    action_tokens: torch.Tensor) -> torch.Tensor:
+    """Token-level log-probs. logits: [B, A, Va]; actions: [B, A]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return logp.gather(-1, action_tokens.long()[..., None])[..., 0]
 
 
 def gumbel_noise(gen: torch.Generator, shape, device) -> torch.Tensor:

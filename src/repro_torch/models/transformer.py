@@ -5,17 +5,19 @@ Per-layer leaves are stacked on a leading ``L`` axis under
 ``params["layers"]``; the reference's layer scan is a Python loop over
 ``L`` here. Entry points:
 
+  * ``forward`` — teacher-forced scoring (training / value recomputation)
   * ``prefill`` — prompt pass that also emits the decode cache
   * ``decode``  — one token against the cache
 
-The moe, ssm and hybrid arch types and the training ``forward`` belong to
-later slices of the port and raise ``NotImplementedError``.
+The moe, ssm and hybrid arch types belong to later slices of the port and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -54,10 +56,12 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _layer(tree: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree: Params, n: int) -> List[Params]:
+    """The ``n`` layers of a stacked tree, each leaf split once with
+    ``unbind`` (views; its backward is one stack per leaf)."""
+    split = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +116,50 @@ def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Forward (teacher-forced scoring)
+# ---------------------------------------------------------------------------
+
+_ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
+
+
+def _attn_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                        window: Optional[int],
+                        block: Optional[int]) -> torch.Tensor:
+    h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    x = x + attn_lib.attention_forward(
+        p["attn"], h, rope_theta=cfg.rope_theta, window=window, block=block)
+    h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], h)
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None, *,
+            window: Optional[int] = None, remat: bool = False,
+            block: Optional[int] = None,
+            head: bool = True) -> Dict[str, Any]:
+    """Returns {"hidden": [B,S,d], "logits": [B,S,Va] f32 or None, "aux"}.
+
+    ``head=False`` skips the action head (``logits`` is None): the
+    fused-loss path applies it blockwise inside the loss kernel.
+    ``remat=True`` checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant), the reference's
+    ``jax.checkpoint`` of the scan body. The reference's ``unroll`` and
+    ``act_sharding`` (scan unrolling and a GSPMD layout pin) have no
+    counterpart in an eager single-device loop and are not taken."""
+    _check_arch(cfg)
+    x = embed_inputs(cfg, params, tokens, prefix_embeds)
+    for p in _unstack(params["layers"], cfg.num_layers):
+        if remat:
+            x = checkpoint(_attn_block_forward, p, x, cfg, window, block,
+                           use_reentrant=False)
+        else:
+            x = _attn_block_forward(p, x, cfg, window, block)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = action_head(params["action_head"], x) if head else None
+    return {"hidden": x, "logits": logits, "aux": dict(_ZERO_AUX)}
+
+
+# ---------------------------------------------------------------------------
 # Decode cache init
 # ---------------------------------------------------------------------------
 
@@ -146,8 +194,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     cache_len = cache_len or t
     eff_len = min(cache_len, window) if window else cache_len
     caches = []
-    for i in range(cfg.num_layers):
-        p = _layer(params["layers"], i)
+    for p in _unstack(params["layers"], cfg.num_layers):
         hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
         out, kv = attn_lib.attention_prefill(
             p["attn"], hn, rope_theta=cfg.rope_theta, cache_len=eff_len,
@@ -178,8 +225,7 @@ def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
     x = embed(params["embed"], token).to(_dtype(cfg.compute_dtype))
     kvs = cache.attn
     lengths = []
-    for i in range(cfg.num_layers):
-        p = _layer(params["layers"], i)
+    for i, p in enumerate(_unstack(params["layers"], cfg.num_layers)):
         kv = KVCache(kvs.k[i], kvs.v[i], kvs.positions[i], kvs.length[i])
         hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
         out, kv = attn_lib.attention_decode(

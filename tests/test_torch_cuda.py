@@ -7,10 +7,13 @@ inside the fixture, never at import). Run on the H100 with
 
 Tolerances: f32 max abs err 1e-4 (f32 sums in another order); bf16 outputs
 compared in f32 with atol/rtol 2e-2 (one bf16 rounding of the output, and
-of the softmax weights, on each side). Each bf16 body (tensor-core K1 for
-D % 16 == 0 and D <= 128, FMA K1 otherwise, K2) is also held against
-``ref.tiled_softmax_attention`` on inputs whose q.k sums are exact in f32:
-within half a bf16 ulp (2^-8 relative) plus 1e-5.
+of the softmax weights, on each side). Each bf16 attention-forward body
+(tensor-core K1 for D % 16 == 0 and D <= 128, FMA K1 otherwise, K2) is
+also held against ``ref.tiled_softmax_attention`` on inputs whose q.k sums
+are exact in f32: within half a bf16 ulp (2^-8 relative) plus 1e-5. The
+training kernels (K3, K4) are f32 inside in both their versions: f32
+within 1e-4 of the largest value, bf16 within one bf16 ulp (2^-7) of each
+value plus 1e-4 of the largest.
 """
 import pytest
 import torch
@@ -154,3 +157,135 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         decode_attention(q[:, :1].contiguous(), q, q,
                          torch.ones(1, 16, device=dev))
 
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: K3 flash backward, K4 fused policy loss
+# ---------------------------------------------------------------------------
+
+def _check_grad(got, exp, dtype):
+    """f32: within 1e-4 of the largest value; bf16: one bf16 ulp (2^-7) of
+    each value plus 1e-4 of the largest (both sides are f32 inside)."""
+    err = (got.float() - exp.float()).abs()
+    scale = exp.float().abs().max().item()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert (err - 2.0 ** -7 * exp.float().abs()).max().item() \
+            <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,kv,d,window", [
+    (2, 275, 8, 8, 128, None),     # ragged T, the training head width
+    (2, 100, 8, 2, 64, 32),        # GQA + window
+    (1, 77, 4, 1, 64, None),       # MQA, ragged
+    (3, 50, 4, 4, 16, 5),          # narrow head, short window
+    (1, 40, 2, 2, 24, 5),          # D % 16 != 0: the FMA body in bf16 too
+])
+def test_flash_bwd_kernel_matches_plain(dev, dtype, b, t, h, kv, d, window):
+    from repro_torch.kernels.flash_attention import (_plain_flash_bwd,
+                                                     flash_attention_bwd)
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    q, do = (torch.randn(b, t, h, d, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, t, kv, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n0 + 1
+    exp = _plain_flash_bwd(q, k, v, o, lse, do, window=window)
+    for x, y in zip(got, exp):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        _check_grad(x, y, dtype)
+
+
+def _policy_inputs(dev, n, d, va, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(n, d, generator=g, device=dev).to(dtype),
+            (torch.randn(d, va, generator=g, device=dev)
+             * d ** -0.5).to(dtype),
+            torch.randint(0, va, (n,), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.randn(n, generator=g, device=dev) * 0.3 - 5.0,
+            torch.randn(n, generator=g, device=dev),
+            (torch.rand(n, generator=g, device=dev) > 0.15).float()]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,va", [
+    (224, 4096, 256),              # the training slice's micro-batch
+    (300, 64, 48),                 # ragged N, Va off the tensor-core body
+    (37, 128, 128),                # ragged, tensor-core body at Va 128
+])
+def test_policy_loss_kernel_matches_plain(dev, dtype, n, d, va):
+    from repro_torch.kernels import gipo_loss as gl
+    args = _policy_inputs(dev, n, d, va, dtype, n + va)
+    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / n
+    n0 = (gl.policy_loss_fwd.launches, gl.policy_loss_bwd.launches)
+    got = gl._finalize(gl.policy_loss_fwd(*args, 0.2).sum(0))
+    dh, dw = gl.policy_loss_bwd(*args, 0.2, coefs)
+    torch.cuda.synchronize()
+    assert (gl.policy_loss_fwd.launches,
+            gl.policy_loss_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    exp = gl._finalize(gl._plain_policy_loss_fwd(*args, 0.2).sum(0))
+    for x, y in zip(list(got[:3]) + list(got[3].values()),
+                    list(exp[:3]) + list(exp[3].values())):
+        assert abs(x.item() - y.item()) <= 1e-4 * max(abs(y.item()), 1.0)
+    edh, edw = gl._plain_policy_loss_bwd(*args, 0.2, coefs)
+    assert dh.dtype == args[0].dtype and dw.dtype == args[1].dtype
+    _check_grad(dh, edh, dtype)
+    _check_grad(dw, edw, dtype)
+
+
+def test_policy_loss_backward_is_deterministic(dev):
+    from repro_torch.kernels import gipo_loss as gl
+    args = _policy_inputs(dev, 3584, 4096, 256, torch.bfloat16, 1)
+    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / 3584
+    dh1, dw1 = gl.policy_loss_bwd(*args, 0.2, coefs)
+    dh2, dw2 = gl.policy_loss_bwd(*args, 0.2, coefs)
+    assert torch.equal(dh1, dh2) and torch.equal(dw1, dw2)
+
+
+def test_backward_through_attention_reaches_every_projection(dev):
+    """No silent loss of the grad: K3 runs, and wq/wk/wv/wo all get a
+    nonzero gradient."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models.attention import attention_forward
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = {n: (torch.randn(*s, generator=g, device=dev) * 0.05)
+              .bfloat16().requires_grad_(True)
+              for n, s in (("wq", (256, 2, 128)), ("wk", (256, 2, 128)),
+                           ("wv", (256, 2, 128)), ("wo", (2, 128, 256)))}
+    x = torch.randn(3, 40, 256, generator=g, device=dev).bfloat16()
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    attention_forward(params, x, rope_theta=10000.0).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    for name, p in params.items():
+        assert p.grad is not None and p.grad.abs().max().item() > 0, name
+
+
+def test_training_kernels_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels import gipo_loss as gl
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q = torch.randn(1, 16, 2, 64, device=dev)
+    o, lse = flash_attention(q, q, q, return_lse=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        w = torch.randn(1, 16, 2, 256, device=dev)
+        flash_attention_bwd(w, w, w, w, lse, w)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, q, q, o, lse.double(), q)
+    with pytest.raises(ValueError, match="do must"):
+        flash_attention_bwd(q, q, q, o, lse, q.transpose(1, 2)
+                            .contiguous().transpose(1, 2))
+    args = _policy_inputs(dev, 32, 64, 48, torch.float32, 0)
+    for i, bad, match in ((0, args[0].half(), "float32 or bfloat16"),
+                          (2, args[2].long(), "int32"),
+                          (5, args[5].cpu(), "CUDA tensor"),
+                          (1, torch.randn(64, 512, device=dev), "Va")):
+        with pytest.raises(ValueError, match=match):
+            gl.policy_loss_fwd(*args[:i], bad, *args[i + 1:], 0.2)

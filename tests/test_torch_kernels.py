@@ -1,10 +1,14 @@
-"""The port's plain attention versions against the JAX Pallas kernels.
+"""The port's plain attention versions, forward and backward, and its
+autograd route through ``dispatch.dense_attention``, against the JAX Pallas
+kernels.
 
 The Pallas kernels run in interpret mode on the CPU, unchanged; the port's
 wrappers take their plain PyTorch route because the tensors lie on the CPU.
 Inputs are made with numpy from a seed and handed to both sides. Tolerance:
-rtol/atol 2e-5 in f32 (the two sides sum in different orders).
+rtol/atol 2e-5 in f32 (the two sides sum in different orders); gradients
+at rtol/atol 2e-4, the reference's own bar for its backward kernels.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -197,3 +201,82 @@ def test_kernel_argument_checks(shape_q, shape_k, dtype, match):
     k = torch.zeros(shape_k, dtype=dtype)
     with pytest.raises((ValueError, RuntimeError), match=match):
         check_attention_args(q, k, k)
+
+
+# ---------------------------------------------------------------------------
+# Backward (K3): the plain version and the autograd route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,h,kv,window", [
+    (128, 4, 2, None),      # GQA, whole blocks
+    (128, 4, 2, 32),        # GQA + window
+    (50, 4, 4, None),       # ragged rows (the reference pads T, LSE 1e30)
+])
+def test_flash_bwd_plain_matches_pallas(d, t, h, kv, window):
+    from repro.kernels.flash_attention import flash_attention_bwd as jbwd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    rng = np.random.default_rng(d + t + h)
+    q, k, v, do = _data(rng, (1, t, h, d), (1, t, kv, d), (1, t, kv, d),
+                        (1, t, h, d))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    out, lse = pallas_flash(jq, jk, jv, window=window, block_q=64,
+                            block_k=64, interpret=True, return_lse=True)
+    exp = jbwd(jq, jk, jv, out, lse, jnp.asarray(do), window=window,
+               block_q=64, block_k=64, interpret=True)
+    got = flash_attention_bwd(*map(torch.from_numpy, (q, k, v)),
+                              torch.from_numpy(np.array(out)),
+                              torch.from_numpy(np.array(lse)),
+                              torch.from_numpy(do), window=window)
+    for g, e in zip(got, exp):
+        _close(g, e, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("t,h,kv,d,window", [
+    (128, 4, 2, 64, None),
+    (50, 4, 4, 128, 32),
+    (33, 4, 1, 16, None),
+])
+def test_dense_attention_grads_match_jax(t, h, kv, d, window):
+    """jax.grad through the reference's dispatch.dense_attention (Pallas
+    flash forward + backward in interpret mode) against torch autograd
+    through the port's, which runs FlashAttentionFn on CPU tensors."""
+    from repro.kernels import dispatch as jdispatch
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    rng = np.random.default_rng(t + d)
+    q, k, v = _data(rng, (2, t, h, d), (2, t, kv, d), (2, t, kv, d))
+
+    def jloss(q_, k_, v_):
+        with jdispatch.forced("pallas"):
+            out = jdispatch.dense_attention(q_, k_, v_, window=window)
+        return jnp.sum(out * out)
+    exp = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v))
+    calls = []
+    orig = FlashAttentionFn.backward
+
+    def spy(ctx, do):
+        calls.append(1)
+        return orig(ctx, do)
+    FlashAttentionFn.backward = staticmethod(spy)
+    try:
+        out = dispatch.dense_attention(tq, tk, tv, window=window)
+        (out * out).sum().backward()
+    finally:
+        FlashAttentionFn.backward = staticmethod(orig)
+    assert calls == [1]
+    for g, e in zip((tq.grad, tk.grad, tv.grad), exp):
+        _close(g, e, rtol=2e-4, atol=2e-4)
+
+
+def test_dense_attention_without_grad_runs_the_forward_alone():
+    rng = np.random.default_rng(6)
+    q, k, v = map(torch.from_numpy,
+                  _data(rng, (1, 8, 2, 16), (1, 8, 2, 16), (1, 8, 2, 16)))
+    assert dispatch.dense_attention(q, k, v).grad_fn is None
+    q.requires_grad_(True)
+    with torch.no_grad():
+        assert dispatch.dense_attention(q, k, v).grad_fn is None
+    assert dispatch.dense_attention(q, k, v).grad_fn is not None

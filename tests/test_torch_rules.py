@@ -103,11 +103,17 @@ def test_bridge_round_trips_bf16_bit_exactly():
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
+    from repro_torch.bridge import batch_from_numpy
+    from repro_torch.core.train_step import init_train_state, make_train_step
+    from repro_torch.data.trajectory import dummy_batch
     from repro_torch.models import policy, transformer
     from repro_torch.runtime import InferenceService, VersionedWeightStore
     cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"), layers=2,
                            d_model=64)
     calls = [
+        lambda: init_train_state(cfg),
+        lambda: make_train_step(cfg, tconfigs.RLConfig()),
+        lambda: batch_from_numpy(dummy_batch(1, 1, 1, 1, 8, 8)),
         lambda: policy.init_policy_params(cfg),
         lambda: policy.make_inference_fn(cfg),
         lambda: transformer.init_params(cfg, torch.Generator()),

@@ -10,10 +10,11 @@ Phases, each printing one line of its numbers:
   2. kernels: each CUDA kernel against its plain PyTorch version on the card,
      at the slices' shapes, in f32 and bf16: K1 flash forward and K2 decode
      (the bf16 bodies also against the kernels' own order of arithmetic, to
-     within the output's rounding), K3 flash backward and K4 fused policy
-     loss forward and backward (ragged, GQA); each timed beside the plain
-     version and, where one PyTorch call computes the same function, that
-     call.
+     within the output's rounding), K3 flash backward, K4 fused policy
+     loss forward and backward (ragged, GQA; d 4096 and 2560), K6 SSD scan
+     (with and without entering states) and K7 its backward (run twice, bit
+     for bit); each timed beside the plain version and, where one PyTorch
+     call computes the same function, that call.
   3. model: openvla-7b at full width (bf16, random weights from a seed),
      prefill + 7 decode steps on the kernel route, replayed on the plain
      route; every step's action logits compared.
@@ -27,6 +28,13 @@ Phases, each printing one line of its numbers:
      step 1's metrics and gradients (per leaf and layer) compared with the
      plain route's; the three steps replayed on the plain route from the
      same seed and compared.
+  6. mamba2-2.7b: phases 3-5 again for the ssm family: full depth (64
+     layers) on 256-token prompts and on the toy env's 12-token prompts, K6
+     on every layer of every prefill, the routes also compared on an f32
+     copy of the model; training at full width and 16 of its 64 layers, K6/K7
+     on every layer and K4 on every loss, the plain route checkpointing each
+     layer, with step 1 and steps 1-3 again on an f32 copy as the witness of
+     the bf16 gaps; one more step on the env's 19-token sequences.
 
 Every check raises on failure, so the script exits non-zero. The line
 before the last is a JSON summary of every kernel; the last line is
@@ -94,12 +102,60 @@ LEAF_BOUND = 5e-2
 # difference of the loss, KL, entropy and grad norm per step. Measured
 # 6.1e-2 on the H100 (step 2's loss and KL, 6.0e7 vs 5.7e7: the step-2 jump
 # amplifies step 1's 4e-4); the bound leaves ~3x room.
-STEPS_BOUND = 0.2
 STEP_KEYS = ("loss", "kl", "entropy", "grad_norm")
+STEPS_BOUND = [dict.fromkeys(STEP_KEYS, 0.2)] * 3       # per step, per key
+# mamba2-2.7b: serving at full depth (64 layers) on prompts of SSM_OBS
+# tokens (two SSD chunks of 128); training at full width and
+# SSM_TRAIN_LAYERS of its 64 layers on sequences of SSM_OBS tokens
+# (249 observation + 7 action tokens). Full depth would need ~43 GB of
+# bf16 params and grads and f32 moments and accumulator before activations.
+# Both paths also run on the toy manipulation env's own lengths
+# (src/repro/envs/toy_manipulation.py: 12-token prompts, so 12 + 7 = 19
+# train tokens), where the SSD kernels take one short chunk.
+SSM_OBS = 256
+SSM_ENV_OBS = 12
+SSM_TRAIN_LAYERS = 16
+# Kernel route vs plain route for mamba2-2.7b. The two routes differ only
+# in the SSD scan (K6 against the plain chunked form, both f32 inside from
+# the same bf16 inputs); bf16 roundings of the block outputs that land on
+# either side of a tie then pass through the layers. Serving logits
+# measured 0.148 apart on the H100 over 64 layers (max |logit| 3.6; 0.121
+# on the env's 12-token prompts), while an f32 copy of the same model gives
+# 2.3e-5 between the routes and 0.19 between itself and the bf16 kernel
+# route: the gap is bf16 rounding carried through 64 layers, not the
+# kernel. Step 1 of training (16 layers): 1.31e-2 over the metrics
+# (adv_mean_raw, from the value head, whose input differs by 2e-2; one step
+# on the env's 19-token sequences: 1.14e-3) and 5.1e-2 per leaf and layer
+# (dt_bias, A_log: per-head sums over every token). Steps 1-3 from the same
+# seed: steps 1-2 within 1.03e-2 in loss, KL, entropy and grad norm; by
+# step 3 the entropy has collapsed (5.16 -> 1.31) on both routes, which
+# still agree to 6e-3 in entropy and 7.9e-2 in grad norm, while the k3-KL
+# against the dummy behaviour log-probs, exponential in the log-ratio,
+# differs 2x (26.8 vs 13.5, and the loss with it): step 3's loss and KL are
+# printed here and held on the f32 copy below. Each bound leaves ~3x room
+# over its measurement.
+SSM_LOGIT_BOUND = 0.45
+SSM_F32_LOGIT_BOUND = 1e-4
+SSM_ROUTE_BOUND = 4e-2
+SSM_LEAF_BOUND = 0.15
+SSM_STEPS_BOUND = [dict.fromkeys(STEP_KEYS, 3e-2)] * 2 + [
+    {"entropy": 0.25, "grad_norm": 0.25}]
+# The witness for those bf16 gaps: step 1 and steps 1-3 again on an f32
+# copy of the 16-layer model, both routes checkpointing each layer, at SSD
+# chunk 64 (K7's f32 tiles at chunk 128 need ~280 KB of shared memory).
+# The routes then differ only in the order of f32 sums, so every key of
+# every step is held, step 3's loss and KL included. Measured on the H100:
+# step 1's metrics 1.09e-6 apart (adv_mean_raw), its gradients 1.07e-5 per
+# leaf and layer (dt_bias[15]), steps 1-3 5.5e-5 (step 3's loss; its KL
+# 5.2e-5, where bf16 gives 2x). The bounds leave ~5x room.
+SSM_F32_CHUNK = 64
+SSM_F32_BOUNDS = (5e-6, 5e-5, [dict.fromkeys(STEP_KEYS, 3e-4)] * 3)
 # kernel-name patterns that group a traced train step's device time
 TRACE_GROUPS = (("K1 flash fwd", ("flash_fwd",)),
                 ("K3 flash bwd", ("flash_bwd",)),
                 ("K4 policy loss", ("policy_rows", "policy_dw")),
+                ("K6 ssd fwd", ("ssd_fwd",)),
+                ("K7 ssd bwd", ("ssd_bwd", "ssd_head_sum")),
                 ("GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
                 ("elementwise", ("elementwise",)),
                 ("reduce", ("reduce",)),
@@ -518,8 +574,8 @@ def phase_kernels(dev):
     # --- K4 fused policy loss -----------------------------------------------
     from repro_torch.kernels import gipo_loss as gl
     k4 = {}
-    for (n, d, va) in [(224, 4096, 256), (3584, 4096, 256), (300, 64, 48),
-                       (37, 128, 128)]:
+    for (n, d, va) in [(224, 4096, 256), (3584, 4096, 256), (224, 2560, 256),
+                       (300, 64, 48), (37, 128, 128)]:
         for dtype in (torch.float32, torch.bfloat16):
             c = _policy_case(gen, dev, n, d, va, dtype)
             args = [c[x] for x in ("h", "w", "tg", "lo", "ad", "mk")]
@@ -544,21 +600,204 @@ def phase_kernels(dev):
                   f"err dh {res[0][0]:.3e} dw {res[1][0]:.3e} | beyond the "
                   f"bar's rounding term, of the largest value: "
                   f"{max(r[1] for r in res):.3e} | two runs equal")
-            if dtype == torch.bfloat16 and d == 4096:
-                k4[n] = dict(c, err=max([ferr] + [r[0] for r in res]))
+            if dtype == torch.bfloat16 and d in (4096, 2560):
+                k4[n, d] = dict(c, err=max([ferr] + [r[0] for r in res]))
             del c, args, dh, dw, dh2, dw2, edh, edw
-    t224, t3584 = _time_policy(k4[224], flush), _time_policy(k4[3584], flush)
+    t224, t3584, t2560 = (_time_policy(k4[key], flush) for key in
+                          ((224, 4096), (3584, 4096), (224, 2560)))
     for tag in ("fwd", "bwd"):
         entries.append(dict(
             name=f"fused_policy_loss_{tag}", route="cuda",
             source="src/repro_torch/csrc/gipo_loss.cu",
             replaces=("src/repro/kernels/gipo_loss.py:301" if tag == "fwd"
                       else "src/repro/kernels/gipo_loss.py:312"),
-            launches=None, max_abs_err=max(k4[224]["err"],
-                                           k4[3584]["err"]),
-            **t224[tag], large_batch=t3584[tag]))
-    del l2, k4
+            launches=None, max_abs_err=max(v["err"] for v in k4.values()),
+            **t224[tag], large_batch=t3584[tag], mamba2_width=t2560[tag]))
+    del k4
+    entries += _ssd_kernels(gen, dev, flush)
+    del l2
     return entries
+
+
+def _ssd_case(gen, dev, b, t, h, p, n, dtype):
+    """SSD scan inputs as the model makes them: dt post-softplus in
+    [0.01, 0.1], A in [-1.5, -0.5]."""
+    import torch
+    return [torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype),
+            torch.rand(b, t, h, generator=gen, device=dev) * 0.09 + 0.01,
+            -(torch.rand(h, generator=gen, device=dev) + 0.5),
+            torch.randn(b, t, n, generator=gen, device=dev).to(dtype),
+            torch.randn(b, t, n, generator=gen, device=dev).to(dtype)]
+
+
+def _ssd_flops(b, t, h, p, n, q, bwd: bool) -> float:
+    """Operations the SSD scan needs (multiply and add counted apart) at
+    chunk ``min(q, t)``, causal pairs of the sequence's own steps only (a
+    short last chunk's padding is not counted). Forward: C.B^T and W.x over
+    the pairs, C.S^T and the state update. Backward: C.B^T, dy.x^T, W^T.dy,
+    dcb.B and dcb^T.C over the pairs, and B.M^T, dy.S, x.M and the carry of
+    M."""
+    q = min(q, t)
+    total = 0
+    for c0 in range(0, t, q):
+        rows = min(q, t - c0)
+        pairs = rows * (rows + 1) // 2
+        total += (2 * pairs * (2 * n + 3 * p) + 8 * rows * n * p if bwd
+                  else 2 * pairs * (n + p) + 4 * rows * n * p)
+    return float(b * h * total)
+
+
+def _check_f32_out(name, got, exp):
+    """An f32 output of an f32-inside kernel: max abs err <= F32_MAX_ERR of
+    the largest value, for f32 and bf16 inputs alike. Returns (max abs err,
+    as a fraction of the largest value)."""
+    err = (got.float() - exp.float()).abs().max().item()
+    scale = exp.float().abs().max().item()
+    if not err <= F32_MAX_ERR * scale:
+        raise AssertionError(f"{name}: max abs err {err} > {F32_MAX_ERR} x "
+                             f"{scale}")
+    return err, err / max(scale, 1e-30)
+
+
+def _ssd_kernels(gen, dev, flush):
+    """K6 at the serving (B8) and training (B36) batches of mamba2-2.7b, on
+    256-token sequences (two chunks of 128) and on the env's (12-token
+    prompts, 19-token train sequences: one short chunk), f32 and bf16, with
+    and without entering states; K7 at the training batch on both lengths
+    (bf16; f32 at chunk 64 on 256 tokens), run twice and compared bit for
+    bit; each against its plain version. Returns the two JSON entries, timed
+    at the 256-token shapes with the env's shapes beside them."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    h, p, n, q = 80, 64, 128, 128
+    k6 = {}
+    for b, t in ((8, 256), (36, 256), (8, SSM_ENV_OBS),
+                 (36, SSM_ENV_OBS + 7)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_case(gen, dev, b, t, h, p, n, dtype)
+            for states in (False, True):
+                got = ssd.ssd_scan(*args, chunk=q, return_states=states)
+                exp = ssd.plain_ssd_scan(*args, q, states)
+                torch.cuda.synchronize()
+                tag = (f"ssd_scan B={b} T={t} H={h} P={p} N={n} chunk={q} "
+                       f"{str(dtype)[6:]}" + (" +states" if states else ""))
+                res = [_check_f32_out(f"{tag} {nm}", x, y) for nm, x, y in
+                       zip(("y", "s_final", "s_enter"), got, exp)]
+                print(f"[kernels] {tag}: max abs err "
+                      + " ".join(f"{nm} {r[0]:.3e}" for nm, r in
+                                 zip(("y", "s_final", "s_enter"), res))
+                      + f" | of the largest value {max(r[1] for r in res):.3e}")
+                # timed below: bf16, with states where training saves them
+                if dtype == torch.bfloat16 and states == (b == 36):
+                    k6[b, t] = dict(args=args, states=states,
+                                    err=max(r[0] for r in res))
+                del got, exp
+            del args
+    # K7: the training batch in bf16 (f32 tiles at chunk 128 exceed shared
+    # memory; f32 is checked at chunk 64, and on the env's 19 steps, which
+    # run as one chunk of 32), a nonzero ds_final
+    k7 = {}
+    for dtype, b, t, qq in ((torch.bfloat16, 36, 256, q),
+                            (torch.float32, 8, 256, 64),
+                            (torch.bfloat16, 36, SSM_ENV_OBS + 7, q),
+                            (torch.float32, 36, SSM_ENV_OBS + 7, q)):
+        args = (k6[b, t]["args"] if dtype == torch.bfloat16
+                else _ssd_case(gen, dev, b, t, h, p, n, dtype))
+        _, _, enter = ssd.ssd_scan(*args, chunk=qq, return_states=True)
+        dy = torch.randn(b, t, h, p, generator=gen, device=dev)
+        ds = torch.randn(b, h, p, n, generator=gen, device=dev)
+        got = ssd.ssd_scan_bwd(*args, enter, dy, ds, chunk=qq)
+        again = ssd.ssd_scan_bwd(*args, enter, dy, ds, chunk=qq)
+        exp = ssd.plain_ssd_scan_bwd(*args, enter, dy, ds, qq)
+        torch.cuda.synchronize()
+        tag = f"ssd_scan_bwd B={b} T={t} H={h} P={p} N={n} chunk={qq} " \
+              f"{str(dtype)[6:]}"
+        res = []
+        for nm, x, y in zip(("dx", "ddt", "dA", "dB", "dC"), got, exp):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                raise AssertionError(f"{tag} {nm}: {x.dtype} {x.shape} vs "
+                                     f"{y.dtype} {y.shape}")
+            res.append(_check_f32_out(f"{tag} {nm}", x, y)
+                       if y.dtype == torch.float32
+                       else _check_grad(f"{tag} {nm}", x, y, dtype))
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{tag}: two runs differ")
+        print(f"[kernels] {tag}: max abs err " + " ".join(
+            f"{nm} {r[0]:.3e}" for nm, r in zip(("dx", "ddt", "dA", "dB",
+                                                 "dC"), res))
+            + f" | beyond the bar's rounding term, of the largest value: "
+            f"{max(r[1] for r in res):.3e} | two runs equal")
+        if dtype == torch.bfloat16:
+            k7[t] = dict(args=args, enter=enter, dy=dy, ds=ds,
+                         err=max(r[0] for r in res))
+        del got, again, exp, enter, dy, ds
+    env_t = SSM_ENV_OBS + 7
+    serving, train = _time_ssd(k6[8, 256], flush), _time_ssd(k6[36, 256],
+                                                             flush)
+    entries = [
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:36", launches=None,
+             max_abs_err=max(v["err"] for v in k6.values()), **serving,
+             train_shape=dict(train, max_abs_err=k6[36, 256]["err"]),
+             env_serving_shape=_time_ssd(k6[8, SSM_ENV_OBS], flush),
+             env_train_shape=_time_ssd(k6[36, env_t], flush)),
+        dict(name="ssd_scan_bwd", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+             replaces="src/repro/kernels/ssd_scan.py:143", launches=None,
+             max_abs_err=max(v["err"] for v in k7.values()),
+             **_time_ssd_bwd(k7[256], flush),
+             env_train_shape=_time_ssd_bwd(k7[env_t], flush))]
+    del k6, k7
+    return entries
+
+
+def _time_ssd(case, flush):
+    """K6 and its plain version on one bf16 case; no single PyTorch call
+    computes a chunked SSD scan, so there is no library time."""
+    from repro_torch.kernels import ssd_scan as ssd
+    args, states = case["args"], case["states"]
+    b, t, h, p = args[0].shape
+    n, q = args[3].shape[-1], 128
+    ms, host_ms = _median_ms(lambda: ssd.ssd_scan(
+        *args, chunk=q, return_states=states), flush=flush)
+    plain_ms, _ = _median_ms(lambda: ssd.plain_ssd_scan(*args, q, states),
+                             flush=flush)
+    outs = 4 * (b * t * h * p + b * h * p * n
+                + states * b * -(-t // q) * h * p * n)
+    bound_ms, bound_by = _bound(_nbytes(*args) + outs,
+                                _ssd_flops(b, t, h, p, n, q, False),
+                                "bfloat16")
+    shape = (f"B={b} T={t} H={h} P={p} N={n} chunk={q} bf16"
+             + (" +states" if states else ""))
+    print(f"[kernels] ssd_scan {shape}: kernel {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | library none | bound {bound_ms:.4f} ms "
+          f"({bound_by}) | host enqueue {host_ms:.4f} ms")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def _time_ssd_bwd(case, flush):
+    """K7 and its plain version (autograd of the plain forward) on the bf16
+    training case; no library time, as for K6."""
+    from repro_torch.kernels import ssd_scan as ssd
+    args, enter, dy, ds = (case[k] for k in ("args", "enter", "dy", "ds"))
+    b, t, h, p = args[0].shape
+    n, q = args[3].shape[-1], 128
+    ms, host_ms = _median_ms(lambda: ssd.ssd_scan_bwd(
+        *args, enter, dy, ds, chunk=q), flush=flush)
+    plain_ms, _ = _median_ms(lambda: ssd.plain_ssd_scan_bwd(
+        *args, enter, dy, ds, q), runs=5, flush=flush)
+    outs = _nbytes(args[0], args[1], args[3], args[4]) + 4 * h
+    bound_ms, bound_by = _bound(_nbytes(*args, enter, dy, ds) + outs,
+                                _ssd_flops(b, t, h, p, n, q, True),
+                                "bfloat16")
+    shape = f"B={b} T={t} H={h} P={p} N={n} chunk={q} bf16"
+    print(f"[kernels] ssd_scan_bwd {shape}: kernel {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | library none | bound {bound_ms:.4f} ms "
+          f"({bound_by}) | host enqueue {host_ms:.4f} ms")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def _replay(cfg, params, obs, prefix, tokens):
@@ -567,7 +806,8 @@ def _replay(cfg, params, obs, prefix, tokens):
     and the host-clock seconds of the prefill and of all decode steps."""
     import torch
     from repro_torch.models import transformer
-    cache_len = prefix.shape[1] + obs.shape[1] + tokens.shape[1]
+    cache_len = (0 if prefix is None else prefix.shape[1]) + obs.shape[1] \
+        + tokens.shape[1]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, cache = transformer.prefill(cfg, params, obs, prefix,
@@ -583,28 +823,36 @@ def _replay(cfg, params, obs, prefix, tokens):
     return logits, t1 - t0, time.perf_counter() - t1
 
 
-def phase_model(dev, cfg, params):
+def phase_model(dev, cfg, params, *, obs_len, counters, bound,
+                f32_bound=None):
+    """``sample_action_sequence`` on the kernel route with its launches
+    counted (``counters``: name -> (wrapper, launches per prefill + 7
+    decodes)), then prefill + one decode per sampled token replayed on both
+    routes and every step's action logits compared within ``bound``. With
+    ``f32_bound``, the two replays again on an f32 copy of the model, held
+    within ``f32_bound``: both routes compute the same function, and the
+    bf16 difference is their roundings carried through the layers."""
     import torch
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.policy import gumbel_noise, sample_action_sequence
     gen = torch.Generator(device=dev).manual_seed(1)
     b, a = 8, cfg.action_dim
-    obs = torch.randint(0, cfg.vocab_size, (b, 12), generator=gen, device=dev)
-    prefix = torch.randn(b, cfg.num_prefix_tokens, 1024, generator=gen,
-                         device=dev)
+    obs = torch.randint(0, cfg.vocab_size, (b, obs_len), generator=gen,
+                        device=dev)
+    prefix = (torch.randn(b, cfg.num_prefix_tokens, 1024, generator=gen,
+                          device=dev) if cfg.num_prefix_tokens else None)
+    n_prefix = cfg.num_prefix_tokens
     steps = torch.arange(b, device=dev)
     noise = gumbel_noise(gen, (a, b, cfg.action_vocab_size), dev)
     with torch.inference_mode():
         with dispatch.forced("cuda"):
-            n0 = (flash_attention.launches, decode_attention.launches)
+            for fn, _ in counters.values():
+                fn.launches = 0
             tok, logp, val = sample_action_sequence(
                 cfg, params, None, obs, steps, prefix, gumbel=noise)
-            n1 = (flash_attention.launches, decode_attention.launches)
-        if (n1[0] - n0[0], n1[1] - n0[1]) != (cfg.num_layers,
-                                              cfg.num_layers * a):
-            raise AssertionError(f"launches {n0} -> {n1}")
+            got = {k: fn.launches for k, (fn, _) in counters.items()}
+        if got != {k: want for k, (_, want) in counters.items()}:
+            raise AssertionError(f"launches {got}")
         runs = {"torch": [], "cuda": []}
         for mode in ("torch", "cuda", "cuda", "torch"):
             with dispatch.forced(mode):
@@ -622,24 +870,49 @@ def phase_model(dev, cfg, params):
     torch.testing.assert_close(replay_logp, logp, atol=1e-5, rtol=0)
     diffs = [(x - y).abs().max().item() for x, y in zip(lk, lp)]
     scale = max(x.abs().max().item() for x in lp)
-    print(f"[model] openvla-7b bf16 B={b} T={prefix.shape[1] + 12} "
-          f"cache={prefix.shape[1] + 12 + a}: max |logit kernel - plain| "
-          f"per step {[f'{x:.4f}' for x in diffs]} (bound "
-          f"{MODEL_LOGIT_BOUND}, max |logit| {scale:.3f})")
+    print(f"[model] {cfg.name} bf16 x {cfg.num_layers} layers B={b} "
+          f"T={n_prefix + obs_len} cache={n_prefix + obs_len + a}: launches "
+          f"{got} | max |logit kernel - plain| per step "
+          f"{[f'{x:.4f}' for x in diffs]} (bound {bound}, max |logit| "
+          f"{scale:.3f})")
     for mode, name in (("cuda", "kernel"), ("torch", "plain")):
         times = ", ".join(f"prefill {r[1] * 1e3:.1f} ms + 7 decodes "
                           f"{r[2] * 1e3:.1f} ms" for r in runs[mode])
         print(f"[model] {name} route, two replays: {times}")
-    if not max(diffs) <= MODEL_LOGIT_BOUND:
+    if not max(diffs) <= bound:
         raise AssertionError(f"model logits differ by {max(diffs)}")
+    if f32_bound is None:
+        return
+    import dataclasses
+    from repro_torch.tree import tree_map
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tree_map(lambda v: v.float(), params)
+    with torch.inference_mode():
+        logits = {}
+        for mode in ("cuda", "torch"):
+            with dispatch.forced(mode):
+                logits[mode] = _replay(cfg32, p32, obs, prefix, tok)[0]
+    del p32
+    d32 = [(x - y).abs().max().item()
+           for x, y in zip(logits["cuda"], logits["torch"])]
+    gap = max((x - y).abs().max().item()
+              for x, y in zip(logits["cuda"], lk))
+    print(f"[model] {cfg.name} f32 copy, same tokens: max |logit kernel - "
+          f"plain| per step {[f'{x:.2e}' for x in d32]} (bound {f32_bound})"
+          f" | f32 vs bf16 kernel route {gap:.4f}")
+    if not max(d32) <= f32_bound:
+        raise AssertionError(f"f32 model logits differ by {max(d32)}")
 
 
-def phase_serving(dev, cfg, params0, params1):
+def phase_serving(dev, cfg, params0, params1, *, obs_len, frame, counters):
+    """24 requests from 4 client threads across a drain swap; ``frame``:
+    whether requests carry an env frame (the one prefix token);
+    ``counters``: name -> (wrapper, launches per batch). Returns the
+    launches by name."""
     import numpy as np
     import torch
     from repro_torch.configs import RuntimeConfig
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.runtime import InferenceService, VersionedWeightStore
     rt = RuntimeConfig(num_inference_workers=1, inference_batch=8,
                        inference_max_wait_s=0.02)
@@ -653,9 +926,10 @@ def phase_serving(dev, cfg, params0, params1):
     def client(i):
         for _ in range(3):
             with lock:
-                obs = rng.integers(0, cfg.vocab_size, 12).astype(np.int32)
-                frame = rng.random(192).astype(np.float32)
-            fut = service.submit(obs, frame, int(i))
+                obs = rng.integers(0, cfg.vocab_size, obs_len).astype(
+                    np.int32)
+                env = rng.random(192).astype(np.float32) if frame else None
+            fut = service.submit(obs, env, int(i))
             with lock:
                 futures.append(fut)
 
@@ -669,8 +943,8 @@ def phase_serving(dev, cfg, params0, params1):
             if t.is_alive():
                 raise AssertionError("client thread hung")
 
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    for fn, _ in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     service.start()
     try:
@@ -686,7 +960,7 @@ def phase_serving(dev, cfg, params0, params1):
         service.join(timeout=30)
     if not service.healthy:
         raise AssertionError(f"service failed: {service.error!r}")
-    launches = (flash_attention.launches, decode_attention.launches)
+    launches = {k: fn.launches for k, (fn, _) in counters.items()}
     for r in results:
         act = r["actions"]
         if act.shape != (cfg.action_dim,) or act.min() < 0 \
@@ -704,31 +978,54 @@ def phase_serving(dev, cfg, params0, params1):
         raise AssertionError(
             f"counters: requests {service.requests_served}, swaps "
             f"{service.weight_swaps}, batches {nb}")
-    if launches != (cfg.num_layers * nb, cfg.num_layers * cfg.action_dim
-                    * nb):
+    if launches != {k: per * nb for k, (_, per) in counters.items()}:
         raise AssertionError(f"launches {launches} for {nb} batches")
     lat = service.metrics.series("batch_s")
-    print(f"[serving] openvla-7b bf16: 24 requests, {nb} batches, versions "
+    print(f"[serving] {cfg.name} bf16 x {cfg.num_layers} layers, "
+          f"{obs_len} tokens{' + 1 frame token' if frame else ''}: 24 "
+          f"requests, {nb} batches, versions "
           f"{sorted(set(versions))}, swaps {service.weight_swaps} | "
-          f"launches flash {launches[0]} decode {launches[1]} | batch p50 "
+          f"launches {launches} | batch p50 "
           f"{statistics.median(lat) * 1e3:.1f} ms (min {min(lat) * 1e3:.1f}"
           f", max {max(lat) * 1e3:.1f}) | {24 / wall:.2f} req/s over "
           f"{wall:.2f} s incl. the swap")
     return launches
 
 
-def phase_trace(dev, cfg, params):
-    """One serving-shape batch (B=8, 12 tokens + 1 frame token, 7 decode
-    steps) under torch.profiler: wall time, device busy time, and the
-    kernels that take it. After the serving phase, so no launch it makes
-    is counted there."""
+def _device_time(prof):
+    """(busy ms, kernel rows, time by kind) of a torch.profiler trace; only
+    kernel rows count, as an operator's row repeats its kernels' time."""
+    import torch
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    groups = {}
+    for name, ms, n in rows:
+        key = next((g for g, pats in TRACE_GROUPS if any(
+            p in name for p in pats)), "other")
+        t, c = groups.get(key, (0.0, 0))
+        groups[key] = (t + ms, c + n)
+    by_kind = "; ".join(f"{g} {t:.1f} ms x{c}" for g, (t, c) in sorted(
+        groups.items(), key=lambda kv: -kv[1][0]))
+    return sum(r[1] for r in rows), rows, by_kind
+
+
+def phase_trace(dev, cfg, params, *, obs_len, frame):
+    """One serving-shape batch (B=8, ``obs_len`` tokens and the frame token
+    if ``frame``, 7 decode steps) under torch.profiler: wall time, device
+    busy time, and the kernels that take it. After the serving phase, so
+    no launch it makes is counted there."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.policy import sample_action_sequence
     gen = torch.Generator(device=dev).manual_seed(2)
-    obs = torch.randint(0, cfg.vocab_size, (8, 12), generator=gen, device=dev)
-    prefix = torch.zeros(8, 1, 1024, device=dev)
-    prefix[:, 0, :192] = torch.rand(8, 192, generator=gen, device=dev)
+    obs = torch.randint(0, cfg.vocab_size, (8, obs_len), generator=gen,
+                        device=dev)
+    prefix = None
+    if frame:
+        prefix = torch.zeros(8, 1, 1024, device=dev)
+        prefix[:, 0, :192] = torch.rand(8, 192, generator=gen, device=dev)
     steps = torch.arange(8, device=dev)
 
     def batch():
@@ -742,29 +1039,38 @@ def phase_trace(dev, cfg, params):
             t0 = time.perf_counter()
             batch()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel rows only: an operator's row repeats its kernels' device time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy_ms = sum(r[1] for r in rows)
+    busy_ms, rows, by_kind = _device_time(prof)
+    label = (f"one {cfg.name} serving batch B=8 T={obs_len + frame} + 7 "
+             f"decodes")
     if busy_ms == 0:
-        print(f"[trace] one serving batch: wall {wall_ms:.1f} ms traced; "
-              f"device time not measured (the profiler saw no kernels)")
+        print(f"[trace] {label}: wall {wall_ms:.1f} ms traced; device time "
+              f"not measured (the profiler saw no kernels)")
         return
     rows.sort(key=lambda r: -r[1])
     top = "; ".join(f"{name[:48]} {ms:.2f} ms x{n}" for name, ms, n
                     in rows[:6])
-    print(f"[trace] one serving batch B=8 T=13 + 7 decodes, traced: wall "
-          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}% | top: {top}")
+    print(f"[trace] {label}, traced: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}% | by kind: {by_kind} | top: "
+          f"{top}")
 
 
-def phase_train(dev):
-    """openvla-7b at full width, TRAIN_LAYERS layers: the kernel route's
+def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
+                plain_remat=False, f32_witness=None):
+    """``arch`` at full width and ``n_layers`` layers, on ``dummy_batch``
+    segments of ``obs_len`` observation tokens: the kernel route's
     step-1 gradients (every leaf nonzero) against the plain route's, then
-    three train steps on the kernel route. Returns the launch counts."""
+    three train steps on the kernel route with their launches counted
+    (``counters``: name -> (wrapper, launches per step)), a traced fourth
+    step, and the three steps replayed on the plain route from the same
+    seed. ``bounds``: the step-1 metric and per-leaf gradient bounds, and
+    for each of steps 1-3 a bound for each key of STEP_KEYS it holds.
+    ``plain_remat`` checkpoints each layer on the plain route (the same
+    arithmetic, recomputed in the backward), where its saved activations
+    would not fit beside the kernel route's gradients. ``f32_witness``:
+    (chunk, bounds as ``bounds``) to run step 1 and steps 1-3 again on an
+    f32 copy of the model, both routes checkpointing each layer.
+    Returns the launches by name over the three steps."""
     import dataclasses
     import torch
     from repro_torch.configs import RLConfig, get_config
@@ -772,113 +1078,48 @@ def phase_train(dev):
     from repro_torch.data.trajectory import dummy_batch
     from repro_torch.bridge import batch_from_numpy
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels import gipo_loss as gl
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
-    from repro_torch.optim import adamw
     from repro_torch.tree import tree_leaves_with_path
-    cfg = dataclasses.replace(get_config("openvla-7b"),
-                              num_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), num_layers=n_layers)
+    route_bound, _, steps_bound = bounds
     # lr 1e-4: the default 3e-6 is below half a bf16 ulp of most weights
     rl = RLConfig(warmup_steps=1, lr_policy=1e-4)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     state = ts.init_train_state(cfg, 0, device=dev)
-    np_batch = dummy_batch(8, 8, 12, cfg.action_dim, cfg.vocab_size,
+    np_batch = dummy_batch(8, 8, obs_len, cfg.action_dim, cfg.vocab_size,
                            cfg.action_vocab_size,
                            num_prefix=cfg.num_prefix_tokens, seed=0)
     batch = batch_from_numpy(np_batch, device=dev)
     p0 = {path: x.clone() for path, x in tree_leaves_with_path(state.params)}
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in p0.values())
-    print(f"[train] openvla-7b x {TRAIN_LAYERS} layers: {n_params / 1e9:.3f}"
+    print(f"[train] {arch} x {n_layers} layers: {n_params / 1e9:.3f}"
           f" B parameters, state on the card in "
           f"{time.perf_counter() - t0:.1f} s | allocated "
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
-
-    def step1(mode):
-        """Step 1's grads, metrics and grad norm on one route (the stage
-        functions that ``train_step`` composes, before the update)."""
-        slice_i, _ = ts._microbatches(batch, rl.grad_accum)
-        acc = ts.zero_grads_like(state.params)
-        stats = torch.zeros(3, device=dev)
-        with dispatch.forced(mode):
-            for i in range(rl.grad_accum):
-                g, (m, st) = ts.microbatch_grads(state.params, slice_i(i),
-                                                 state.adv_norm, cfg=cfg,
-                                                 rl=rl)
-                acc, stats = ts.accumulate_grads(acc, g, stats, st,
-                                                 rl.grad_accum)
-                del g
-        return acc, dict(m, grad_norm=adamw.global_norm(acc))
-
-    acc, m_kernel = step1("cuda")
-    zero = [".".join(path) for path, g in tree_leaves_with_path(acc)
-            if not bool((g != 0).any())]
-    if zero:
-        raise AssertionError(f"kernel route: leaves with no gradient {zero}")
-    n_leaves = len(list(tree_leaves_with_path(acc)))
-    acc_plain, m_plain = step1("torch")
-    diffs = _leaf_grad_diff(acc, acc_plain)
-    del acc, acc_plain
+    m_kernel = _compare_step1(f"{arch} bf16", cfg, rl, state, batch,
+                              (False, plain_remat), bounds[:2])
     compare_peak = torch.cuda.max_memory_allocated(dev)
-    held = [d for d in diffs if not d[1].startswith("value_head.")]
-    value = [d for d in diffs if d[1].startswith("value_head.")]
-    h_rel, c_rel, c_share = _action_hidden_diff(cfg, state.params, batch)
-    print(f"[train] step 1 gradients, kernel vs plain route, |g_kernel - "
-          f"g_plain| / |g_plain| per leaf and per layer: {len(held)} parts "
-          f"the kernels' backward reaches, worst "
-          f"{', '.join(f'{k} {r:.3e}' for r, k in held[:3])} (bound "
-          f"{LEAF_BOUND}) | value head (input detached): "
-          f"{', '.join(f'{k} {r:.3e}' for r, k in value)}; its input, the "
-          f"action tokens' final hidden states: {h_rel:.3e} apart, "
-          f"{c_rel:.3e} once centred over the action positions (the centred "
-          f"part is {c_share:.3f} of the norm) | max_memory_allocated while "
-          f"both are held {compare_peak / 1e9:.2f} GB")
-    if not held[0][0] <= LEAF_BOUND:
-        raise AssertionError(f"step 1 gradient of {held[0][1]} differs by "
-                             f"{held[0][0]}")
-    worst, worst_key = 0.0, None
-    for k in m_plain:
-        a, b = m_kernel[k].item(), m_plain[k].item()
-        if not (math.isfinite(a) and math.isfinite(b)):
-            raise AssertionError(f"step 1 {k}: kernel {a}, plain {b}")
-        rel = abs(a - b) / max(abs(b), ROUTE_FLOOR)
-        if rel > worst:
-            worst, worst_key = rel, k
-    print(f"[train] step 1, kernel vs plain route: {n_leaves} gradient "
-          f"leaves, all nonzero on the kernel route | max rel diff over "
-          f"loss, {len(m_plain) - 1} metrics and grad norm {worst:.3e} "
-          f"({worst_key}; bound {ROUTE_BOUND}) | loss "
-          f"{m_kernel['loss'].item():.6f} vs {m_plain['loss'].item():.6f}, "
-          f"grad norm {m_kernel['grad_norm'].item():.4f} vs "
-          f"{m_plain['grad_norm'].item():.4f}")
-    if not worst <= ROUTE_BOUND:
-        raise AssertionError(f"step 1 routes differ: {worst_key} by {worst}")
 
-    counters = (flash_attention, flash_attention_bwd, gl.policy_loss_fwd,
-                gl.policy_loss_bwd, decode_attention)
-    want = (TRAIN_LAYERS * rl.grad_accum, TRAIN_LAYERS * rl.grad_accum,
-            rl.grad_accum, rl.grad_accum, 0)
-    totals = [0] * len(counters)
+    want = {k: per for k, (_, per) in counters.items()}
+    totals = dict.fromkeys(counters, 0)
     step = ts.make_train_step(cfg, rl, device=dev)
     walls, hist = [], {"cuda": []}
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(3):
-        for c in counters:
-            c.launches = 0
+        for fn, _ in counters.values():
+            fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with dispatch.forced("cuda"):
             state, metrics = step(state, np_batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        got = tuple(c.launches for c in counters)
+        got = {k: fn.launches for k, (fn, _) in counters.items()}
         if got != want:
-            raise AssertionError(f"step {i + 1}: launches (K1, K3, K4 fwd, "
-                                 f"K4 bwd, K2) {got}, want {want}")
-        totals = [a + b for a, b in zip(totals, got)]
+            raise AssertionError(f"step {i + 1}: launches {got}, want "
+                                 f"{want}")
+        totals = {k: totals[k] + got[k] for k in totals}
         hist["cuda"].append({k: v.item() for k, v in metrics.items()})
         bad = [k for k, v in metrics.items() if not math.isfinite(v.item())]
         if bad:
@@ -886,7 +1127,7 @@ def phase_train(dev):
         if i == 0:
             rel = abs(metrics["loss"].item() - m_kernel["loss"].item()) \
                 / max(abs(m_kernel["loss"].item()), ROUTE_FLOOR)
-            if not rel <= ROUTE_BOUND:
+            if not rel <= route_bound:
                 raise AssertionError(f"step 1 loss {metrics['loss']} vs the "
                                      f"gradient pass {m_kernel['loss']}")
         print(f"[train] step {i + 1}: loss {metrics['loss'].item():.6f} | "
@@ -894,8 +1135,7 @@ def phase_train(dev):
               f"{metrics['value_loss'].item():.5f} kl "
               f"{metrics['kl'].item():.5f} entropy "
               f"{metrics['entropy'].item():.5f} | grad norm "
-              f"{metrics['grad_norm'].item():.4f} | launches K1 {got[0]} K3 "
-              f"{got[1]} K4 fwd {got[2]} bwd {got[3]} | wall "
+              f"{metrics['grad_norm'].item():.4f} | launches {got} | wall "
               f"{walls[-1] * 1e3:.1f} ms")
     if int(state.version) != 3 or int(state.opt.step) != 3:
         raise AssertionError(f"version {int(state.version)}, opt step "
@@ -907,7 +1147,7 @@ def phase_train(dev):
     now = dict(tree_leaves_with_path(state.params))
     unchanged = [f"{'.'.join(path)}[{i}]" for path, x in now.items()
                  if path[0] == "layers" and x.ndim == 3
-                 for i in range(TRAIN_LAYERS)
+                 for i in range(n_layers)
                  if torch.equal(x[i], p0[path][i])]
     if unchanged or torch.equal(now[("action_head", "w")],
                                 p0[("action_head", "w")]):
@@ -916,49 +1156,229 @@ def phase_train(dev):
     peak = torch.cuda.max_memory_allocated(dev)
     seq = cfg.num_prefix_tokens + np_batch.obs_tokens.shape[2] \
         + cfg.action_dim
+    micro = np_batch.obs_tokens.shape[0] // rl.grad_accum \
+        * np_batch.obs_tokens.shape[1]
     print(f"[train] 3 steps: version 3, every first moment nonzero, every "
           f"layer matrix and the action head changed | step wall "
           f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms (host clock, "
-          f"synchronized; batch 8 x 9 sequences of {seq} tokens, "
-          f"grad_accum {rl.grad_accum}) | max_memory_allocated "
+          f"synchronized; {micro} sequences of {seq} tokens per micro-batch,"
+          f" grad_accum {rl.grad_accum}) | max_memory_allocated "
           f"{peak / 1e9:.2f} GB")
     if not max(peak, compare_peak) < TRAIN_MEM_LIMIT:
         raise AssertionError(f"peak memory {peak / 1e9:.1f} GB in the "
                              f"steps, {compare_peak / 1e9:.1f} GB in the "
                              f"step-1 comparison")
-    _trace_train_step(dev, step, state, np_batch)
+    _trace_train_step(dev, arch, step, state, np_batch)
 
     # the same three steps on the plain route, from a fresh seed-0 state
-    del state
+    del state, step, batch
     torch.cuda.empty_cache()
-    state = ts.init_train_state(cfg, 0, device=dev)
-    if not all(torch.equal(x, p0[path])
-               for path, x in tree_leaves_with_path(state.params)):
-        raise AssertionError("seed-0 state differs from the first one")
+    hist["torch"], _ = _run_steps(dev, cfg, rl, np_batch, "torch",
+                                  remat=plain_remat, p0=p0)
     del p0
-    hist["torch"] = []
-    with dispatch.forced("torch"):
-        for i in range(3):
+    _compare_steps(f"{arch} bf16", hist["cuda"], hist["torch"], steps_bound)
+    if f32_witness is not None:
+        _train_f32_witness(dev, cfg, rl, np_batch, *f32_witness)
+    return totals
+
+
+def _step1_grads(cfg, rl, state, batch, mode, remat):
+    """Step 1's grads, metrics and grad norm on one route (the stage
+    functions that ``train_step`` composes, before the update)."""
+    import torch
+    from repro_torch.core import train_step as ts
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim import adamw
+    slice_i, _ = ts._microbatches(batch, rl.grad_accum)
+    acc = ts.zero_grads_like(state.params)
+    stats = torch.zeros(3, device=batch.actions.device)
+    with dispatch.forced(mode):
+        for i in range(rl.grad_accum):
+            g, (m, st) = ts.microbatch_grads(
+                state.params, slice_i(i), state.adv_norm, cfg=cfg, rl=rl,
+                remat=remat)
+            acc, stats = ts.accumulate_grads(acc, g, stats, st,
+                                             rl.grad_accum)
+            del g
+    return acc, dict(m, grad_norm=adamw.global_norm(acc))
+
+
+def _compare_step1(label, cfg, rl, state, batch, remat, bounds):
+    """Step 1 on both routes (``remat``: (kernel, plain)): every gradient
+    leaf nonzero on the kernel route; the gradients per leaf and layer
+    within ``bounds[1]`` for every leaf the kernels' backward reaches, the
+    value head's printed beside its input's difference; the loss, every
+    metric and the grad norm within ``bounds[0]``. Returns the kernel
+    route's metrics."""
+    import torch
+    from repro_torch.tree import tree_leaves_with_path
+    route_bound, leaf_bound = bounds
+    acc, m_kernel = _step1_grads(cfg, rl, state, batch, "cuda", remat[0])
+    zero = [".".join(path) for path, g in tree_leaves_with_path(acc)
+            if not bool((g != 0).any())]
+    if zero:
+        raise AssertionError(f"{label} kernel route: leaves with no "
+                             f"gradient {zero}")
+    n_leaves = len(list(tree_leaves_with_path(acc)))
+    acc_plain, m_plain = _step1_grads(cfg, rl, state, batch, "torch",
+                                      remat[1])
+    diffs = _leaf_grad_diff(acc, acc_plain)
+    del acc, acc_plain
+    held = [d for d in diffs if not d[1].startswith("value_head.")]
+    value = [d for d in diffs if d[1].startswith("value_head.")]
+    h_rel, c_rel, c_share = _action_hidden_diff(cfg, state.params, batch)
+    print(f"[train] {label} step 1 gradients, kernel vs plain route, "
+          f"|g_kernel - g_plain| / |g_plain| per leaf and per layer: "
+          f"{len(held)} parts the kernels' backward reaches, worst "
+          f"{', '.join(f'{k} {r:.3e}' for r, k in held[:3])} (bound "
+          f"{leaf_bound}) | value head (input detached): "
+          f"{', '.join(f'{k} {r:.3e}' for r, k in value)}; its input, the "
+          f"action tokens' final hidden states: {h_rel:.3e} apart, "
+          f"{c_rel:.3e} once centred over the action positions (the centred "
+          f"part is {c_share:.3f} of the norm) | max_memory_allocated while "
+          f"both are held {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not held[0][0] <= leaf_bound:
+        raise AssertionError(f"{label} step 1 gradient of {held[0][1]} "
+                             f"differs by {held[0][0]}")
+    worst, worst_key = _worst_rel(m_kernel, m_plain, f"{label} step 1")
+    print(f"[train] {label} step 1, kernel vs plain route: {n_leaves} "
+          f"gradient leaves, all nonzero on the kernel route | max rel diff "
+          f"over loss, {len(m_plain) - 1} metrics and grad norm {worst:.3e} "
+          f"({worst_key}; bound {route_bound}) | loss "
+          f"{m_kernel['loss'].item():.6f} vs {m_plain['loss'].item():.6f}, "
+          f"grad norm {m_kernel['grad_norm'].item():.4f} vs "
+          f"{m_plain['grad_norm'].item():.4f}")
+    if not worst <= route_bound:
+        raise AssertionError(f"{label} step 1 routes differ: {worst_key} by "
+                             f"{worst}")
+    return m_kernel
+
+
+def _worst_rel(got, exp, label):
+    """The largest |got - exp| / max(|exp|, ROUTE_FLOOR) over the metrics
+    (tensors or floats), and its key; raises on a non-finite value."""
+    worst, worst_key = 0.0, None
+    for k in exp:
+        a, b = float(got[k]), float(exp[k])
+        if not (math.isfinite(a) and math.isfinite(b)):
+            raise AssertionError(f"{label} {k}: kernel {a}, plain {b}")
+        rel = abs(a - b) / max(abs(b), ROUTE_FLOOR)
+        if rel > worst:
+            worst, worst_key = rel, k
+    return worst, worst_key
+
+
+def _run_steps(dev, cfg, rl, np_batch, mode, *, remat=False, n=3,
+               counters=None, p0=None):
+    """``n`` train steps on one route from a fresh seed-0 state
+    (``p0``: the parameters it must start from). ``counters``: name ->
+    (wrapper, launches per step), checked at every step. Returns each
+    step's metrics and the launches by name over the steps."""
+    import torch
+    from repro_torch.core import train_step as ts
+    from repro_torch.kernels import dispatch
+    from repro_torch.tree import tree_leaves_with_path
+    counters = counters or {}
+    state = ts.init_train_state(cfg, 0, device=dev)
+    if p0 is not None and not all(
+            torch.equal(x, p0[path])
+            for path, x in tree_leaves_with_path(state.params)):
+        raise AssertionError("seed-0 state differs from the first one")
+    step = ts.make_train_step(cfg, rl, remat=remat, device=dev)
+    hist, totals = [], dict.fromkeys(counters, 0)
+    for i in range(n):
+        for fn, _ in counters.values():
+            fn.launches = 0
+        with dispatch.forced(mode):
             state, metrics = step(state, np_batch)
-            hist["torch"].append({k: v.item() for k, v in metrics.items()})
-    rows, worst = [], 0.0
-    for i, (mk, mp) in enumerate(zip(hist["cuda"], hist["torch"])):
+        got = {k: fn.launches for k, (fn, _) in counters.items()}
+        if got != {k: per for k, (_, per) in counters.items()}:
+            raise AssertionError(f"{mode} step {i + 1}: launches {got}")
+        totals = {k: totals[k] + got[k] for k in totals}
+        hist.append({k: v.item() for k, v in metrics.items()})
+        if not all(math.isfinite(v) for v in hist[-1].values()):
+            raise AssertionError(f"{mode} step {i + 1}: {hist[-1]}")
+    del state, step
+    torch.cuda.empty_cache()
+    return hist, totals
+
+
+def _compare_steps(label, hist_kernel, hist_plain, steps_bound):
+    """Steps 1-3 of both routes from the same seed: each key of STEP_KEYS a
+    step's bound names held within it, the others printed."""
+    rows, over = [], []
+    for i, (mk, mp) in enumerate(zip(hist_kernel, hist_plain)):
         rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), ROUTE_FLOOR)
                for k in STEP_KEYS}
-        if not all(math.isfinite(mp[k]) for k in mp):
-            raise AssertionError(f"plain route step {i + 1}: {mp}")
-        worst = max([worst] + list(rel.values()))
+        over += [(i + 1, k, r) for k, r in rel.items()
+                 if k in steps_bound[i] and not r <= steps_bound[i][k]]
         rows.append(f"step {i + 1}: " + ", ".join(
-            f"{k} {mk[k]:.6g} vs {mp[k]:.6g}" for k in STEP_KEYS)
-            + f" (max rel {max(rel.values()):.3e})")
-    print(f"[train] steps 1-3 from the same seed-0 state, kernel vs plain "
-          f"route: {' | '.join(rows)} | max rel diff {worst:.3e} (bound "
-          f"{STEPS_BOUND})")
-    if not worst <= STEPS_BOUND:
-        raise AssertionError(f"steps 1-3 differ between routes by {worst}")
-    return dict(zip(("flash_attention", "flash_attention_bwd",
-                     "fused_policy_loss_fwd", "fused_policy_loss_bwd"),
-                    totals))
+            f"{k} {mk[k]:.6g} vs {mp[k]:.6g} (rel {rel[k]:.3e}"
+            + (f", bound {steps_bound[i][k]})" if k in steps_bound[i]
+               else ", printed)") for k in STEP_KEYS))
+    print(f"[train] {label} steps 1-3 from the same seed-0 state, kernel vs "
+          f"plain route: {' | '.join(rows)}")
+    if over:
+        raise AssertionError(f"{label} steps 1-3 differ between routes: "
+                             f"{over}")
+
+
+def _train_f32_witness(dev, cfg, rl, np_batch, chunk, bounds):
+    """Step 1 and steps 1-3 of ``cfg`` again on an f32 copy (the same seed,
+    drawn in f32), both routes checkpointing each layer, at SSD chunk
+    ``chunk``: both routes compute the same function, so what separates
+    them in bf16 and not here is rounding. ``bounds`` as phase_train's."""
+    import dataclasses
+    import torch
+    from repro_torch.bridge import batch_from_numpy
+    from repro_torch.core import train_step as ts
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32",
+                                ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+    label = f"{cfg.name} f32 copy (chunk {chunk})"
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = ts.init_train_state(cfg32, 0, device=dev)
+    batch = batch_from_numpy(np_batch, device=dev)
+    _compare_step1(label, cfg32, rl, state, batch, (True, True), bounds[:2])
+    del state, batch
+    torch.cuda.empty_cache()
+    hist = {mode: _run_steps(dev, cfg32, rl, np_batch, mode, remat=True)[0]
+            for mode in ("cuda", "torch")}
+    _compare_steps(label, hist["cuda"], hist["torch"], bounds[2])
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not peak < TRAIN_MEM_LIMIT:
+        raise AssertionError(f"{label}: peak memory {peak / 1e9:.1f} GB")
+
+
+def phase_train_env(dev, arch, n_layers, obs_len, counters, route_bound):
+    """One GIPO train step of ``arch`` (full width, ``n_layers`` layers) on
+    ``dummy_batch`` segments of ``obs_len`` observation tokens, from a
+    seed-0 state on each route: the kernel route's launches counted
+    (``counters`` as phase_train's), and the two routes' loss, metrics and
+    grad norm within ``route_bound``. Returns the launches by name."""
+    import dataclasses
+    from repro_torch.configs import RLConfig, get_config
+    from repro_torch.data.trajectory import dummy_batch
+    cfg = dataclasses.replace(get_config(arch), num_layers=n_layers)
+    rl = RLConfig(warmup_steps=1, lr_policy=1e-4)
+    np_batch = dummy_batch(8, 8, obs_len, cfg.action_dim, cfg.vocab_size,
+                           cfg.action_vocab_size,
+                           num_prefix=cfg.num_prefix_tokens, seed=0)
+    t0 = time.perf_counter()
+    (mk,), launches = _run_steps(dev, cfg, rl, np_batch, "cuda", n=1,
+                                 counters=counters)
+    (mp,), _ = _run_steps(dev, cfg, rl, np_batch, "torch", n=1)
+    worst, worst_key = _worst_rel(mk, mp, f"{arch} T={obs_len}")
+    print(f"[train] {arch} x {n_layers} layers on the env's sequences "
+          f"({obs_len} + {cfg.action_dim} tokens): one step from seed 0 on "
+          f"each route, {time.perf_counter() - t0:.1f} s with the state "
+          f"made twice | launches {launches} | max rel diff over loss, "
+          f"metrics and grad norm {worst:.3e} ({worst_key}; bound "
+          f"{route_bound}) | loss {mk['loss']:.6f} vs {mp['loss']:.6f}")
+    if not worst <= route_bound:
+        raise AssertionError(f"{arch} T={obs_len}: routes differ in "
+                             f"{worst_key} by {worst}")
+    return launches
 
 
 def _leaf_grad_diff(got, exp):
@@ -993,7 +1413,8 @@ def _action_hidden_diff(cfg, params, batch):
     b //= 2
     tokens = torch.cat([_flat(batch.obs_tokens[:b], b, tp1),
                         _flat(batch.actions[:b], b, tp1)], 1)
-    prefix = _flat(batch.prefix_embeds[:b], b, tp1)
+    prefix = (None if batch.prefix_embeds is None
+              else _flat(batch.prefix_embeds[:b], b, tp1))
     h = {}
     with torch.no_grad():
         for mode in ("cuda", "torch"):
@@ -1008,9 +1429,9 @@ def _action_hidden_diff(cfg, params, batch):
             (norm(c["torch"]) / norm(h["torch"])).item())
 
 
-def _trace_train_step(dev, step, state, np_batch):
+def _trace_train_step(dev, label, step, state, np_batch):
     """One more train step under torch.profiler: wall, device busy time and
-    the kernels that take it. After the counted steps."""
+    the kernels that take it, by kind. After the counted steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1020,26 +1441,30 @@ def _trace_train_step(dev, step, state, np_batch):
         step(state, np_batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy_ms = sum(r[1] for r in rows)
+    busy_ms, _, by_kind = _device_time(prof)
     if busy_ms == 0:
-        print(f"[trace] one train step: wall {wall_ms:.1f} ms traced; device "
-              f"time not measured (the profiler saw no kernels)")
+        print(f"[trace] one {label} train step: wall {wall_ms:.1f} ms traced;"
+              f" device time not measured (the profiler saw no kernels)")
         return
-    groups = {}
-    for name, ms, n in rows:
-        key = next((g for g, pats in TRACE_GROUPS if any(
-            p in name for p in pats)), "other")
-        t, c = groups.get(key, (0.0, 0))
-        groups[key] = (t + ms, c + n)
-    by_group = "; ".join(f"{g} {t:.1f} ms x{c}" for g, (t, c) in sorted(
-        groups.items(), key=lambda kv: -kv[1][0]))
-    print(f"[trace] one train step (4th), traced: wall {wall_ms:.1f} ms, "
-          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"idle {100 * (1 - busy_ms / wall_ms):.1f}% | by kind: {by_group}")
+    print(f"[trace] one {label} train step (4th), traced: wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}% | by kind: {by_kind}")
+
+
+def _init_two_versions(dev, cfg):
+    import torch
+    from repro_torch.models.policy import init_policy_params
+    t0 = time.perf_counter()
+    params0 = init_policy_params(cfg, 0, device=dev)
+    params1 = init_policy_params(cfg, 1, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params0))
+    print(f"[model] {cfg.name}: {n_params / 1e9:.3f} B parameters x 2 "
+          f"versions initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s | allocated "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
+    return params0, params1
 
 
 def main() -> int:
@@ -1049,37 +1474,86 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.models.policy import init_policy_params
+    from repro_torch.kernels import gipo_loss as gl
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    wrappers = {"flash_attention": flash_attention,
+                "decode_attention": decode_attention,
+                "flash_attention_bwd": flash_attention_bwd,
+                "fused_policy_loss_fwd": gl.policy_loss_fwd,
+                "fused_policy_loss_bwd": gl.policy_loss_bwd,
+                "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
+
+    def counting(**per):
+        """Every wrapper, with the launches a path should make (0 for the
+        kernels it does not run)."""
+        return {k: (fn, per.get(k, 0)) for k, fn in wrappers.items()}
 
     name, _ = phase_device()
     entries = phase_kernels(dev)
+    by_path = {}
 
+    # openvla-7b: serving (full depth) and training (TRAIN_LAYERS layers)
     cfg = get_config("openvla-7b")
-    t0 = time.perf_counter()
-    params0 = init_policy_params(cfg, 0, device=dev)
-    params1 = init_policy_params(cfg, 1, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params0))
-    print(f"[model] openvla-7b: {n_params / 1e9:.3f} B parameters x 2 "
-          f"versions initialised on the card in "
-          f"{time.perf_counter() - t0:.1f} s | allocated "
-          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
-    phase_model(dev, cfg, params0)
-
-    launches = phase_serving(dev, cfg, params0, params1)
-    phase_trace(dev, cfg, params0)
+    nl, a = cfg.num_layers, cfg.action_dim
+    params0, params1 = _init_two_versions(dev, cfg)
+    phase_model(dev, cfg, params0, obs_len=12, bound=MODEL_LOGIT_BOUND,
+                counters=counting(flash_attention=nl,
+                                  decode_attention=nl * a))
+    by_path["openvla-7b serving"] = phase_serving(
+        dev, cfg, params0, params1, obs_len=12, frame=True,
+        counters=counting(flash_attention=nl, decode_attention=nl * a))
+    phase_trace(dev, cfg, params0, obs_len=12, frame=True)
     del params0, params1
     torch.cuda.empty_cache()
-    train = phase_train(dev)
-    entries[0]["launches"] = launches[0] + train["flash_attention"]
-    entries[0]["launches_by_path"] = {"serving": launches[0],
-                                      "training": train["flash_attention"]}
-    entries[1]["launches"] = launches[1]
-    for e in entries[2:]:
-        e["launches"] = train[e["name"]]
+    ga = 2                                   # RLConfig().grad_accum
+    by_path["openvla-7b training"] = phase_train(
+        dev, "openvla-7b", TRAIN_LAYERS, 12,
+        counting(flash_attention=TRAIN_LAYERS * ga,
+                 flash_attention_bwd=TRAIN_LAYERS * ga,
+                 fused_policy_loss_fwd=ga, fused_policy_loss_bwd=ga),
+        (ROUTE_BOUND, LEAF_BOUND, STEPS_BOUND))
+    torch.cuda.empty_cache()
+
+    # mamba2-2.7b: serving (full depth, T = 256) and training (16 layers)
+    cfg = get_config("mamba2-2.7b")
+    nl = cfg.num_layers
+    params0, params1 = _init_two_versions(dev, cfg)
+    phase_model(dev, cfg, params0, obs_len=SSM_OBS, bound=SSM_LOGIT_BOUND,
+                f32_bound=SSM_F32_LOGIT_BOUND, counters=counting(ssd_scan=nl))
+    phase_model(dev, cfg, params0, obs_len=SSM_ENV_OBS,
+                bound=SSM_LOGIT_BOUND, counters=counting(ssd_scan=nl))
+    by_path["mamba2-2.7b serving"] = phase_serving(
+        dev, cfg, params0, params1, obs_len=SSM_OBS, frame=False,
+        counters=counting(ssd_scan=nl))
+    by_path["mamba2-2.7b serving, env prompts"] = phase_serving(
+        dev, cfg, params0, params1, obs_len=SSM_ENV_OBS, frame=False,
+        counters=counting(ssd_scan=nl))
+    phase_trace(dev, cfg, params0, obs_len=SSM_OBS, frame=False)
+    del params0, params1
+    torch.cuda.empty_cache()
+    per_step = counting(ssd_scan=SSM_TRAIN_LAYERS * ga,
+                        ssd_scan_bwd=SSM_TRAIN_LAYERS * ga,
+                        fused_policy_loss_fwd=ga, fused_policy_loss_bwd=ga)
+    by_path["mamba2-2.7b training"] = phase_train(
+        dev, "mamba2-2.7b", SSM_TRAIN_LAYERS, SSM_OBS - cfg.action_dim,
+        per_step, (SSM_ROUTE_BOUND, SSM_LEAF_BOUND, SSM_STEPS_BOUND),
+        plain_remat=True, f32_witness=(SSM_F32_CHUNK, SSM_F32_BOUNDS))
+    by_path["mamba2-2.7b training, env sequences"] = phase_train_env(
+        dev, "mamba2-2.7b", SSM_TRAIN_LAYERS, SSM_ENV_OBS, per_step,
+        SSM_ROUTE_BOUND)
+
+    for e in entries:
+        e["launches_by_path"] = {p: n[e["name"]] for p, n in by_path.items()
+                                 if n[e["name"]]}
+        e["launches"] = sum(e["launches_by_path"].values())
+        if not e["launches"]:
+            raise AssertionError(f"{e['name']}: no launch on any main path")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

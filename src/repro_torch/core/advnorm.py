@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
+
 
 class AdvNormState(NamedTuple):
     """Welford running state of the advantage distribution (f32 scalars)."""
@@ -29,9 +31,12 @@ class AdvNormState(NamedTuple):
         return torch.sqrt(torch.clamp_min(var, 1e-12))
 
 
-def init_adv_state(device="cpu") -> AdvNormState:
+def init_adv_state(device="cuda") -> AdvNormState:
+    """An empty Welford state on ``device``."""
+    dev = resolve_device(device)
+
     def z():
-        return torch.zeros((), dtype=torch.float32, device=device)
+        return torch.zeros((), dtype=torch.float32, device=dev)
     return AdvNormState(count=z(), mean=z(), m2=z())
 
 

@@ -1,4 +1,4 @@
-// Shared device helpers for the port's attention kernels.
+// Shared device helpers for the port's kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +69,54 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// rows x cols elements into shared memory (row stride dst_stride), 16 bytes
+// a thread: the first `valid` rows from global (row stride src_stride), the
+// rest zeros (the padding of a sequence's short last chunk)
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, int dst_stride,
+                                          const T* src, long src_stride,
+                                          int rows, int valid, int cols,
+                                          int nt) {
+  constexpr int V = 16 / sizeof(T);
+  const int per_row = cols / V;
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += nt) {
+    const int r = idx / per_row, c = (idx - r * per_row) * V;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * dst_stride + c) =
+        r < valid
+            ? *reinterpret_cast<const uint4*>(src + (size_t)r * src_stride + c)
+            : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The shapes the SSD scan kernels (K6, K7) take: chunks of a multiple of
+// 32 steps (the last one of a sequence may be short), P and N multiples of
+// 8.
+inline bool bad_ssd_shape(int Bsz, int Lseq, int H, int P, int N, int q) {
+  return Bsz < 1 || H < 1 || Lseq < 1 || q < 32 || q % 32 || P < 8
+         || P % 8 || N < 8 || N % 8;
+}
+
+// Inclusive cumsum of dtv * a over q (a multiple of 32) values; warp 0 only.
+__device__ __forceinline__ void chunk_cumsum(const float* dtv, float a,
+                                             float* cum, int q) {
+  const int lane = threadIdx.x & 31;
+  const int per = q / 32;
+  float run = 0.f;
+  for (int k = 0; k < per; ++k) {
+    run += dtv[lane * per + k] * a;
+    cum[lane * per + k] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  float prev = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) prev = 0.f;
+  for (int k = 0; k < per; ++k) cum[lane * per + k] += prev;
 }
 
 }  // namespace repro

@@ -50,6 +50,14 @@ SIGNATURES = {
     # dtype, sigma, stream
     "policy_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _F, _P),
+    # x, dt, A, Bm, Cm, y, s_final, s_enter (may be null), B, L, H, P, N,
+    # chunk, dtype, stream
+    "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _P),
+    # x, dt, A, Bm, Cm, s_enter, dy, ds_final, dx, ddt, da_part, db_part,
+    # dc_part, db, dc, B, L, H, P, N, chunk, dtype, stream
+    "ssd_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_cuda_error_string": (_I,),
 }
 
@@ -153,4 +161,7 @@ def check(err: int) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         msg = load().repro_cuda_error_string(err).decode()
+        if err == 1:                      # cudaErrorInvalidValue
+            msg += (" (a shape the kernel refuses, or a block that needs "
+                    "more shared memory than the H100's 227 KB)")
         raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")

@@ -9,6 +9,8 @@ it takes. There is no fallback and no environment variable between the two.
 that requires it, it runs ``FlashAttentionFn`` (flash forward saving the
 LSE, flash backward), otherwise the forward kernel alone, as in serving.
 ``policy_head_loss`` is the fused action head + GIPO loss (K4).
+``ssd_scan`` is the Mamba2 SSD scan of a fresh sequence (K6 forward, K7
+backward), differentiable in the same way.
 
 This module adds only the override ``set_mode`` / ``forced`` (mirroring the
 reference's ``repro.kernels.dispatch``), which tests and ``chip_smoke.py``
@@ -25,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import gipo_loss as _gl
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.decode_attention import (_plain_decode,
                                                   decode_attention as
                                                   _kernel_decode)
@@ -93,3 +96,23 @@ def decode_attention(q, k, v, valid):
     if _forced_plain(q):
         return _plain_decode(q, k, v, valid)
     return _kernel_decode(q, k, v, valid)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
+    """Chunked Mamba2 SSD scan of a fresh sequence (no carried state).
+    x: [B,T,H,P]; dt: [B,T,H] (f32, post-softplus); A: [H] (negative);
+    Bm/Cm: [B,T,N] (single group). Returns (y [B,T,H,P] f32, final state
+    [B,H,P,N] f32).
+
+    Every length goes to the kernel wrappers: ``SSDScanFn`` (K6 saving
+    entering states, K7 as its backward) when grad is on and an input needs
+    it, else K6 alone; on a CPU tensor the wrappers run the plain chunked
+    form. (The reference sends only ``T >= chunk and T % chunk == 0`` to its
+    Pallas kernel, a TPU tiling limit; the CUDA kernels take a short last
+    chunk.) The kernels take contiguous inputs, so views are copied first."""
+    if _forced_plain(x):
+        return _ssd.plain_ssd_scan(x, dt, A, Bm, Cm, chunk)
+    args = [v.contiguous() for v in (x, dt, A, Bm, Cm)]
+    if torch.is_grad_enabled() and any(v.requires_grad for v in args):
+        return _ssd.SSDScanFn.apply(*args, chunk)
+    return _ssd.ssd_scan(*args, chunk=chunk)

@@ -1,5 +1,6 @@
-"""Oracles for the attention kernels: the dense allclose target, and the
-kernels' own order of arithmetic for holding their bf16 bodies tightly."""
+"""Oracles for the kernels: the dense attention allclose target, the
+attention kernels' own order of arithmetic for holding their bf16 bodies
+tightly, and the stepwise SSD recurrence."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -71,3 +72,27 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", w, v.float())
     return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def reference_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor,
+                  init_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stepwise SSD recurrence oracle (the "linear form" of SSD duality),
+    as the reference's ``repro/kernels/ref.py::reference_ssd``.
+
+    x: [B,T,H,P]; dt: [B,T,H] (post-softplus); A: [H] (negative);
+    Bm/Cm: [B,T,N]. Returns (y [B,T,H,P] f32, final state [B,H,P,N] f32).
+    """
+    b, t, h, p = x.shape
+    n = Bm.shape[-1]
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for i in range(t):
+        da = torch.exp(dt[:, i].float() * A.float()[None, :])       # [B,H]
+        upd = torch.einsum("bh,bhp,bn->bhpn", dt[:, i].float(),
+                           x[:, i].float(), Bm[:, i].float())
+        state = da[:, :, None, None] * state + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cm[:, i].float()))
+    return torch.stack(ys, dim=1), state

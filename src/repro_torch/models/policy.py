@@ -122,7 +122,8 @@ def sample_action_sequence(cfg: ModelConfig, params: Params,
     """Autoregressive action sampling for one env step.
 
     Prefills the observation context, then decodes ``cfg.action_dim``
-    action tokens against the KV cache. Each token is drawn by Gumbel-max,
+    action tokens against the decode cache (a KV cache, or the SSM state;
+    ``cache_len`` sizes only the former). Each token is drawn by Gumbel-max,
     ``argmax(logits + g)``, which is how ``jax.random.categorical`` samples;
     ``g`` comes from ``gen``, or from ``gumbel`` [A, B, Va] when given (the
     tests pass the reference's own noise). The sampled action token is fed

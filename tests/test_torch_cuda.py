@@ -13,7 +13,10 @@ also held against ``ref.tiled_softmax_attention`` on inputs whose q.k sums
 are exact in f32: within half a bf16 ulp (2^-8 relative) plus 1e-5. The
 training kernels (K3, K4) are f32 inside in both their versions: f32
 within 1e-4 of the largest value, bf16 within one bf16 ulp (2^-7) of each
-value plus 1e-4 of the largest.
+value plus 1e-4 of the largest. So are the SSD scan kernels (K6, K7): their
+f32 outputs (y, states, ddt, dA) are held within 1e-4 of the largest value
+for f32 and bf16 inputs alike, their bf16 outputs (dx, dB, dC) within one
+bf16 ulp of each value plus 1e-4 of the largest.
 """
 import pytest
 import torch
@@ -217,6 +220,7 @@ def _policy_inputs(dev, n, d, va, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,va", [
     (224, 4096, 256),              # the training slice's micro-batch
+    (224, 2560, 256),              # the same at mamba2-2.7b's width
     (300, 64, 48),                 # ragged N, Va off the tensor-core body
     (37, 128, 128),                # ragged, tensor-core body at Va 128
 ])
@@ -289,3 +293,152 @@ def test_training_kernels_refuse_what_they_do_not_take(dev):
                           (1, torch.randn(64, 512, device=dev), "Va")):
         with pytest.raises(ValueError, match=match):
             gl.policy_loss_fwd(*args[:i], bad, *args[i + 1:], 0.2)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan kernels: K6 forward, K7 backward
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(dev, b, t, h, p, n, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(b, t, h, p, generator=g, device=dev).to(dtype),
+            torch.rand(b, t, h, generator=g, device=dev) * 0.09 + 0.01,
+            -(torch.rand(h, generator=g, device=dev) + 0.5),
+            torch.randn(b, t, n, generator=g, device=dev).to(dtype),
+            torch.randn(b, t, n, generator=g, device=dev).to(dtype)]
+
+
+def _check_f32_out(got, exp):
+    """An f32 output of an f32-inside kernel: within 1e-4 of the largest
+    value, whatever the inputs' dtype."""
+    assert got.dtype == exp.dtype == torch.float32
+    scale = exp.abs().max().item()
+    assert (got - exp).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,p,n,chunk", [
+    (2, 64, 3, 16, 8, 32),         # small
+    (2, 192, 2, 32, 16, 64),       # three chunks
+    (1, 256, 4, 64, 128, 128),     # mamba2-2.7b's head and chunk
+    (2, 200, 2, 32, 16, 64),       # a short last chunk (8 of 64)
+    (8, 12, 4, 64, 128, 128),      # the env's prompt, T_OBS = 12
+    (4, 19, 4, 64, 128, 128),      # the env's train sequence, 12 + 7
+    (1, 300, 4, 64, 128, 128),     # two chunks and 44 steps
+])
+def test_ssd_scan_kernel_matches_plain(dev, dtype, b, t, h, p, n, chunk):
+    from repro_torch.kernels.ssd_scan import plain_ssd_scan, ssd_scan
+    args = _ssd_inputs(dev, b, t, h, p, n, dtype, t + p)
+    n0 = ssd_scan.launches
+    y, s, enter = ssd_scan(*args, chunk=chunk, return_states=True)
+    y2, s2 = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n0 + 2
+    ey, es, eenter = plain_ssd_scan(*args, chunk, return_states=True)
+    for got, exp in ((y, ey), (s, es), (enter, eenter), (y2, ey), (s2, es)):
+        _check_f32_out(got, exp)
+
+
+@pytest.mark.parametrize("dtype,b,t,h,p,n,chunk", [
+    (torch.float32, 2, 64, 3, 16, 8, 32),
+    (torch.bfloat16, 2, 64, 3, 16, 8, 32),
+    (torch.float32, 1, 64, 2, 128, 16, 32),      # P 128
+    (torch.float32, 1, 128, 4, 64, 128, 64),     # mamba2 head, f32 fits q 64
+    (torch.bfloat16, 2, 256, 4, 64, 128, 128),   # mamba2 head and chunk
+    (torch.float32, 2, 200, 3, 16, 8, 64),       # a short last chunk
+    (torch.bfloat16, 4, 19, 4, 64, 128, 128),    # the env's train sequence
+    (torch.float32, 2, 19, 4, 64, 128, 128),     # ... f32: one chunk of 32
+    (torch.bfloat16, 1, 300, 4, 64, 128, 128),   # two chunks and 44 steps
+])
+def test_ssd_scan_bwd_kernel_matches_plain(dev, dtype, b, t, h, p, n, chunk):
+    from repro_torch.kernels.ssd_scan import (plain_ssd_scan_bwd, ssd_scan,
+                                              ssd_scan_bwd)
+    args = _ssd_inputs(dev, b, t, h, p, n, dtype, t + p + 1)
+    _, _, enter = ssd_scan(*args, chunk=chunk, return_states=True)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dy = torch.randn(b, t, h, p, generator=g, device=dev)
+    ds = torch.randn(b, h, p, n, generator=g, device=dev)
+    n0 = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(*args, enter, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == n0 + 1
+    exp = plain_ssd_scan_bwd(*args, enter, dy, ds, chunk)
+    for name, x, y in zip(("dx", "ddt", "dA", "dB", "dC"), got, exp):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        if y.dtype == torch.float32:
+            _check_f32_out(x, y)
+        else:
+            _check_grad(x, y, dtype)
+
+
+@pytest.mark.parametrize("t", [256, 19])
+def test_ssd_scan_bwd_is_bit_repeatable(dev, t):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    args = _ssd_inputs(dev, 4, t, 8, 64, 128, torch.bfloat16, 3)
+    _, _, enter = ssd_scan(*args, chunk=128, return_states=True)
+    dy = torch.randn(4, t, 8, 64, device=dev)
+    ds = torch.randn(4, 8, 64, 128, device=dev)
+    one = ssd_scan_bwd(*args, enter, dy, ds, chunk=128)
+    two = ssd_scan_bwd(*args, enter, dy, ds, chunk=128)
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
+
+
+def test_ssd_scan_fn_gives_every_input_a_gradient(dev):
+    """Through ``dispatch.ssd_scan`` with grad on: K6 forward, K7 backward,
+    and a loss on y alone still reaches x, dt, A, B and C (the unused final
+    state's zero cotangent seeds the sweep)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    args = [v.requires_grad_() for v in
+            _ssd_inputs(dev, 2, 128, 4, 64, 128, torch.bfloat16, 0)]
+    n0 = (ssd_scan.launches, ssd_scan_bwd.launches)
+    y, _ = dispatch.ssd_scan(*args, chunk=64)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    for name, v in zip(("x", "dt", "A", "B", "C"), args):
+        assert v.grad is not None and v.grad.abs().max().item() > 0, name
+
+
+def test_ssd_routing_sends_every_fresh_scan_to_the_kernel(dev):
+    """Every length runs K6, ragged ones (24, the env's 12 and 19)
+    included; no grad needed runs K6 alone, grad on adds K7."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    n0 = (ssd_scan.launches, ssd_scan_bwd.launches)
+    with torch.no_grad():
+        for t in (64, 24, 12, 19):
+            dispatch.ssd_scan(*_ssd_inputs(dev, 1, t, 2, 16, 8,
+                                           torch.float32, 0), chunk=32)
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (n0[0] + 4, n0[1])
+    args = [v.requires_grad_() for v in
+            _ssd_inputs(dev, 2, 19, 2, 16, 8, torch.float32, 0)]
+    y, _ = dispatch.ssd_scan(*args, chunk=128)
+    y.sum().backward()
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (n0[0] + 5,
+                                                          n0[1] + 1)
+
+
+def test_ssd_kernels_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    args = _ssd_inputs(dev, 1, 96, 2, 16, 8, torch.float32, 0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ssd_scan(*args, chunk=48)
+    for i, bad, match in ((0, args[0].half(), "float32 or all bfloat16"),
+                          (1, args[1].bfloat16(), "dt and A must be"),
+                          (3, args[3].bfloat16(), "float32 or all bfloat16"),
+                          (4, args[4].cpu(), "CUDA tensor")):
+        with pytest.raises(ValueError, match=match):
+            ssd_scan(*args[:i], bad, *args[i + 1:], chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                 *args[1:], chunk=32)
+    big = _ssd_inputs(dev, 1, 128, 1, 64, 128, torch.float32, 0)
+    _, _, enter = ssd_scan(*big, chunk=128, return_states=True)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ssd_scan_bwd(*big, enter, torch.zeros(1, 128, 1, 64, device=dev),
+                     torch.zeros(1, 1, 64, 128, device=dev), chunk=128)
+    cpu = [v.cpu() for v in args]
+    with dispatch.forced("cuda"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            dispatch.ssd_scan(*cpu, chunk=32)

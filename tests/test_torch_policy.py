@@ -126,6 +126,7 @@ def test_sampler_draws_from_its_generator():
 
 
 def test_other_arch_types_name_a_later_slice():
-    cfg = reduced(get_config("mamba2-2.7b"), layers=2, d_model=64)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttransformer.init_params(cfg, torch.Generator(), device="cpu")
+    for arch in ("zamba2-1.2b", "granite-moe-1b-a400m"):
+        cfg = reduced(get_config(arch), layers=2, d_model=64)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            ttransformer.init_params(cfg, torch.Generator(), device="cpu")

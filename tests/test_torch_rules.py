@@ -100,17 +100,49 @@ def test_bridge_round_trips_bf16_bit_exactly():
         tree["embed"]["table"].astype(np.float32))
 
 
+def test_bridge_round_trips_the_ssm_tree_bf16_bit_exactly():
+    """mamba2's tree: bf16 matrices beside the f32 A_log, D and dt_bias
+    leaves of every Mamba2 layer, carried as they stand."""
+    cfg = dataclasses.replace(
+        jconfigs.reduced(jconfigs.get_config("mamba2-2.7b"), layers=2,
+                         d_model=64),
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    tree = jax.tree.map(np.asarray,
+                        j_init_policy_params(cfg, jax.random.PRNGKey(0)))
+    tparams = params_from_numpy(tree, device="cpu")
+    ssm = tparams["layers"]["ssm"]
+    assert ssm["in_proj"].dtype == torch.bfloat16
+    for name in ("A_log", "D", "dt_bias"):
+        assert ssm[name].dtype == torch.float32 and ssm[name].shape == (2, 4)
+    flat_a, tree_a = jax.tree.flatten(tree)
+    flat_b, tree_b = jax.tree.flatten(params_to_numpy(tparams))
+    assert tree_a == tree_b
+    for a, b in zip(flat_a, flat_b):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype.name == "bfloat16":
+            np.testing.assert_array_equal(a.view(np.uint16),
+                                          b.view(np.uint16))
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     from repro_torch.bridge import batch_from_numpy
+    from repro_torch.core.advnorm import init_adv_state
     from repro_torch.core.train_step import init_train_state, make_train_step
     from repro_torch.data.trajectory import dummy_batch
     from repro_torch.models import policy, transformer
     from repro_torch.runtime import InferenceService, VersionedWeightStore
     cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"), layers=2,
                            d_model=64)
+    ssm_cfg = tconfigs.reduced(tconfigs.get_config("mamba2-2.7b"), layers=2,
+                               d_model=64)
     calls = [
+        lambda: init_adv_state(),
+        lambda: transformer.init_params(ssm_cfg, torch.Generator()),
+        lambda: transformer.init_decode_cache(ssm_cfg, 1, 4),
         lambda: init_train_state(cfg),
         lambda: make_train_step(cfg, tconfigs.RLConfig()),
         lambda: batch_from_numpy(dummy_batch(1, 1, 1, 1, 8, 8)),

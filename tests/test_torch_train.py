@@ -81,7 +81,7 @@ def _step(arch):
     tparams = params_from_numpy(jax.tree.map(np.asarray, jstate.params),
                                 device="cpu")
     tstate = tts.TrainState(tparams, adamw.init(tparams),
-                            advnorm.init_adv_state(),
+                            advnorm.init_adv_state(device="cpu"),
                             torch.zeros((), dtype=torch.int32))
     jbatch = jdummy_batch(*_batch_args(jcfg))
     tbatch = batch_from_numpy(dummy_batch(*_batch_args(tcfg)), device="cpu")
@@ -172,7 +172,7 @@ def _three_steps(arch, layers, d_model, lr):
     tparams = params_from_numpy(jax.tree.map(np.asarray, js.params),
                                 device="cpu")
     ts = tts.TrainState(tparams, adamw.init(tparams),
-                        advnorm.init_adv_state(),
+                        advnorm.init_adv_state(device="cpu"),
                         torch.zeros((), dtype=torch.int32))
     step = tts.make_train_step(tcfg, trl, device="cpu")
     jms, tms = [], []
@@ -227,7 +227,7 @@ def test_the_card_step_size_collapses_entropy_on_both_sides():
 
 def _loss_and_grads(cfg, rl, params, micro, remat=False):
     grads, (metrics, _) = tts.microbatch_grads(
-        params, micro, advnorm.init_adv_state(), cfg=cfg, rl=rl,
+        params, micro, advnorm.init_adv_state(device="cpu"), cfg=cfg, rl=rl,
         remat=remat)
     return metrics, _tflat(grads)
 
@@ -308,7 +308,8 @@ def test_jit_gae_detaches_the_values():
 
 def test_welford_update_and_lagged_norm_match_jax():
     rng = np.random.default_rng(0)
-    jstate, tstate = jadvnorm.init_adv_state(), advnorm.init_adv_state()
+    jstate = jadvnorm.init_adv_state()
+    tstate = advnorm.init_adv_state(device="cpu")
     seen = []
     for i in range(3):
         adv = rng.standard_normal((4, 5)).astype(np.float32) * (i + 1)

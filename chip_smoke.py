@@ -11,10 +11,15 @@ Phases, each printing one line of its numbers:
      at the slices' shapes, in f32 and bf16: K1 flash forward and K2 decode
      (the bf16 bodies also against the kernels' own order of arithmetic, to
      within the output's rounding), K3 flash backward, K4 fused policy
-     loss forward and backward (ragged, GQA; d 4096 and 2560), K6 SSD scan
-     (with and without entering states) and K7 its backward (run twice, bit
-     for bit); each timed beside the plain version and, where one PyTorch
-     call computes the same function, that call.
+     loss forward and backward (ragged, GQA; d 4096 and 2560), K5 the GIPO
+     loss over given logits, forward and backward (the reference tests'
+     ragged shapes, the action head's N 224 x V 256 and
+     benchmarks/fused_loss.py's FULL_SHAPES; the backward twice, bit for
+     bit), K1/K2/K3 again at zamba2-1.2b's attention (head_dim 64, MHA; K1
+     also without the causal mask), K6 SSD scan (with and without entering
+     states) and K7 its backward (run twice, bit for bit) at mamba2-2.7b's
+     and zamba2-1.2b's SSD shapes; each timed beside the plain version and,
+     where one PyTorch call computes the same function, that call.
   3. model: openvla-7b at full width (bf16, random weights from a seed),
      prefill + 7 decode steps on the kernel route, replayed on the plain
      route; every step's action logits compared.
@@ -35,6 +40,22 @@ Phases, each printing one line of its numbers:
      on every layer and K4 on every loss, the plain route checkpointing each
      layer, with step 1 and steps 1-3 again on an f32 copy as the witness of
      the bf16 gaps; one more step on the env's 19-token sequences.
+  7. zamba2-1.2b: phases 3-5 again for the hybrid family, at full width and
+     full depth (38 Mamba2 layers, the shared attention block applied 7
+     times): serving on 256-token and the env's 12-token prompts, K1 on
+     every application and K6 on every layer of every prefill, K2 on every
+     application of every decode, the routes also compared on an f32 copy;
+     three train steps checkpointing each block (K1 and K6 again in the
+     backward), K3/K7 on every application and layer, K4 on every loss,
+     every gradient leaf nonzero (the shared block's too), step 1 and steps
+     1-3 held against the plain route and again on an f32 copy; one more
+     step on the env's 19-token sequences.
+  8. the kernel-ops entry point (``repro_torch.kernels.ops``), the one path
+     that runs K5: every op on CUDA tensors, its kernel launch counted and
+     its result held against the plain route; the two K5 ops on zamba2's
+     full-depth f32 action logits of one train micro-batch, against
+     ``ref.reference_gipo_loss``, the plain route's autograd, and K4 on the
+     same hidden states and head weight.
 
 Every check raises on failure, so the script exits non-zero. The line
 before the last is a JSON summary of every kernel; the last line is
@@ -150,10 +171,35 @@ SSM_STEPS_BOUND = [dict.fromkeys(STEP_KEYS, 3e-2)] * 2 + [
 # 5.2e-5, where bf16 gives 2x). The bounds leave ~5x room.
 SSM_F32_CHUNK = 64
 SSM_F32_BOUNDS = (5e-6, 5e-5, [dict.fromkeys(STEP_KEYS, 3e-4)] * 3)
+# zamba2-1.2b (hybrid): serving and training at full depth (38 Mamba2
+# layers; the shared attention + MLP block applied 7 times, before every
+# 6th layer and once more before the last 2), bf16, on SSM_OBS-token
+# prompts and train sequences and on the env's lengths, as mamba2-2.7b; the
+# state (~18 GB of bf16 params and f32 moments and accumulator) fits one
+# card, and training checkpoints each block on both routes. The routes
+# differ in the SSD scan and in the attention kernels' roundings, carried
+# through 45 bf16 blocks; the f32 copy (chunk 128: K7's f32 tiles fit at N
+# 64) is the witness that those gaps are rounding. The first run held
+# mamba2's bounds (0.45, 4e-2, 0.15, SSM_STEPS_BOUND; f32 copy 1e-4, and
+# 1e-4 / 1e-3 / 1e-2 for training) and measured on the H100: serving logits
+# 0.0357 apart (f32 copy 4.59e-6); step 1 1.49e-3 over the metrics (grad
+# norm), 5.95e-2 per leaf and layer (conv_w[25]); steps 1-2 4.1e-3, step 3
+# entropy 4.2e-4 and grad norm 3.0e-2; the env step 1.94e-3; the f32 copy
+# 1.56e-6 over the metrics, 8.0e-6 per leaf and layer, 3.3e-5 over steps
+# 1-3. The bounds below are ~5x those readings (the per-leaf bf16 one stays
+# at mamba2's 0.15, 2.5x).
+HYB_LOGIT_BOUND = 0.2
+HYB_F32_LOGIT_BOUND = 2.5e-5
+HYB_ROUTE_BOUND = 1e-2
+HYB_LEAF_BOUND = 0.15
+HYB_STEPS_BOUND = [dict.fromkeys(STEP_KEYS, 2e-2)] * 2 + [
+    {"entropy": 0.15, "grad_norm": 0.15}]
+HYB_F32_BOUNDS = (1e-5, 5e-5, [dict.fromkeys(STEP_KEYS, 2e-4)] * 3)
 # kernel-name patterns that group a traced train step's device time
 TRACE_GROUPS = (("K1 flash fwd", ("flash_fwd",)),
                 ("K3 flash bwd", ("flash_bwd",)),
                 ("K4 policy loss", ("policy_rows", "policy_dw")),
+                ("K5 gipo head loss", ("gipo_head",)),
                 ("K6 ssd fwd", ("ssd_fwd",)),
                 ("K7 ssd bwd", ("ssd_bwd", "ssd_head_sum")),
                 ("GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
@@ -161,6 +207,8 @@ TRACE_GROUPS = (("K1 flash fwd", ("flash_fwd",)),
                 ("reduce", ("reduce",)),
                 ("index/embedding", ("index", "embedding", "scatter",
                                      "gather")))
+# parameter subtrees stacked on a leading layer axis
+STACKED = ("layers", "layers_rem")
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -614,9 +662,256 @@ def phase_kernels(dev):
             launches=None, max_abs_err=max(v["err"] for v in k4.values()),
             **t224[tag], large_batch=t3584[tag], mamba2_width=t2560[tag]))
     del k4
-    entries += _ssd_kernels(gen, dev, flush)
+    entries += _gipo_head_kernels(gen, dev, flush)
+    z = _zamba2_attention(gen, dev, flush)
+    for e, key in zip(entries[:3], ("flash", "decode", "flash_bwd")):
+        e["zamba2"] = z[key]
+        e["max_abs_err"] = max(e["max_abs_err"], z[key]["max_abs_err"])
+    # mamba2-2.7b's SSD (H 80, P 64, N 128), then zamba2-1.2b's (H 64, P 64,
+    # N 64: K7's f32 tiles fit chunk 128 there, 199 KB)
+    k6, k7 = _ssd_kernels(gen, dev, flush, "mamba2", 80, 64, 128, 64)
+    z6, z7 = _ssd_kernels(gen, dev, flush, "zamba2", 64, 64, 64, 128)
+    entries += [
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:36", launches=None,
+             **dict(k6, max_abs_err=max(k6["max_abs_err"],
+                                        z6["max_abs_err"])),
+             zamba2=z6),
+        dict(name="ssd_scan_bwd", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+             replaces="src/repro/kernels/ssd_scan.py:143", launches=None,
+             **dict(k7, max_abs_err=max(k7["max_abs_err"],
+                                        z7["max_abs_err"])),
+             zamba2=z7)]
     del l2
     return entries
+
+
+def _zamba2_attention(gen, dev, flush):
+    """K1, K2 and K3 at zamba2-1.2b's shared attention block (32 heads MHA,
+    head_dim 64), f32 and bf16, each against its plain version: K1 on the
+    serving prompt (B8 T256, causal and not), the env's prompt (B8 T12) and
+    the training shape (B36 T256, with the LSE), K3 at the training shape,
+    K2 over the serving cache (B8 S263). Returns bf16 timings by kernel."""
+    import torch
+    from repro_torch.kernels.decode_attention import (_plain_decode,
+                                                      decode_attention)
+    from repro_torch.kernels.flash_attention import (_plain_dense,
+                                                     _plain_flash_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    h, d = 32, 64
+    keep, errs = {}, dict.fromkeys(("k1", "k2", "k3"), 0.0)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    for b, t, causal in ((8, 256, True), (8, 256, False),
+                         (8, SSM_ENV_OBS, True), (36, 256, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (rand(b, t, h, d, dtype=dtype) for _ in range(3))
+            out, lse = flash_attention(q, k, v, causal=causal,
+                                       return_lse=True)
+            exp, exp_lse = _plain_dense(q, k, v, causal=causal,
+                                        return_lse=True)
+            torch.cuda.synchronize()
+            tag = f"zamba2 flash B={b} T=S={t} H={h} D={d} " \
+                  f"causal={causal} {str(dtype)[6:]}"
+            err = _check_close(tag, out, exp, dtype)
+            lse_err = (lse - exp_lse).abs().max().item()
+            if not lse_err <= 1e-3:
+                raise AssertionError(f"{tag}: lse err {lse_err}")
+            errs["k1"] = max(errs["k1"], err)
+            print(f"[kernels] {tag}: max abs err {err:.3e} lse "
+                  f"{lse_err:.3e}")
+            if causal and dtype == torch.bfloat16:
+                keep[b, t] = dict(q=q, k=k, v=v)
+            if b == 36:
+                do = rand(b, t, h, d, dtype=dtype)
+                got = flash_attention_bwd(q, k, v, out, lse, do)
+                exp = _plain_flash_bwd(q, k, v, out, lse, do)
+                torch.cuda.synchronize()
+                tag = f"zamba2 flash_bwd B={b} T=S={t} H={h} D={d} " \
+                      f"{str(dtype)[6:]}"
+                res = [_check_grad(f"{tag} {n}", x, y, dtype)
+                       for n, x, y in zip(("dq", "dk", "dv"), got, exp)]
+                errs["k3"] = max([errs["k3"]] + [r[0] for r in res])
+                print(f"[kernels] {tag}: max abs err dq {res[0][0]:.3e} dk "
+                      f"{res[1][0]:.3e} dv {res[2][0]:.3e} | beyond the "
+                      f"bar's rounding term, of the largest value: "
+                      f"{max(r[1] for r in res):.3e}")
+                if dtype == torch.bfloat16:
+                    keep["bwd"] = dict(q=q, k=k, v=v, o=out, lse=lse, do=do)
+                del do, got
+            del q, k, v, out, lse, exp, exp_lse
+    b, s = 8, 256 + 7
+    for dtype in (torch.float32, torch.bfloat16):
+        q = rand(b, 1, h, d, dtype=dtype)
+        k, v = (rand(b, s, h, d, dtype=dtype) for _ in range(2))
+        valid = torch.rand(b, s, generator=gen, device=dev) > 0.3
+        valid[:, 0] = True
+        got = decode_attention(q, k, v, valid)
+        exp = _plain_decode(q, k, v, valid)
+        torch.cuda.synchronize()
+        tag = f"zamba2 decode B={b} S={s} H={h} KV={h} D={d} " \
+              f"{str(dtype)[6:]}"
+        errs["k2"] = max(errs["k2"], _check_close(tag, got, exp, dtype))
+        print(f"[kernels] {tag}: max abs err {errs['k2']:.3e}")
+        keep["decode"] = dict(q=q, k=k, v=v, valid=valid)
+    return dict(
+        flash=dict(_time_flash(keep[8, 256], flush), max_abs_err=errs["k1"],
+                   env_prompt=_time_flash(keep[8, SSM_ENV_OBS], flush),
+                   train_shape=_time_flash(keep[36, 256], flush, lse=True)),
+        decode=dict(_time_decode(keep["decode"], flush),
+                    max_abs_err=errs["k2"]),
+        flash_bwd=dict(_time_flash_bwd(keep["bwd"], flush),
+                       max_abs_err=errs["k3"]))
+
+
+# K5 at the reference tests' ragged shapes (tests/test_dispatch.py), the
+# action head's one train micro-batch (N 224 x Va 256) and
+# benchmarks/fused_loss.py's FULL_SHAPES
+K5_SHAPES = ((257, 48), (300, 64), (100, 256), (224, 256), (16384, 256),
+             (65536, 256), (16384, 1024))
+
+
+# K5's backward is held under each loss term alone, so that none hides
+# under another (on stale data the k3-KL's gradient dwarfs the rest), and
+# under the three together: (c_pg, c_kl, c_ent) / N
+K5_COEFS = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0),
+            (0.7, 0.1, -0.01))
+
+
+def _head_case(gen, dev, n, v, dtype, stale):
+    """K5's inputs: logits at the scale of a trained action head, row 0's
+    target past V (the reference's one-hot matches nothing), row 1 masked.
+    logp_old lies within 0.1 of the logits' own log-prob of the target
+    (|log ρ| / σ about 0.5: ω near 1, the surrogate carries weight), or,
+    ``stale``, at -3 ± 0.3, far from it (ω near 0, the k3-KL's gradient up
+    to ~1e3)."""
+    import torch
+    from repro_torch.kernels.gipo_loss import _softmax_rows
+    tg = torch.randint(0, v, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    tg[0] = v
+    mk = (torch.rand(n, generator=gen, device=dev) > 0.15).float()
+    mk[1] = 0.0
+    logits = (torch.randn(n, v, generator=gen, device=dev) * 3).to(dtype)
+    noise = torch.randn(n, generator=gen, device=dev)
+    lo = (noise * 0.3 - 3.0 if stale
+          else _softmax_rows(logits.float(), tg)[3] + 0.1 * noise)
+    return [logits, tg, lo, torch.randn(n, generator=gen, device=dev), mk]
+
+
+def _time_head(args, coefs, flush):
+    """K5 forward and backward and their plain versions on one case, with
+    their bounds: bytes (each input read once, each output written once)
+    against operations on the f32 units (the row math is f32 whatever the
+    logits' type: ~5 an element forward, ~15 backward). No single PyTorch
+    call computes the loss with its analytic backward: no library time."""
+    from repro_torch.kernels import gipo_loss as gl
+    n, v = args[0].shape
+    out = {}
+    for tag, kern, plain, extra, nflop, outs in (
+            ("fwd", gl.gipo_head_fwd, gl._plain_gipo_head_fwd, (),
+             5.0 * n * v, -(-n // gl.HEAD_ROWS) * 8 * 4),
+            ("bwd", gl.gipo_head_bwd, gl._plain_gipo_head_bwd, (coefs,),
+             15.0 * n * v, _nbytes(args[0]))):
+        ms, host_ms = _median_ms(lambda: kern(*args, 0.2, *extra),
+                                 flush=flush)
+        plain_ms, _ = _median_ms(lambda: plain(*args, 0.2, *extra),
+                                 flush=flush)
+        bound_ms, bound_by = _bound(_nbytes(*args, *extra) + outs, nflop,
+                                    "float32")
+        shape = f"N={n} V={v} {str(args[0].dtype)[6:]}"
+        print(f"[kernels] gipo_head_{tag} {shape}: kernel {ms:.4f} ms | "
+              f"plain {plain_ms:.4f} ms | library none | bound "
+              f"{bound_ms:.4f} ms ({bound_by}) | host enqueue "
+              f"{host_ms:.4f} ms")
+        out[tag] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None)
+    return out
+
+
+def _gipo_head_kernels(gen, dev, flush):
+    """K5 forward and backward against their plain versions on the card,
+    f32 and bf16 logits, at K5_SHAPES, on live and on stale logp_old
+    (``_head_case``): the loss, entropy, KL and metrics within F32_MAX_ERR
+    relative (floored at 1), ω's mean above 0.5 on the live data; the
+    backward under each row of K5_COEFS (live data; the stale data under
+    the last), f32 d_logits within F32_MAX_ERR of the largest value, bf16
+    as K4's outputs, the masked row's d_logits zero, each run twice and
+    compared bit for bit. Each live case timed. Returns the two JSON
+    entries, timed at N 224 V 256 f32 (what the kernel-ops phase runs),
+    every case beside it."""
+    import torch
+    from repro_torch.kernels import gipo_loss as gl
+    cases, errs = [], {"fwd": 0.0, "bwd": 0.0}
+    for n, v in K5_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for stale in (False, True):
+                args = _head_case(gen, dev, n, v, dtype, stale)
+                tag = (f"gipo_head N={n} V={v} {str(dtype)[6:]} "
+                       + ("stale" if stale else "live"))
+                got = gl._finalize(gl.gipo_head_fwd(*args, 0.2).sum(0))
+                exp = gl._finalize(gl._plain_gipo_head_fwd(*args, 0.2)
+                                   .sum(0))
+                vals = list(got[:3]) + [got[3][x] for x in sorted(got[3])]
+                evals = list(exp[:3]) + [exp[3][x] for x in sorted(exp[3])]
+                ferr = max(abs(x.item() - y.item()) / max(abs(y.item()), 1.0)
+                           for x, y in zip(vals, evals))
+                if not ferr <= F32_MAX_ERR:
+                    raise AssertionError(f"{tag}: forward rel err {ferr}")
+                omega = exp[3]["omega_mean"].item()
+                if not (stale or omega > 0.5):
+                    raise AssertionError(f"{tag}: ω mean {omega}")
+                rows, derrs = K5_COEFS[-1:] if stale else K5_COEFS, []
+                for row in rows:
+                    coefs = torch.tensor(row, device=dev) / n
+                    d = gl.gipo_head_bwd(*args, 0.2, coefs)
+                    again = gl.gipo_head_bwd(*args, 0.2, coefs)
+                    ed = gl._plain_gipo_head_bwd(*args, 0.2, coefs)
+                    torch.cuda.synchronize()
+                    ctag = f"{tag} coefs {row}"
+                    if d.dtype != dtype or d.shape != args[0].shape:
+                        raise AssertionError(f"{ctag}: d_logits {d.dtype} "
+                                             f"{d.shape}")
+                    # f32: within F32_MAX_ERR of the largest value, as the
+                    # card tests hold it
+                    derrs.append(
+                        _check_f32_out(f"{ctag} d_logits", d, ed)
+                        if dtype == torch.float32
+                        else _check_grad(f"{ctag} d_logits", d, ed, dtype))
+                    if not torch.equal(d, again):
+                        raise AssertionError(f"{ctag}: two backward runs "
+                                             f"differ")
+                    if d[1].any():
+                        raise AssertionError(f"{ctag}: the masked row's "
+                                             f"d_logits")
+                    del d, again, ed
+                errs["fwd"] = max(errs["fwd"], ferr)
+                errs["bwd"] = max(errs["bwd"], *(e[0] for e in derrs))
+                print(f"[kernels] {tag}: ω mean {omega:.3f} | forward rel "
+                      f"err {ferr:.3e} | d_logits max abs err under coefs "
+                      + ", ".join(f"{r} {e[0]:.3e}"
+                                  for r, e in zip(rows, derrs))
+                      + " | beyond the bar's rounding term, of the largest "
+                      f"value: {max(e[1] for e in derrs):.3e} | two runs "
+                      f"equal | the masked row zero")
+                if not stale:
+                    cases.append(_time_head(
+                        args, torch.tensor(K5_COEFS[-1], device=dev) / n,
+                        flush))
+                del args, got, exp
+    main = K5_SHAPES.index((224, 256)) * 2           # its f32 case
+    return [dict(name=f"gipo_head_loss_{tag}", route="cuda",
+                 source="src/repro_torch/csrc/gipo_loss.cu",
+                 replaces=f"src/repro/kernels/gipo_loss.py:{line}",
+                 launches=None, max_abs_err=errs[tag], **cases[main][tag],
+                 shapes=[c[tag] for c in cases])
+            for tag, line in (("fwd", 155), ("bwd", 164))]
 
 
 def _ssd_case(gen, dev, b, t, h, p, n, dtype):
@@ -659,27 +954,31 @@ def _check_f32_out(name, got, exp):
     return err, err / max(scale, 1e-30)
 
 
-def _ssd_kernels(gen, dev, flush):
-    """K6 at the serving (B8) and training (B36) batches of mamba2-2.7b, on
-    256-token sequences (two chunks of 128) and on the env's (12-token
-    prompts, 19-token train sequences: one short chunk), f32 and bf16, with
-    and without entering states; K7 at the training batch on both lengths
-    (bf16; f32 at chunk 64 on 256 tokens), run twice and compared bit for
-    bit; each against its plain version. Returns the two JSON entries, timed
-    at the 256-token shapes with the env's shapes beside them."""
+def _ssd_kernels(gen, dev, flush, label, h, p, n, f32_chunk):
+    """K6 at the serving (B8) and training (B36) batches of ``label`` (SSD
+    heads ``h``, head width ``p``, state ``n``, chunk 128), on 256-token
+    sequences (two chunks of 128) and on the env's (12-token prompts,
+    19-token train sequences: one short chunk), f32 and bf16, with and
+    without entering states; K7 at the training batch on both lengths
+    (bf16; f32 at chunk ``f32_chunk`` on 256 tokens), run twice and compared
+    bit for bit; each against its plain version. Returns (K6, K7) timings at
+    the 256-token shapes with the env's shapes beside them."""
     import torch
-    from repro_torch.kernels import ssd_scan as ssd
-    h, p, n, q = 80, 64, 128, 128
+    from repro_torch.kernels.ssd_scan import (plain_ssd_scan,
+                                              plain_ssd_scan_bwd,
+                                              ssd_scan, ssd_scan_bwd)
+    q = 128
     k6 = {}
     for b, t in ((8, 256), (36, 256), (8, SSM_ENV_OBS),
                  (36, SSM_ENV_OBS + 7)):
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_case(gen, dev, b, t, h, p, n, dtype)
             for states in (False, True):
-                got = ssd.ssd_scan(*args, chunk=q, return_states=states)
-                exp = ssd.plain_ssd_scan(*args, q, states)
+                got = ssd_scan(*args, chunk=q, return_states=states)
+                exp = plain_ssd_scan(*args, q, states)
                 torch.cuda.synchronize()
-                tag = (f"ssd_scan B={b} T={t} H={h} P={p} N={n} chunk={q} "
+                tag = (f"{label} ssd_scan B={b} T={t} H={h} P={p} N={n} "
+                       f"chunk={q} "
                        f"{str(dtype)[6:]}" + (" +states" if states else ""))
                 res = [_check_f32_out(f"{tag} {nm}", x, y) for nm, x, y in
                        zip(("y", "s_final", "s_enter"), got, exp)]
@@ -693,25 +992,25 @@ def _ssd_kernels(gen, dev, flush):
                                     err=max(r[0] for r in res))
                 del got, exp
             del args
-    # K7: the training batch in bf16 (f32 tiles at chunk 128 exceed shared
-    # memory; f32 is checked at chunk 64, and on the env's 19 steps, which
-    # run as one chunk of 32), a nonzero ds_final
+    # K7: the training batch in bf16 (at N 128 f32 tiles at chunk 128
+    # exceed shared memory: f32 is checked at f32_chunk, and on the env's 19
+    # steps, which run as one chunk of 32), a nonzero ds_final
     k7 = {}
     for dtype, b, t, qq in ((torch.bfloat16, 36, 256, q),
-                            (torch.float32, 8, 256, 64),
+                            (torch.float32, 8, 256, f32_chunk),
                             (torch.bfloat16, 36, SSM_ENV_OBS + 7, q),
                             (torch.float32, 36, SSM_ENV_OBS + 7, q)):
         args = (k6[b, t]["args"] if dtype == torch.bfloat16
                 else _ssd_case(gen, dev, b, t, h, p, n, dtype))
-        _, _, enter = ssd.ssd_scan(*args, chunk=qq, return_states=True)
+        _, _, enter = ssd_scan(*args, chunk=qq, return_states=True)
         dy = torch.randn(b, t, h, p, generator=gen, device=dev)
         ds = torch.randn(b, h, p, n, generator=gen, device=dev)
-        got = ssd.ssd_scan_bwd(*args, enter, dy, ds, chunk=qq)
-        again = ssd.ssd_scan_bwd(*args, enter, dy, ds, chunk=qq)
-        exp = ssd.plain_ssd_scan_bwd(*args, enter, dy, ds, qq)
+        got = ssd_scan_bwd(*args, enter, dy, ds, chunk=qq)
+        again = ssd_scan_bwd(*args, enter, dy, ds, chunk=qq)
+        exp = plain_ssd_scan_bwd(*args, enter, dy, ds, qq)
         torch.cuda.synchronize()
-        tag = f"ssd_scan_bwd B={b} T={t} H={h} P={p} N={n} chunk={qq} " \
-              f"{str(dtype)[6:]}"
+        tag = f"{label} ssd_scan_bwd B={b} T={t} H={h} P={p} N={n} " \
+              f"chunk={qq} {str(dtype)[6:]}"
         res = []
         for nm, x, y in zip(("dx", "ddt", "dA", "dB", "dC"), got, exp):
             if x.dtype != y.dtype or x.shape != y.shape:
@@ -732,36 +1031,29 @@ def _ssd_kernels(gen, dev, flush):
                          err=max(r[0] for r in res))
         del got, again, exp, enter, dy, ds
     env_t = SSM_ENV_OBS + 7
-    serving, train = _time_ssd(k6[8, 256], flush), _time_ssd(k6[36, 256],
-                                                             flush)
-    entries = [
-        dict(name="ssd_scan", route="cuda",
-             source="src/repro_torch/csrc/ssd_scan.cu",
-             replaces="src/repro/kernels/ssd_scan.py:36", launches=None,
-             max_abs_err=max(v["err"] for v in k6.values()), **serving,
-             train_shape=dict(train, max_abs_err=k6[36, 256]["err"]),
-             env_serving_shape=_time_ssd(k6[8, SSM_ENV_OBS], flush),
-             env_train_shape=_time_ssd(k6[36, env_t], flush)),
-        dict(name="ssd_scan_bwd", route="cuda",
-             source="src/repro_torch/csrc/ssd_scan_bwd.cu",
-             replaces="src/repro/kernels/ssd_scan.py:143", launches=None,
-             max_abs_err=max(v["err"] for v in k7.values()),
-             **_time_ssd_bwd(k7[256], flush),
-             env_train_shape=_time_ssd_bwd(k7[env_t], flush))]
+    k6_times = dict(_time_ssd(k6[8, 256], flush),
+                    max_abs_err=max(v["err"] for v in k6.values()),
+                    train_shape=dict(_time_ssd(k6[36, 256], flush),
+                                     max_abs_err=k6[36, 256]["err"]),
+                    env_serving_shape=_time_ssd(k6[8, SSM_ENV_OBS], flush),
+                    env_train_shape=_time_ssd(k6[36, env_t], flush))
+    k7_times = dict(_time_ssd_bwd(k7[256], flush),
+                    max_abs_err=max(v["err"] for v in k7.values()),
+                    env_train_shape=_time_ssd_bwd(k7[env_t], flush))
     del k6, k7
-    return entries
+    return k6_times, k7_times
 
 
 def _time_ssd(case, flush):
     """K6 and its plain version on one bf16 case; no single PyTorch call
     computes a chunked SSD scan, so there is no library time."""
-    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan import plain_ssd_scan, ssd_scan
     args, states = case["args"], case["states"]
     b, t, h, p = args[0].shape
     n, q = args[3].shape[-1], 128
-    ms, host_ms = _median_ms(lambda: ssd.ssd_scan(
+    ms, host_ms = _median_ms(lambda: ssd_scan(
         *args, chunk=q, return_states=states), flush=flush)
-    plain_ms, _ = _median_ms(lambda: ssd.plain_ssd_scan(*args, q, states),
+    plain_ms, _ = _median_ms(lambda: plain_ssd_scan(*args, q, states),
                              flush=flush)
     outs = 4 * (b * t * h * p + b * h * p * n
                 + states * b * -(-t // q) * h * p * n)
@@ -780,13 +1072,14 @@ def _time_ssd(case, flush):
 def _time_ssd_bwd(case, flush):
     """K7 and its plain version (autograd of the plain forward) on the bf16
     training case; no library time, as for K6."""
-    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan import (plain_ssd_scan_bwd,
+                                              ssd_scan_bwd)
     args, enter, dy, ds = (case[k] for k in ("args", "enter", "dy", "ds"))
     b, t, h, p = args[0].shape
     n, q = args[3].shape[-1], 128
-    ms, host_ms = _median_ms(lambda: ssd.ssd_scan_bwd(
+    ms, host_ms = _median_ms(lambda: ssd_scan_bwd(
         *args, enter, dy, ds, chunk=q), flush=flush)
-    plain_ms, _ = _median_ms(lambda: ssd.plain_ssd_scan_bwd(
+    plain_ms, _ = _median_ms(lambda: plain_ssd_scan_bwd(
         *args, enter, dy, ds, q), runs=5, flush=flush)
     outs = _nbytes(args[0], args[1], args[3], args[4]) + 4 * h
     bound_ms, bound_by = _bound(_nbytes(*args, enter, dy, ds) + outs,
@@ -1056,7 +1349,7 @@ def phase_trace(dev, cfg, params, *, obs_len, frame):
 
 
 def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
-                plain_remat=False, f32_witness=None):
+                remat=False, plain_remat=False, f32_witness=None):
     """``arch`` at full width and ``n_layers`` layers, on ``dummy_batch``
     segments of ``obs_len`` observation tokens: the kernel route's
     step-1 gradients (every leaf nonzero) against the plain route's, then
@@ -1065,11 +1358,13 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
     step, and the three steps replayed on the plain route from the same
     seed. ``bounds``: the step-1 metric and per-leaf gradient bounds, and
     for each of steps 1-3 a bound for each key of STEP_KEYS it holds.
-    ``plain_remat`` checkpoints each layer on the plain route (the same
-    arithmetic, recomputed in the backward), where its saved activations
-    would not fit beside the kernel route's gradients. ``f32_witness``:
-    (chunk, bounds as ``bounds``) to run step 1 and steps 1-3 again on an
-    f32 copy of the model, both routes checkpointing each layer.
+    ``remat`` checkpoints each block on both routes (the same arithmetic,
+    recomputed in the backward: the kernel route's forward kernels launch
+    again there), ``plain_remat`` on the plain route only, where its saved
+    activations would not fit beside the kernel route's gradients.
+    ``f32_witness``: (chunk, bounds as ``bounds``) to run step 1 and steps
+    1-3 again on an f32 copy of the model, both routes checkpointing each
+    layer.
     Returns the launches by name over the three steps."""
     import dataclasses
     import torch
@@ -1098,12 +1393,12 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
           f"{time.perf_counter() - t0:.1f} s | allocated "
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
     m_kernel = _compare_step1(f"{arch} bf16", cfg, rl, state, batch,
-                              (False, plain_remat), bounds[:2])
+                              (remat, remat or plain_remat), bounds[:2])
     compare_peak = torch.cuda.max_memory_allocated(dev)
 
     want = {k: per for k, (_, per) in counters.items()}
     totals = dict.fromkeys(counters, 0)
-    step = ts.make_train_step(cfg, rl, device=dev)
+    step = ts.make_train_step(cfg, rl, remat=remat, device=dev)
     walls, hist = [], {"cuda": []}
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(3):
@@ -1146,8 +1441,8 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
         raise AssertionError(f"first moments all zero: {zero_mu}")
     now = dict(tree_leaves_with_path(state.params))
     unchanged = [f"{'.'.join(path)}[{i}]" for path, x in now.items()
-                 if path[0] == "layers" and x.ndim == 3
-                 for i in range(n_layers)
+                 if path[0] in STACKED and x.ndim == 3
+                 for i in range(x.shape[0])
                  if torch.equal(x[i], p0[path][i])]
     if unchanged or torch.equal(now[("action_head", "w")],
                                 p0[("action_head", "w")]):
@@ -1174,7 +1469,7 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
     del state, step, batch
     torch.cuda.empty_cache()
     hist["torch"], _ = _run_steps(dev, cfg, rl, np_batch, "torch",
-                                  remat=plain_remat, p0=p0)
+                                  remat=remat or plain_remat, p0=p0)
     del p0
     _compare_steps(f"{arch} bf16", hist["cuda"], hist["torch"], steps_bound)
     if f32_witness is not None:
@@ -1350,12 +1645,14 @@ def _train_f32_witness(dev, cfg, rl, np_batch, chunk, bounds):
         raise AssertionError(f"{label}: peak memory {peak / 1e9:.1f} GB")
 
 
-def phase_train_env(dev, arch, n_layers, obs_len, counters, route_bound):
+def phase_train_env(dev, arch, n_layers, obs_len, counters, route_bound, *,
+                    remat=False):
     """One GIPO train step of ``arch`` (full width, ``n_layers`` layers) on
     ``dummy_batch`` segments of ``obs_len`` observation tokens, from a
-    seed-0 state on each route: the kernel route's launches counted
-    (``counters`` as phase_train's), and the two routes' loss, metrics and
-    grad norm within ``route_bound``. Returns the launches by name."""
+    seed-0 state on each route (``remat``: checkpointing each block): the
+    kernel route's launches counted (``counters`` as phase_train's), and
+    the two routes' loss, metrics and grad norm within ``route_bound``.
+    Returns the launches by name."""
     import dataclasses
     from repro_torch.configs import RLConfig, get_config
     from repro_torch.data.trajectory import dummy_batch
@@ -1366,8 +1663,8 @@ def phase_train_env(dev, arch, n_layers, obs_len, counters, route_bound):
                            num_prefix=cfg.num_prefix_tokens, seed=0)
     t0 = time.perf_counter()
     (mk,), launches = _run_steps(dev, cfg, rl, np_batch, "cuda", n=1,
-                                 counters=counters)
-    (mp,), _ = _run_steps(dev, cfg, rl, np_batch, "torch", n=1)
+                                 counters=counters, remat=remat)
+    (mp,), _ = _run_steps(dev, cfg, rl, np_batch, "torch", n=1, remat=remat)
     worst, worst_key = _worst_rel(mk, mp, f"{arch} T={obs_len}")
     print(f"[train] {arch} x {n_layers} layers on the env's sequences "
           f"({obs_len} + {cfg.action_dim} tokens): one step from seed 0 on "
@@ -1383,14 +1680,14 @@ def phase_train_env(dev, arch, n_layers, obs_len, counters, route_bound):
 
 def _leaf_grad_diff(got, exp):
     """|got - exp| / |exp| (Frobenius norms) for every leaf, taking each
-    layer of a stacked ``layers`` leaf on its own: [(value, leaf[layer])],
-    largest first, NaN first of all."""
+    layer of a stacked leaf (``layers``, the hybrid's ``layers_rem``) on its
+    own: [(value, leaf[layer])], largest first, NaN first of all."""
     import torch
     from repro_torch.tree import tree_leaves_with_path
     ref = dict(tree_leaves_with_path(exp))
     out = []
     for path, g in tree_leaves_with_path(got):
-        parts = (enumerate(zip(g, ref[path])) if path[0] == "layers"
+        parts = (enumerate(zip(g, ref[path])) if path[0] in STACKED
                  else [(None, (g, ref[path]))])
         for i, (a, b) in parts:
             rel = (torch.linalg.vector_norm(a - b)
@@ -1452,6 +1749,155 @@ def _trace_train_step(dev, label, step, state, np_batch):
           f"{100 * (1 - busy_ms / wall_ms):.1f}% | by kind: {by_kind}")
 
 
+def _combine(pg, ent, kl):
+    """A loss of the three differentiable outputs, so that each cotangent
+    is nonzero."""
+    return pg + 0.1 * kl - 0.01 * ent
+
+
+def phase_ops(dev, cfg, counters):
+    """The kernel-ops entry point (``repro_torch.kernels.ops``): every op
+    once on CUDA tensors with the launches counted (``counters`` as
+    phase_model's), then each result against the plain route. The two K5
+    ops run on ``cfg``'s full-depth f32 action logits of one train
+    micro-batch (seed-0 weights, ``dummy_batch`` of SSM_OBS-token
+    sequences, the behaviour log-prob within 0.1 of the model's own, so
+    that ω is near 1 and the surrogate carries weight): loss and metrics against ``ref.reference_gipo_loss`` and
+    the plain route, d_logits (of the three terms together and of each
+    alone) against the plain route's autograd, and K5 on hidden·w against
+    K4 (``fused_policy_loss_op``) on the same hidden
+    states and head weight. The attention and SSD ops run at ``cfg``'s
+    shapes. Returns the launches by name."""
+    import torch
+    from repro_torch.bridge import batch_from_numpy
+    from repro_torch.configs import RLConfig
+    from repro_torch.core import train_step as ts
+    from repro_torch.data.trajectory import dummy_batch
+    from repro_torch.kernels import dispatch, ops, ref
+    from repro_torch.kernels.flash_attention import _plain_dense
+    from repro_torch.kernels.ssd_scan import plain_ssd_scan
+    from repro_torch.models.policy import init_policy_params
+    rl = RLConfig()
+    sigma = rl.gipo_sigma
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = init_policy_params(cfg, 0, device=dev)
+    np_batch = dummy_batch(8, 8, SSM_OBS - cfg.action_dim, cfg.action_dim,
+                           cfg.vocab_size, cfg.action_vocab_size,
+                           num_prefix=cfg.num_prefix_tokens, seed=0)
+    slice_i, _ = ts._microbatches(batch_from_numpy(np_batch, device=dev),
+                                  rl.grad_accum)
+    micro = slice_i(0)
+    t = micro.horizon
+    with torch.no_grad():
+        hidden, _, _ = ts._score_batch_hidden(cfg, params, micro,
+                                              remat=False)
+    b, a = hidden.shape[0], micro.actions.shape[2]
+    h = hidden[:, :t].reshape(b * t * a, -1).contiguous()
+    w = params["action_head"]["w"]
+    logits = h.float() @ w.float()
+    del hidden, params
+
+    def per_token(x):
+        return x[..., None].expand(b, t, a).reshape(-1).contiguous()
+    targets = micro.actions[:, :t].reshape(-1).to(torch.int32).contiguous()
+    own = torch.log_softmax(logits, -1).gather(1, targets.long()[:, None])
+    rows = [targets,
+            own[:, 0] + 0.1 * torch.randn(own.shape[0], generator=gen,
+                                          device=dev),
+            per_token(torch.randn(b, t, generator=gen, device=dev)),
+            per_token(micro.mask)]
+    heads, dim = cfg.num_heads, cfg.head_dim
+    qkv = [torch.randn(8, SSM_OBS, heads, dim, generator=gen,
+                       device=dev).bfloat16() for _ in range(3)]
+    n_ssd = cfg.ssm.num_heads(cfg.d_model)
+    sargs = _ssd_case(gen, dev, 8, SSM_OBS, n_ssd, cfg.ssm.head_dim,
+                      cfg.ssm.state_dim, torch.bfloat16)
+    torch.cuda.synchronize()
+
+    for fn, _ in counters.values():
+        fn.launches = 0
+    lg = logits.clone().requires_grad_()
+    k5 = ops.gipo_head_loss_op(lg, *rows, sigma=sigma)
+    _combine(*k5[:3]).backward(retain_graph=True)
+    k5_pg, k5_m = ops.gipo_loss_op(logits, *rows, sigma=sigma)
+    hh, ww = (x.detach().clone().requires_grad_() for x in (h, w))
+    k4 = ops.fused_policy_loss_op(hh, ww, *rows, sigma=sigma)
+    _combine(*k4[:3]).backward()
+    att = {c: ops.flash_attention_op(*qkv, causal=c) for c in (True, False)}
+    y, s_final = ops.ssd_scan_op(*sargs, chunk=cfg.ssm.chunk)
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, (fn, _) in counters.items()}
+    if got != {k: want for k, (_, want) in counters.items()}:
+        raise AssertionError(f"kernel-ops launches {got}")
+
+    # the plain route: K5's autodiffed forward math, K4's, the unfused
+    # oracle
+    lp = logits.clone().requires_grad_()
+    hp, wp = (x.detach().clone().requires_grad_() for x in (h, w))
+    with dispatch.forced("torch"):
+        plain = dispatch.gipo_loss(lp, *rows, sigma=sigma)
+        _combine(*plain[:3]).backward(retain_graph=True)
+        p4 = dispatch.policy_head_loss(hp, wp, *rows, sigma=sigma)
+        _combine(*p4[:3]).backward()
+    oracle_pg, oracle_m = ref.reference_gipo_loss(logits, *rows, sigma)
+
+    def flat(out):
+        return dict(zip(("pg", "entropy", "kl"), out[:3]), **out[3])
+    pairs = [("gipo_head_loss_op vs plain", flat(k5), flat(plain)),
+             ("gipo_loss_op vs plain",
+              dict(k5_m, pg=k5_pg), dict(flat(plain))),
+             ("gipo_loss_op vs reference_gipo_loss",
+              dict(pg=k5_pg, ratio_mean=k5_m["ratio_mean"],
+                   omega_mean=k5_m["omega_mean"]),
+              dict(oracle_m, pg=oracle_pg)),
+             ("K5 on hidden.w vs K4", flat(k5), flat(k4)),
+             ("fused_policy_loss_op vs plain", flat(k4), flat(p4))]
+    worst = {}
+    for label, got_m, exp_m in pairs:
+        if set(got_m) != set(exp_m):
+            raise AssertionError(f"{label}: keys {sorted(got_m)} vs "
+                                 f"{sorted(exp_m)}")
+        rel = max(abs(got_m[k].item() - exp_m[k].item())
+                  / max(abs(exp_m[k].item()), 1.0) for k in exp_m)
+        if not rel <= F32_MAX_ERR:
+            raise AssertionError(f"{label}: rel diff {rel}")
+        worst[label] = rel
+    omega = plain[3]["omega_mean"].item()
+    if not omega > 0.5:
+        raise AssertionError(f"kernel-ops: ω mean {omega}")
+    d_err = _check_f32_out("gipo_head_loss_op d_logits", lg.grad, lp.grad)
+    # each term's d_logits alone, so that none hides under another
+    term_err = {}
+    for i, term in enumerate(("pg", "entropy", "kl")):
+        got_d, = torch.autograd.grad(k5[i], lg, retain_graph=True)
+        exp_d, = torch.autograd.grad(plain[i], lp, retain_graph=True)
+        term_err[term] = _check_f32_out(
+            f"gipo_head_loss_op d_logits of {term}", got_d, exp_d)[0]
+    k4_err = [_check_grad(f"fused_policy_loss_op {n}", x, y, torch.bfloat16)
+              for n, x, y in (("dh", hh.grad, hp.grad),
+                              ("dw", ww.grad, wp.grad))]
+    att_err = {c: _check_close(f"flash_attention_op causal={c}", att[c],
+                               _plain_dense(*qkv, causal=c), torch.bfloat16)
+               for c in att}
+    ey, es = plain_ssd_scan(*sargs, cfg.ssm.chunk)
+    ssd_err = [_check_f32_out(f"ssd_scan_op {n}", x, e)
+               for n, x, e in (("y", y, ey), ("s_final", s_final, es))]
+    print(f"[ops] kernel-ops entry point on the card, {cfg.name}'s shapes: "
+          f"launches {got} | K5 on the full-depth f32 action logits of one "
+          f"train micro-batch (N={logits.shape[0]} Va={logits.shape[1]}): "
+          f"loss {k5[0].item():.6f}, entropy {k5[1].item():.5f}, kl "
+          f"{k5[2].item():.5f}, ω mean {omega:.4f}; max rel diff (bound {F32_MAX_ERR}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" | d_logits vs the plain route's autograd {d_err[0]:.3e} "
+          f"({d_err[1]:.3e} of the largest), each term alone "
+          + ", ".join(f"{k} {v:.3e}" for k, v in term_err.items())
+          + f" | K4 dh {k4_err[0][0]:.3e} dw "
+          f"{k4_err[1][0]:.3e} | flash causal/not {att_err[True]:.3e} / "
+          f"{att_err[False]:.3e} | ssd y {ssd_err[0][0]:.3e} s_final "
+          f"{ssd_err[1][0]:.3e}")
+    return got
+
+
 def _init_two_versions(dev, cfg):
     import torch
     from repro_torch.models.policy import init_policy_params
@@ -1482,11 +1928,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    from repro_torch.models.transformer import num_shared_applications
     wrappers = {"flash_attention": flash_attention,
                 "decode_attention": decode_attention,
                 "flash_attention_bwd": flash_attention_bwd,
                 "fused_policy_loss_fwd": gl.policy_loss_fwd,
                 "fused_policy_loss_bwd": gl.policy_loss_bwd,
+                "gipo_head_loss_fwd": gl.gipo_head_fwd,
+                "gipo_head_loss_bwd": gl.gipo_head_bwd,
                 "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
 
     def counting(**per):
@@ -1547,6 +1996,47 @@ def main() -> int:
     by_path["mamba2-2.7b training, env sequences"] = phase_train_env(
         dev, "mamba2-2.7b", SSM_TRAIN_LAYERS, SSM_ENV_OBS, per_step,
         SSM_ROUTE_BOUND)
+    torch.cuda.empty_cache()
+
+    # zamba2-1.2b: serving and training at full depth (38 layers, the
+    # shared block 7 times)
+    cfg = get_config("zamba2-1.2b")
+    nl, a = cfg.num_layers, cfg.action_dim
+    n_app = num_shared_applications(cfg)
+    params0, params1 = _init_two_versions(dev, cfg)
+    per_batch = counting(flash_attention=n_app, ssd_scan=nl,
+                         decode_attention=n_app * a)
+    phase_model(dev, cfg, params0, obs_len=SSM_OBS, bound=HYB_LOGIT_BOUND,
+                f32_bound=HYB_F32_LOGIT_BOUND, counters=per_batch)
+    phase_model(dev, cfg, params0, obs_len=SSM_ENV_OBS,
+                bound=HYB_LOGIT_BOUND, counters=per_batch)
+    by_path["zamba2-1.2b serving"] = phase_serving(
+        dev, cfg, params0, params1, obs_len=SSM_OBS, frame=False,
+        counters=per_batch)
+    by_path["zamba2-1.2b serving, env prompts"] = phase_serving(
+        dev, cfg, params0, params1, obs_len=SSM_ENV_OBS, frame=False,
+        counters=per_batch)
+    phase_trace(dev, cfg, params0, obs_len=SSM_OBS, frame=False)
+    del params0, params1
+    torch.cuda.empty_cache()
+    # each block checkpointed: the backward runs K1 and K6 once more
+    per_step = counting(flash_attention=2 * n_app * ga,
+                        flash_attention_bwd=n_app * ga,
+                        ssd_scan=2 * nl * ga, ssd_scan_bwd=nl * ga,
+                        fused_policy_loss_fwd=ga, fused_policy_loss_bwd=ga)
+    by_path["zamba2-1.2b training"] = phase_train(
+        dev, "zamba2-1.2b", nl, SSM_OBS - a, per_step,
+        (HYB_ROUTE_BOUND, HYB_LEAF_BOUND, HYB_STEPS_BOUND), remat=True,
+        f32_witness=(cfg.ssm.chunk, HYB_F32_BOUNDS))
+    by_path["zamba2-1.2b training, env sequences"] = phase_train_env(
+        dev, "zamba2-1.2b", nl, SSM_ENV_OBS, per_step, HYB_ROUTE_BOUND,
+        remat=True)
+    torch.cuda.empty_cache()
+
+    # the kernel-ops entry point, the one path that runs K5
+    by_path["kernel-ops entry point"] = phase_ops(dev, cfg, counting(
+        flash_attention=2, gipo_head_loss_fwd=2, gipo_head_loss_bwd=1,
+        fused_policy_loss_fwd=1, fused_policy_loss_bwd=1, ssd_scan=1))
 
     for e in entries:
         e["launches_by_path"] = {p: n[e["name"]] for p, n in by_path.items()

@@ -17,6 +17,14 @@ constexpr float NEG_INF = -1e30f;
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 
+// A refused runtime call (cudaFuncSetAttribute asking for more shared
+// memory than the card has) also sets the runtime's last error: clear it, or
+// the next launch's cudaGetLastError() reports it against that kernel.
+inline int refused(cudaError_t err) {
+  cudaGetLastError();
+  return (int)err;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -166,7 +166,7 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
   cudaError_t err = cudaFuncSetAttribute(
       decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return repro::refused(err);
   const dim3 grid(KV, B);
   decode_kernel<T><<<grid, DTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -229,7 +229,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return repro::refused(err);
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, NJ><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

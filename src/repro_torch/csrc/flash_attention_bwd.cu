@@ -324,11 +324,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)s1);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return repro::refused(err);
   err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, NJ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)s2);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return repro::refused(err);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -683,11 +683,11 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_mma_kernel<KD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return repro::refused(err);
   err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<KD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return repro::refused(err);
   flash_bwd_dq_mma_kernel<KD>
       <<<dim3((Tq + MMA_ROWS - 1) / MMA_ROWS, H, B), MMA_THREADS, smem,
          st>>>(

@@ -1,6 +1,10 @@
-// Fused action head + GIPO / entropy / k3-KL loss (K4), forward and
-// backward, for Hopper.
+// The fused GIPO / entropy / k3-KL loss for Hopper, at two fusion levels:
+// K4 (action head + loss, forward and backward) and K5 (the loss over given
+// logits, forward and backward). Both share the per-row terms below
+// (`row_terms`, `row_partials`, `row_g`, `dlogit`), as the reference's
+// kernels share `_fwd_partials` and `_block_dlogits`.
 //
+// ---- K4 -------------------------------------------------------------------
 // Replaces the Pallas TPU kernels of src/repro/kernels/gipo_loss.py:
 // `_policy_fwd_kernel` and `_policy_bwd_kernel` behind `fused_policy_loss`.
 // hidden [N,d] (f32 or bf16), w [d,Va] (same dtype), targets i32 [N],
@@ -40,6 +44,30 @@
 // output element is summed by one thread in a fixed order, so two runs
 // agree bit for bit. Tensor-core dh / dw, and a split over d so that small
 // N fills the card, are later work.
+//
+// ---- K5 -------------------------------------------------------------------
+// Replaces `_gipo_fwd_kernel` and `_gipo_bwd_kernel` behind the reference's
+// `gipo_head_loss` (src/repro/kernels/gipo_loss.py). logits [N,V] (f32 or
+// bf16, any N, V >= 1), the row operands as K4's.
+//   forward:  per row, one walk over the logits keeping a running max m,
+//             S = sum e^{s-m} and U = sum e^{s-m} (s-m) (both rescaled, U
+//             with its own shift term, when m grows), merged across the
+//             warp; then lse = log S, entropy H = lse - U / S, the target's
+//             shifted logit (0 when the target is outside [0, V): the
+//             reference's one-hot matches nothing) and the row terms -> the
+//             8 columns, summed over the CTA's rows in a fixed order.
+//   backward: the same walk, then a second one writing
+//             d = g (onehot - p) + c_ent m (-p (log p + H)) in the logits'
+//             dtype; rows with mask 0 write zeros.
+// What bounds it: bytes. The forward reads the logits once; the backward
+// reads them and writes d_logits (its second walk reads the row again, from
+// L1/L2). At N = 16384, V = 256 f32 that is 16.8 MB, ~5 us forward.
+// Design: one warp a row, 8 rows a CTA, 16-byte loads and stores; a row's
+// unaligned head and its tail past the last whole vector take one element a
+// lane, so any V and any row offset work (the wrapper gives d_logits the
+// logits' offset within 16 bytes, so a row's head is the same for both).
+// Nothing is accumulated across CTAs: each writes its own partial row or
+// its own rows of d_logits, and reruns agree bit for bit.
 
 #include "common.cuh"
 
@@ -51,6 +79,54 @@ constexpr int MAX_V = 256;      // a row's logits fit the CTA
 constexpr int LSTR = MAX_V + 4; // shared row stride of the logits tile
 constexpr int MMA_KT = 32;      // k step of the tensor-core body
 constexpr int FMA_KT = 16;      // k step of the FMA body
+
+// ---- per-row GIPO terms shared by K4 and K5 --------------------------------
+
+struct RowTerms {
+  float lr, ratio, omega, pg;
+};
+
+// log-ratio, ratio, trust weight w (eq. 5, constant) and surrogate -w r A
+// (eq. 6) of a row, from its target's log-prob
+__device__ __forceinline__ RowTerms row_terms(float logp_new, float logp_old,
+                                              float adv, float sigma) {
+  RowTerms r;
+  r.lr = logp_new - logp_old;
+  r.ratio = expf(r.lr);
+  const float z = r.lr / sigma;
+  r.omega = expf(-0.5f * (z * z));
+  r.pg = -(r.omega * r.ratio * adv);
+  return r;
+}
+
+// the row's 8 partial-sum columns (N_COLS in kernels/gipo_loss.py)
+__device__ __forceinline__ void row_partials(float* out, const RowTerms& r,
+                                             float ent, float m,
+                                             float sigma) {
+  out[0] = r.pg * m;
+  out[1] = r.ratio * m;
+  out[2] = r.omega * m;
+  out[3] = m;
+  out[4] = ent * m;
+  out[5] = (expm1f(-r.lr) + r.lr) * m;
+  out[6] = (fabsf(r.lr) > 2.f * sigma ? 1.f : 0.f) * m;
+  out[7] = 0.f;
+}
+
+// the row's coefficient of (onehot - p): d pg / d logp_new and d k3 / d
+// logp_new, weighted by the coefficient row c = (c_pg, c_kl, c_ent)
+__device__ __forceinline__ float row_g(const RowTerms& r, const float* c,
+                                       float m) {
+  return (c[0] * r.pg + c[1] * (1.f - expf(-r.lr))) * m;
+}
+
+// one element of _block_dlogits: sh = s - max, se = sum e^{sh}
+__device__ __forceinline__ float dlogit(float sh, float lse, float ent,
+                                        float se, bool is_tgt, float g,
+                                        float ce) {
+  const float p = expf(sh) / se;
+  return g * ((is_tgt ? 1.f : 0.f) - p) + ce * (-(p * ((sh - lse) + ent)));
+}
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -251,33 +327,16 @@ policy_rows_kernel(const T* __restrict__ h, const T* __restrict__ w,
     }
     ts = repro::warp_sum(ts);
     const float ent = -repro::warp_sum(plp);
-    const float logp_new = ts - lse;
     const float m = valid ? mask[n] : 0.f;
-    const float lr = logp_new - (valid ? logp_old[n] : 0.f);
-    const float a = valid ? adv[n] : 0.f;
-    const float ratio = expf(lr);
-    const float z = lr / sigma;
-    const float omega = expf(-0.5f * (z * z));
-    const float pg = -(omega * ratio * a);
+    const RowTerms t = row_terms(ts - lse, valid ? logp_old[n] : 0.f,
+                                 valid ? adv[n] : 0.f, sigma);
     if constexpr (!BWD) {
-      if (lane == 0) {
-        rowv[r][0] = pg * m;
-        rowv[r][1] = ratio * m;
-        rowv[r][2] = omega * m;
-        rowv[r][3] = m;
-        rowv[r][4] = ent * m;
-        rowv[r][5] = (expm1f(-lr) + lr) * m;
-        rowv[r][6] = (fabsf(lr) > 2.f * sigma ? 1.f : 0.f) * m;
-        rowv[r][7] = 0.f;
-      }
+      if (lane == 0) row_partials(rowv[r], t, ent, m, sigma);
     } else {
-      const float g = (coefs[0] * pg + coefs[1] * (1.f - expf(-lr))) * m;
+      const float g = row_g(t, coefs, m);
       const float ce = coefs[2] * m;
       for (int c = lane; c < V; c += 32) {
-        const float sh = L[c] - mx;
-        const float p = expf(sh) / se;
-        const float d = g * ((c == tgt ? 1.f : 0.f) - p) +
-                        ce * (-(p * ((sh - lse) + ent)));
+        const float d = dlogit(L[c] - mx, lse, ent, se, c == tgt, g, ce);
         L[c] = d;
         if (valid) dlogits[(long)n * V + c] = d;
       }
@@ -430,7 +489,213 @@ bool bad_shape(int N, int D, int V) {
   return N <= 0 || D <= 0 || D % 8 != 0 || V % 8 != 0 || V < 8 || V > MAX_V;
 }
 
+
+// ---- K5: the loss over given logits ----------------------------------------
+
+constexpr int HEAD_ROWS = 8;   // token rows per CTA, one warp a row
+
+// Running (max, sum e^{s-m}, sum e^{s-m} (s-m)) of one lane's elements.
+struct RowStats {
+  float m, S, U;
+};
+
+template <int W>
+__device__ __forceinline__ void stats_push(RowStats& st, const float (&x)[W]) {
+  float cm = x[0];
+#pragma unroll
+  for (int i = 1; i < W; ++i) cm = fmaxf(cm, x[i]);
+  if (cm > st.m) {   // rescale both sums to the new max
+    const float f = expf(st.m - cm);
+    st.U = f * (st.U + (st.m - cm) * st.S);
+    st.S *= f;
+    st.m = cm;
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float sh = x[i] - st.m;
+    const float e = expf(sh);
+    st.S += e;
+    st.U += e * sh;
+  }
+}
+
+// Symmetric in its arguments, so every lane of the butterfly ends with the
+// same bits. An empty lane (m = NEG_INF, S = U = 0) adds exact zeros.
+__device__ __forceinline__ RowStats stats_merge(const RowStats& a,
+                                                const RowStats& b) {
+  const float m = fmaxf(a.m, b.m);
+  const float fa = expf(a.m - m), fb = expf(b.m - m);
+  return {m, fa * a.S + fb * b.S,
+          fa * (a.U + (a.m - m) * a.S) + fb * (b.U + (b.m - m) * b.S)};
+}
+
+__device__ __forceinline__ RowStats warp_merge(RowStats st) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const RowStats o{__shfl_xor_sync(0xffffffffu, st.m, off),
+                     __shfl_xor_sync(0xffffffffu, st.S, off),
+                     __shfl_xor_sync(0xffffffffu, st.U, off)};
+    st = stats_merge(st, o);
+  }
+  return st;
+}
+
+__device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&f)[8]) {
+  repro::load8(p, f);
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_elems(T* p, const float (&f)[W]) {
+  if constexpr (W == 1) {
+    *p = repro::from_f<T>(f[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  } else {
+    uint4 u;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(f[2 * i],
+                                                              f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+}
+
+// Calls fn(c, x) for a lane's share of row[0, V): x holds elements c.. as
+// f32, one of them in the row's unaligned head and past its last whole
+// 16-byte vector, W = 16 / sizeof(T) in between.
+template <typename T, typename F>
+__device__ __forceinline__ void walk_row(const T* row, int V, int lane,
+                                         F&& fn) {
+  constexpr int W = 16 / sizeof(T);
+  const int head = min(
+      V, (int)(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15)
+               / sizeof(T)));
+  const int tail = head + (V - head) / W * W;
+  for (int c = lane; c < head; c += 32) {
+    const float x[1] = {repro::to_f(row[c])};
+    fn(c, x);
+  }
+  for (int c = head + lane * W; c < tail; c += 32 * W) {
+    float x[W];
+    load_vec(row + c, x);
+    fn(c, x);
+  }
+  for (int c = tail + lane; c < V; c += 32) {
+    const float x[1] = {repro::to_f(row[c])};
+    fn(c, x);
+  }
+}
+
+// Forward (BWD = false): per-CTA partial sums. Backward (BWD = true):
+// d_logits, whose rows share the logits' offset within 16 bytes.
+template <typename T, bool BWD>
+__global__ void __launch_bounds__(HEAD_ROWS * 32)
+gipo_head_kernel(const T* __restrict__ logits,
+                 const int* __restrict__ targets,
+                 const float* __restrict__ logp_old,
+                 const float* __restrict__ adv,
+                 const float* __restrict__ mask,
+                 const float* __restrict__ coefs,
+                 float* __restrict__ partials, T* __restrict__ dlogits,
+                 int N, int V, float sigma) {
+  __shared__ float rowv[HEAD_ROWS][8];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = blockIdx.x * HEAD_ROWS + warp;
+  if (n < N) {
+    const T* row = logits + (long)n * V;
+    RowStats st{repro::NEG_INF, 0.f, 0.f};
+    walk_row(row, V, lane, [&](int, const auto& x) { stats_push(st, x); });
+    st = warp_merge(st);
+    const float lse = logf(st.S);
+    const float ent = lse - st.U / st.S;
+    const int tgt = targets[n];
+    const float ts = (tgt >= 0 && tgt < V) ? repro::to_f(row[tgt]) - st.m
+                                           : 0.f;
+    const float m = mask[n];
+    const RowTerms t = row_terms(ts - lse, logp_old[n], adv[n], sigma);
+    if constexpr (!BWD) {
+      if (lane == 0) row_partials(rowv[warp], t, ent, m, sigma);
+    } else {
+      T* drow = dlogits + (long)n * V;
+      const float g = row_g(t, coefs, m);
+      const float ce = coefs[2] * m;
+      walk_row(row, V, lane, [&](int c, const auto& x) {
+        constexpr int W = sizeof(x) / sizeof(float);
+        float o[W];
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          o[i] = m == 0.f ? 0.f
+                          : dlogit(x[i] - st.m, lse, ent, st.S, c + i == tgt,
+                                   g, ce);
+        store_elems<T, W>(drow + c, o);
+      });
+    }
+  } else if constexpr (!BWD) {
+    if (lane < 8) rowv[warp][lane] = 0.f;
+  }
+  if constexpr (!BWD) {
+    __syncthreads();
+    if (threadIdx.x < 8) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < HEAD_ROWS; ++r) s += rowv[r][threadIdx.x];
+      partials[blockIdx.x * 8 + threadIdx.x] = s;
+    }
+  }
+}
+
+template <bool BWD>
+int launch_head(const void* logits, const void* targets, const void* logp_old,
+                const void* adv, const void* mask, const void* coefs,
+                void* partials, void* dlogits, int N, int V, int dtype,
+                float sigma, cudaStream_t st) {
+  if (N <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
+  const int nb = (N + HEAD_ROWS - 1) / HEAD_ROWS;
+#define REPRO_HEAD(T)                                                       \
+  gipo_head_kernel<T, BWD><<<nb, HEAD_ROWS * 32, 0, st>>>(                  \
+      static_cast<const T*>(logits), static_cast<const int*>(targets),      \
+      static_cast<const float*>(logp_old), static_cast<const float*>(adv),  \
+      static_cast<const float*>(mask), static_cast<const float*>(coefs),    \
+      static_cast<float*>(partials), static_cast<T*>(dlogits), N, V, sigma)
+  if (dtype == repro::DTYPE_F32) {
+    REPRO_HEAD(float);
+  } else if (dtype == repro::DTYPE_BF16) {
+    REPRO_HEAD(__nv_bfloat16);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_HEAD
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int gipo_head_fwd(const void* logits, const void* targets,
+                             const void* logp_old, const void* adv,
+                             const void* mask, void* partials, int N, int V,
+                             int dtype, float sigma, void* stream) {
+  return launch_head<false>(logits, targets, logp_old, adv, mask, nullptr,
+                            partials, nullptr, N, V, dtype, sigma,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gipo_head_bwd(const void* logits, const void* targets,
+                             const void* logp_old, const void* adv,
+                             const void* mask, const void* coefs,
+                             void* dlogits, int N, int V, int dtype,
+                             float sigma, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(logits) ^
+       reinterpret_cast<uintptr_t>(dlogits)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  return launch_head<true>(logits, targets, logp_old, adv, mask, coefs,
+                           nullptr, dlogits, N, V, dtype, sigma,
+                           static_cast<cudaStream_t>(stream));
+}
 
 extern "C" int policy_loss_fwd(const void* h, const void* w,
                                const void* targets, const void* logp_old,

@@ -556,7 +556,7 @@ int launch_bwd(const void* x, const void* dt, const void* A, const void* Bm,
   cudaError_t err = cudaFuncSetAttribute(
       ssd_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return repro::refused(err);
   ssd_bwd_kernel<T><<<dim3(H, Bsz), NT, bytes, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),

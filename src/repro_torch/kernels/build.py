@@ -50,6 +50,12 @@ SIGNATURES = {
     # dtype, sigma, stream
     "policy_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _F, _P),
+    # logits, targets, logp_old, adv, mask, partials, N, V, dtype, sigma,
+    # stream
+    "gipo_head_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # logits, targets, logp_old, adv, mask, coefs, dlogits, N, V, dtype,
+    # sigma, stream
+    "gipo_head_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # x, dt, A, Bm, Cm, y, s_final, s_enter (may be null), B, L, H, P, N,
     # chunk, dtype, stream
     "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -8,7 +8,8 @@ it takes. There is no fallback and no environment variable between the two.
 ``dense_attention`` is differentiable: with grad enabled and an input
 that requires it, it runs ``FlashAttentionFn`` (flash forward saving the
 LSE, flash backward), otherwise the forward kernel alone, as in serving.
-``policy_head_loss`` is the fused action head + GIPO loss (K4).
+``policy_head_loss`` is the fused action head + GIPO loss (K4), and
+``gipo_loss`` the same loss over given logits (K5).
 ``ssd_scan`` is the Mamba2 SSD scan of a fresh sequence (K6 forward, K7
 backward), differentiable in the same way.
 
@@ -27,7 +28,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import gipo_loss as _gl
-from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.ssd_scan import (SSDScanFn, plain_ssd_scan,
+                                          ssd_scan as _kernel_ssd_scan)
 from repro_torch.kernels.decode_attention import (_plain_decode,
                                                   decode_attention as
                                                   _kernel_decode)
@@ -90,6 +92,21 @@ def policy_head_loss(hidden, w, targets, logp_old, advantages, mask, *,
                                  mask, sigma)
 
 
+def gipo_loss(logits, targets, logp_old, advantages, mask, *,
+              sigma: float):
+    """Logits-level fused GIPO/entropy/KL loss (K5). logits: [N, V];
+    targets (int32), logp_old, advantages, mask: [N] -> (pg, entropy, kl,
+    metrics), differentiable with respect to ``logits``; the plain route
+    (``forced("torch")``) autodiffs the same forward math. The reference's
+    ``block_n`` and ``mode`` choose its TPU tiling and its environment
+    routing; the kernel picks its own rows, and routing is by device."""
+    if _forced_plain(logits):
+        return _gl.plain_gipo_head_loss(logits, targets, logp_old,
+                                        advantages, mask, sigma)
+    return _gl.gipo_head_loss(logits, targets, logp_old, advantages, mask,
+                              sigma)
+
+
 def decode_attention(q, k, v, valid):
     """Single-token attention decode. q: [B,1,H,D]; k/v: [B,S,KV,D];
     valid: [B,S] bool -> [B,1,H,D] in q.dtype."""
@@ -111,8 +128,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
     Pallas kernel, a TPU tiling limit; the CUDA kernels take a short last
     chunk.) The kernels take contiguous inputs, so views are copied first."""
     if _forced_plain(x):
-        return _ssd.plain_ssd_scan(x, dt, A, Bm, Cm, chunk)
+        return plain_ssd_scan(x, dt, A, Bm, Cm, chunk)
     args = [v.contiguous() for v in (x, dt, A, Bm, Cm)]
     if torch.is_grad_enabled() and any(v.requires_grad for v in args):
-        return _ssd.SSDScanFn.apply(*args, chunk)
-    return _ssd.ssd_scan(*args, chunk=chunk)
+        return SSDScanFn.apply(*args, chunk)
+    return _kernel_ssd_scan(*args, chunk=chunk)

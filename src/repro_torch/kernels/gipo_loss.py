@@ -1,24 +1,36 @@
-"""Fused action head + GIPO/entropy/KL loss (K4): the CUDA kernels
-``csrc/gipo_loss.cu`` and their plain PyTorch versions.
+"""The fused GIPO/entropy/KL loss: the CUDA kernels ``csrc/gipo_loss.cu``
+and their plain PyTorch versions, at two fusion levels.
 
-Replaces the Pallas TPU kernels of ``repro/kernels/gipo_loss.py``
-(``_policy_fwd_kernel`` / ``_policy_bwd_kernel`` behind the custom VJP of
-``fused_policy_loss``). Forward: per block of token rows, ``hidden @ w``
-in f32 → log-softmax → target gather → Gaussian trust weight ω (eq. 5,
-constant) → surrogate (eq. 6), entropy, k3-KL and a stale flag, summed
-into one row of the 8 partial-sum columns of ``N_COLS``; the sum over
-blocks and ``_finalize`` are plain torch on the ``[nb, 8]`` partials.
-Backward: the block's logits are recomputed, ``_block_dlogits`` gives
-``d`` with the coefficient row of ``_loss_coefs``, then ``dh = d·wᵀ`` in
-hidden's dtype and ``dw = Σ hᵀ·d`` in f32. Gradients flow to ``hidden``
-and ``w`` only; targets, μ, advantages and mask are constants.
+**K4, hidden level** (``fused_policy_loss``). Replaces the Pallas TPU
+kernels of ``repro/kernels/gipo_loss.py`` (``_policy_fwd_kernel`` /
+``_policy_bwd_kernel`` behind the custom VJP of ``fused_policy_loss``).
+Forward: per block of token rows, ``hidden @ w`` in f32 → log-softmax →
+target gather → Gaussian trust weight ω (eq. 5, constant) → surrogate
+(eq. 6), entropy, k3-KL and a stale flag, summed into one row of the 8
+partial-sum columns of ``N_COLS``; the sum over blocks and ``_finalize``
+are plain torch on the ``[nb, 8]`` partials. Backward: the block's logits
+are recomputed, ``_block_dlogits`` gives ``d`` with the coefficient row of
+``_loss_coefs``, then ``dh = d·wᵀ`` in hidden's dtype and
+``dw = Σ hᵀ·d`` in f32. Gradients flow to ``hidden`` and ``w`` only.
 
-``fused_policy_loss`` is a ``torch.autograd.Function``: CUDA tensors launch
-the kernels (raising on anything they do not take), CPU tensors take the
-plain versions. ``policy_loss_fwd.launches`` and
-``policy_loss_bwd.launches`` count kernel launches. ``plain_policy_loss``
-is the autodiffed plain route (the reference's jnp twin), which
-``dispatch.forced("torch")`` selects.
+**K5, logits level** (``gipo_head_loss``). Replaces ``_gipo_fwd_kernel`` /
+``_gipo_bwd_kernel`` behind the custom VJP of the reference's
+``gipo_head_loss``: the same per-row terms over given ``[N, V]`` logits
+(f32 or bf16, any V), one warp a row; the backward writes ``d_logits`` in
+the logits' dtype. Gradients flow to ``logits`` only.
+
+Targets, μ, advantages and mask are constants at both levels. Both share
+the block math below (``_softmax_rows``, ``_fwd_partials``,
+``_block_dlogits``, ``_finalize``, ``_loss_coefs``), as the reference's
+kernels share theirs, and the CUDA kernels share their per-row terms.
+
+``fused_policy_loss`` and ``gipo_head_loss`` are ``torch.autograd.Function``s:
+CUDA tensors launch the kernels (raising on anything they do not take), CPU
+tensors take the plain versions. ``policy_loss_fwd.launches``,
+``policy_loss_bwd.launches``, ``gipo_head_fwd.launches`` and
+``gipo_head_bwd.launches`` count kernel launches. ``plain_policy_loss`` and
+``plain_gipo_head_loss`` are the autodiffed plain routes (the reference's
+jnp twins), which ``dispatch.forced("torch")`` selects.
 """
 from __future__ import annotations
 
@@ -34,8 +46,9 @@ from repro_torch.kernels.flash_attention import _capability
 #   0: Σ pg        1: Σ ratio   2: Σ omega   3: Σ mask (token count)
 #   4: Σ entropy   5: Σ k3-KL   6: Σ stale   7: unused
 N_COLS = 8
-BLOCK_N = 16          # token rows per CTA in csrc/gipo_loss.cu
-MAX_VA = 256          # a row's logits live in the CTA's shared memory
+BLOCK_N = 16          # token rows per CTA of K4 in csrc/gipo_loss.cu
+MAX_VA = 256          # a row's logits live in the CTA's shared memory (K4)
+HEAD_ROWS = 8         # token rows per CTA of K5 (one warp a row)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
@@ -149,13 +162,62 @@ def plain_policy_loss(hidden, w, targets, logp_old, advantages, mask,
     return _finalize(sums)
 
 
+def _plain_gipo_head_fwd(logits, targets, logp_old, advantages, mask,
+                         sigma: float) -> torch.Tensor:
+    """K5's forward over all N rows as one block: partial sums [1, 8]
+    f32."""
+    return _fwd_partials(logits.float(), targets, logp_old, advantages,
+                         mask, sigma)[None]
+
+
+def _plain_gipo_head_bwd(logits, targets, logp_old, advantages, mask,
+                         sigma: float, coefs: torch.Tensor) -> torch.Tensor:
+    """K5's analytic backward: ``_block_dlogits`` over all N rows at once,
+    in the logits' dtype."""
+    return _block_dlogits(logits.float(), targets, logp_old, advantages,
+                          mask, sigma, coefs[0], coefs[1],
+                          coefs[2]).to(logits.dtype)
+
+
+def plain_gipo_head_loss(logits, targets, logp_old, advantages, mask,
+                         sigma: float):
+    """K5's forward math autodiffed by torch, with the log-ratio detached
+    inside ω (the reference's jnp twin ``_jnp_gipo_loss``)."""
+    sums = _fwd_partials(logits.float(), targets, logp_old, advantages, mask,
+                         sigma, sg=torch.Tensor.detach)
+    return _finalize(sums)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _check_rows(n, device, named) -> None:
+    """The per-row operands: targets int32, the rest float32, all [N],
+    contiguous, on ``device``."""
+    for name, x in named:
+        want = torch.int32 if name == "targets" else torch.float32
+        if x.dtype != want:
+            raise ValueError(f"{name} must be {want}, got {x.dtype}")
+        if tuple(x.shape) != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got "
+                             f"{tuple(x.shape)}")
+        if not x.is_cuda or x.device != device:
+            raise ValueError(f"{name} must be a CUDA tensor on {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_capability(device) -> None:
+    cap = _capability(device.index)
+    if cap != (9, 0):
+        raise RuntimeError(f"the kernels are built for sm_90a; device "
+                           f"{device} has compute capability {cap}")
+
+
 def check_policy_loss_args(hidden, w, targets, logp_old, advantages,
                            mask) -> None:
-    """What the CUDA kernels take; anything else raises."""
+    """What K4's CUDA kernels take; anything else raises."""
     if hidden.ndim != 2 or w.ndim != 2 or w.shape[0] != hidden.shape[1]:
         raise ValueError(f"want hidden [N,d], w [d,Va]; got "
                          f"{tuple(hidden.shape)}, {tuple(w.shape)}")
@@ -169,18 +231,11 @@ def check_policy_loss_args(hidden, w, targets, logp_old, advantages,
     if hidden.dtype not in _DTYPE_CODES or w.dtype != hidden.dtype:
         raise ValueError(f"hidden and w must both be float32 or bfloat16; "
                          f"got {hidden.dtype}, {w.dtype}")
-    if targets.dtype != torch.int32:
-        raise ValueError(f"targets must be int32, got {targets.dtype}")
-    for name, x in (("logp_old", logp_old), ("advantages", advantages),
-                    ("mask", mask)):
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {x.dtype}")
-    for name, x in (("hidden", hidden), ("w", w), ("targets", targets),
-                    ("logp_old", logp_old), ("advantages", advantages),
-                    ("mask", mask)):
-        if name not in ("hidden", "w") and tuple(x.shape) != (n,):
-            raise ValueError(f"{name} must have shape ({n},), got "
-                             f"{tuple(x.shape)}")
+    named = (("hidden", hidden), ("w", w), ("targets", targets),
+             ("logp_old", logp_old), ("advantages", advantages),
+             ("mask", mask))
+    _check_rows(n, hidden.device, named[2:])
+    for name, x in named:
         if not x.is_cuda or x.device != hidden.device:
             raise ValueError(f"{name} must be a CUDA tensor on "
                              f"{hidden.device}")
@@ -188,10 +243,27 @@ def check_policy_loss_args(hidden, w, targets, logp_old, advantages,
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    cap = _capability(hidden.device.index)
-    if cap != (9, 0):
-        raise RuntimeError(f"the kernels are built for sm_90a; device "
-                           f"{hidden.device} has compute capability {cap}")
+    _check_capability(hidden.device)
+
+
+def check_gipo_head_args(logits, targets, logp_old, advantages,
+                         mask) -> None:
+    """What K5's CUDA kernels take (any N, V >= 1; a row start off a
+    16-byte boundary takes scalar loads); anything else raises."""
+    if logits.ndim != 2 or logits.shape[0] == 0 or logits.shape[1] == 0:
+        raise ValueError(f"want logits [N,V] with N, V >= 1; got "
+                         f"{tuple(logits.shape)}")
+    if logits.dtype not in _DTYPE_CODES:
+        raise ValueError(f"logits must be float32 or bfloat16, got "
+                         f"{logits.dtype}")
+    if not logits.is_cuda:
+        raise ValueError(f"logits must be a CUDA tensor, got {logits.device}")
+    if not logits.is_contiguous():
+        raise ValueError("logits must be contiguous")
+    _check_rows(logits.shape[0], logits.device,
+                (("targets", targets), ("logp_old", logp_old),
+                 ("advantages", advantages), ("mask", mask)))
+    _check_capability(logits.device)
 
 
 def _count(fn) -> None:
@@ -298,3 +370,112 @@ def fused_policy_loss(hidden, w, targets, logp_old, advantages, mask,
         hidden, w, targets, logp_old, advantages, mask, sigma)
     return pg, ent, kl, {"ratio_mean": ratio, "omega_mean": omega,
                          "stale_frac": stale}
+
+
+def gipo_head_fwd(logits, targets, logp_old, advantages, mask,
+                  sigma: float) -> torch.Tensor:
+    """K5 forward: per-CTA partial sums [ceil(N / HEAD_ROWS), 8] f32
+    (CUDA), or one block's [1, 8] from the plain version (CPU)."""
+    if logits.device.type == "cpu":
+        return _plain_gipo_head_fwd(logits, targets, logp_old, advantages,
+                                    mask, sigma)
+    check_gipo_head_args(logits, targets, logp_old, advantages, mask)
+    n, v = logits.shape
+    partials = torch.empty((-(-n // HEAD_ROWS), N_COLS),
+                           dtype=torch.float32, device=logits.device)
+    lib = build.load()
+    with torch.cuda.device(logits.device):
+        err = lib.gipo_head_fwd(
+            logits.data_ptr(), targets.data_ptr(), logp_old.data_ptr(),
+            advantages.data_ptr(), mask.data_ptr(), partials.data_ptr(), n,
+            v, _DTYPE_CODES[logits.dtype], float(sigma),
+            torch.cuda.current_stream(logits.device).cuda_stream)
+    build.check(err)
+    _count(gipo_head_fwd)
+    return partials
+
+
+def gipo_head_bwd(logits, targets, logp_old, advantages, mask, sigma: float,
+                  coefs: torch.Tensor) -> torch.Tensor:
+    """K5 backward: ``d_logits`` [N, V] in the logits' dtype for the f32
+    coefficient row ``coefs`` = (c_pg, c_kl, c_ent)."""
+    if logits.device.type == "cpu":
+        return _plain_gipo_head_bwd(logits, targets, logp_old, advantages,
+                                    mask, sigma, coefs)
+    check_gipo_head_args(logits, targets, logp_old, advantages, mask)
+    if coefs.dtype != torch.float32 or tuple(coefs.shape) != (3,) \
+            or coefs.device != logits.device or not coefs.is_contiguous():
+        raise ValueError("coefs must be a contiguous float32 (3,) tensor "
+                         "on the logits' device")
+    n, v = logits.shape
+    # d_logits starts at the logits' offset within 16 bytes, so that the
+    # kernel's 16-byte loads and stores line up in every row
+    lead = logits.data_ptr() % 16 // logits.element_size()
+    d = torch.empty(lead + n * v, dtype=logits.dtype,
+                    device=logits.device)[lead:].view(n, v)
+    lib = build.load()
+    with torch.cuda.device(logits.device):
+        err = lib.gipo_head_bwd(
+            logits.data_ptr(), targets.data_ptr(), logp_old.data_ptr(),
+            advantages.data_ptr(), mask.data_ptr(), coefs.data_ptr(),
+            d.data_ptr(), n, v, _DTYPE_CODES[logits.dtype], float(sigma),
+            torch.cuda.current_stream(logits.device).cuda_stream)
+    build.check(err)
+    _count(gipo_head_bwd)
+    return d
+
+
+gipo_head_fwd.launches = 0
+gipo_head_bwd.launches = 0
+
+
+class _GipoHeadLoss(torch.autograd.Function):
+    """Custom VJP of the reference's ``gipo_head_loss`` (l.232-256): the
+    forward kernel, and the backward kernel fed the coefficient row of
+    ``_loss_coefs``."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, logp_old, advantages, mask, sigma):
+        partials = gipo_head_fwd(logits, targets, logp_old, advantages, mask,
+                                 sigma)
+        pg, ent, kl, m = _finalize(partials.sum(dim=0))
+        ctx.save_for_backward(logits, targets, logp_old, advantages, mask)
+        ctx.sigma = sigma
+        out = (pg, ent, kl, m["ratio_mean"], m["omega_mean"],
+               m["stale_frac"])
+        ctx.mark_non_differentiable(*out[3:])
+        return out
+
+    @staticmethod
+    def backward(ctx, ct_pg, ct_ent, ct_kl, *_):
+        logits, targets, logp_old, advantages, mask = ctx.saved_tensors
+        zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+        coefs = _loss_coefs(mask, *(zero if c is None else c
+                                    for c in (ct_pg, ct_ent, ct_kl)))
+        d = gipo_head_bwd(logits, targets, logp_old, advantages, mask,
+                          ctx.sigma, coefs)
+        return d, None, None, None, None, None
+
+
+def gipo_head_loss(logits, targets, logp_old, advantages, mask,
+                   sigma: float) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor,
+                                          Dict[str, torch.Tensor]]:
+    """Fused GIPO surrogate + entropy + k3-KL over [N, V] logits. Returns
+    ``(pg_loss, entropy, kl, metrics)`` (masked means over the N rows;
+    metrics detached), differentiable with respect to ``logits``."""
+    pg, ent, kl, ratio, omega, stale = _GipoHeadLoss.apply(
+        logits, targets, logp_old, advantages, mask, sigma)
+    return pg, ent, kl, {"ratio_mean": ratio, "omega_mean": omega,
+                         "stale_frac": stale}
+
+
+def gipo_loss_fused(logits, targets, logp_old, advantages, mask,
+                    sigma: float) -> Tuple[torch.Tensor,
+                                           Dict[str, torch.Tensor]]:
+    """logits: [N, V]; targets/logp_old/advantages/mask: [N]. Returns (pg
+    loss, metrics with ``entropy`` and ``kl``), as the reference's
+    ``gipo_loss_fused``; differentiable with respect to ``logits``."""
+    pg, ent, kl, metrics = gipo_head_loss(logits, targets, logp_old,
+                                          advantages, mask, sigma)
+    return pg, dict(metrics, entropy=ent.detach(), kl=kl.detach())

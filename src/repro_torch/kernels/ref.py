@@ -1,9 +1,10 @@
 """Oracles for the kernels: the dense attention allclose target, the
 attention kernels' own order of arithmetic for holding their bf16 bodies
-tightly, and the stepwise SSD recurrence."""
+tightly, the unfused token-level GIPO loss, and the stepwise SSD
+recurrence."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -72,6 +73,25 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", w, v.float())
     return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def reference_gipo_loss(logits: torch.Tensor, targets: torch.Tensor,
+                        logp_old: torch.Tensor, advantages: torch.Tensor,
+                        mask: torch.Tensor, sigma: float
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Unfused token-level GIPO (eqs. 5-6), as the reference's
+    ``repro/kernels/ref.py::reference_gipo_loss``. logits: [N, V]; rest
+    [N]. Returns (pg loss, {"ratio_mean", "omega_mean"})."""
+    logp_all = torch.log_softmax(logits.float(), dim=-1)
+    logp_new = logp_all.gather(-1, targets.long()[:, None])[:, 0]
+    log_ratio = logp_new - logp_old
+    ratio = torch.exp(log_ratio)
+    omega = torch.exp(-0.5 * (log_ratio.detach() / sigma).square())
+    per_token = -(omega * ratio * advantages)
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    metrics = {"ratio_mean": (ratio * mask).sum() / denom,
+               "omega_mean": (omega * mask).sum() / denom}
+    return (per_token * mask).sum() / denom, metrics
 
 
 def reference_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

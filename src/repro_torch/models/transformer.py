@@ -1,5 +1,5 @@
-"""Policy backbone for the dense / vlm / audio and ssm arch types, as in
-the reference ``repro/models/transformer.py``.
+"""Policy backbone for the dense / vlm / audio, ssm and hybrid arch types,
+as in the reference ``repro/models/transformer.py``.
 
 Per-layer leaves are stacked on a leading ``L`` axis under
 ``params["layers"]``; the reference's layer scan is a Python loop over
@@ -10,9 +10,14 @@ Per-layer leaves are stacked on a leading ``L`` axis under
   * ``decode``  — one token against the cache
 
 The ssm backbone (mamba2) stacks ``{"norm", "ssm"}`` blocks on ``L``; its
-decode cache is the stacked ``SSMState`` (``DecodeCache.ssm``). The moe and
-hybrid arch types belong to later slices of the port and raise
-``NotImplementedError``.
+decode cache is the stacked ``SSMState`` (``DecodeCache.ssm``). The hybrid
+backbone (zamba2) applies one *shared* attention + MLP block
+(``params["shared_attn"]``, not stacked: its weights are tied across
+applications) before every ``shared_every``-th Mamba2 layer: ``layers``
+holds ``n_macro * g`` Mamba2 blocks and ``layers_rem`` the remainder. Its
+KV cache has one slot per application (``num_shared_applications``), its
+``SSMState`` one per Mamba2 layer. The moe arch type belongs to a later
+slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,21 +45,33 @@ from repro_torch.models.ssm import SSMState
 from repro_torch.tree import tree_map
 
 FRONTEND_DIM = 1024  # stub modality-frontend embedding width (ViT/EnCodec)
-_ARCHS = ("dense", "audio", "vlm", "ssm")
+_ARCHS = ("dense", "audio", "vlm", "ssm", "hybrid")
 
 
 class DecodeCache(NamedTuple):
     """Family-polymorphic decode cache."""
 
-    attn: Optional[KVCache]      # stacked [L, ...] or None
+    attn: Optional[KVCache]      # stacked [L or n_shared, ...] or None
     ssm: Optional[SSMState]      # stacked [L, ...] or None
 
 
 def _check_arch(cfg: ModelConfig) -> None:
     if cfg.arch_type not in _ARCHS:
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet: moe and hybrid "
-            f"backbones come in a later slice of the port")
+            f"arch_type {cfg.arch_type!r} is not ported yet: the moe "
+            f"backbone comes in a later slice of the port")
+
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_macro, group, remainder): the shared block fires n_macro (+1 if
+    rem) times, before each macro group of ``group`` Mamba2 layers."""
+    g = cfg.hybrid.shared_every
+    return cfg.num_layers // g, g, cfg.num_layers % g
+
+
+def num_shared_applications(cfg: ModelConfig) -> int:
+    n_macro, _, rem = hybrid_layout(cfg)
+    return n_macro + (1 if rem else 0)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -102,25 +119,44 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     if cfg.num_prefix_tokens:
         params["prefix_proj"] = {
             "w": dense_init(gen, (FRONTEND_DIM, d), dtype, dev)}
+
+    def ssm_block():
+        return {"norm": rmsnorm_init(d, dtype, dev),
+                "ssm": ssm_lib.ssm_init(gen, d, cfg.ssm, dtype, dev)}
     if cfg.arch_type == "ssm":
-        params["layers"] = _stacked(lambda: {
-            "norm": rmsnorm_init(d, dtype, dev),
-            "ssm": ssm_lib.ssm_init(gen, d, cfg.ssm, dtype, dev)}, n)
-        return params
+        params["layers"] = _stacked(ssm_block, n)
+    elif cfg.arch_type == "hybrid":
+        n_macro, g, rem = hybrid_layout(cfg)
+        params["layers"] = _stacked(ssm_block, n_macro * g)
+        if rem:
+            params["layers_rem"] = _stacked(ssm_block, rem)
+        params["shared_attn"] = tree_map(
+            lambda v: v[0], _attn_blocks_init(gen, cfg, 1,
+                                              cfg.hybrid.shared_d_ff, dtype,
+                                              dev))
+    else:
+        params["layers"] = _attn_blocks_init(gen, cfg, n, cfg.d_ff, dtype,
+                                             dev)
+    return params
+
+
+def _attn_blocks_init(gen, cfg: ModelConfig, n: int, d_ff: int, dtype,
+                      dev) -> Params:
+    """``n`` attention + MLP blocks stacked on a leading axis."""
+    d = cfg.d_model
     ones = torch.ones((n, d), dtype=dtype, device=dev)
-    params["layers"] = {
+    return {
         "attn_norm": {"scale": ones.clone()},
         "attn": attn_lib.stacked_attention_init(
             gen, n, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, dtype,
             dev),
         "mlp_norm": {"scale": ones},
         "mlp": {
-            "w_gate": stacked_dense_init(gen, n, (d, cfg.d_ff), dtype, dev),
-            "w_up": stacked_dense_init(gen, n, (d, cfg.d_ff), dtype, dev),
-            "w_down": stacked_dense_init(gen, n, (cfg.d_ff, d), dtype, dev),
+            "w_gate": stacked_dense_init(gen, n, (d, d_ff), dtype, dev),
+            "w_up": stacked_dense_init(gen, n, (d, d_ff), dtype, dev),
+            "w_down": stacked_dense_init(gen, n, (d_ff, d), dtype, dev),
         },
     }
-    return params
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +196,32 @@ def _ssm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm)
 
 
+def _schedule(cfg: ModelConfig, params: Params) -> List[Tuple[str, Params,
+                                                               int]]:
+    """The backbone's blocks in order, as (kind, params, index): kind
+    "attn" or "ssm", index counting that kind's blocks only (the KV slot of
+    an attention block, the ``SSMState`` layer of a Mamba2 block). In the
+    hybrid every "attn" is the one ``shared_attn`` block, its index the
+    application."""
+    if cfg.arch_type != "hybrid":
+        kind = "ssm" if cfg.arch_type == "ssm" else "attn"
+        return [(kind, p, i) for i, p in
+                enumerate(_unstack(params["layers"], cfg.num_layers))]
+    n_macro, g, rem = hybrid_layout(cfg)
+    ssm = _unstack(params["layers"], n_macro * g)
+    if rem:
+        ssm += _unstack(params["layers_rem"], rem)
+    out = []
+    for a in range(num_shared_applications(cfg)):
+        out.append(("attn", params["shared_attn"], a))
+        out += [("ssm", ssm[j], j)
+                for j in range(a * g, min(a * g + g, cfg.num_layers))]
+    return out
+
+
+_BLOCK_FORWARD = {"attn": _attn_block_forward, "ssm": _ssm_block_forward}
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None, *,
             window: Optional[int] = None, remat: bool = False,
@@ -169,16 +231,16 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     ``head=False`` skips the action head (``logits`` is None): the
     fused-loss path applies it blockwise inside the loss kernel.
-    ``remat=True`` checkpoints each layer
-    (``torch.utils.checkpoint``, non-reentrant), the reference's
-    ``jax.checkpoint`` of the scan body. The reference's ``unroll`` and
-    ``act_sharding`` (scan unrolling and a GSPMD layout pin) have no
-    counterpart in an eager single-device loop and are not taken."""
+    ``remat=True`` checkpoints each block (``torch.utils.checkpoint``,
+    non-reentrant), the reference's ``jax.checkpoint`` of the scan body
+    (the hybrid's of each macro group: the same arithmetic). The
+    reference's ``unroll`` and ``act_sharding`` (scan unrolling and a GSPMD
+    layout pin) have no counterpart in an eager single-device loop and are
+    not taken."""
     _check_arch(cfg)
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
-    block_fn = (_ssm_block_forward if cfg.arch_type == "ssm"
-                else _attn_block_forward)
-    for p in _unstack(params["layers"], cfg.num_layers):
+    for kind, p, _ in _schedule(cfg, params):
+        block_fn = _BLOCK_FORWARD[kind]
         if remat:
             x = checkpoint(block_fn, p, x, cfg, window, block,
                            use_reentrant=False)
@@ -193,31 +255,42 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # Decode cache init
 # ---------------------------------------------------------------------------
 
+def _stack_copies(one, n: int):
+    return type(one)(*(t.unsqueeze(0).repeat((n,) + (1,) * t.ndim)
+                       for t in one))
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                       window: Optional[int] = None,
                       device="cuda") -> DecodeCache:
-    """Zeroed per-layer caches stacked on ``L``: KV caches for the attention
-    archs, ``SSMState`` for ssm (``cache_len`` and ``window`` unused)."""
+    """Zeroed caches: a KV cache stacked on the attention layers (on the
+    shared block's applications for hybrid), an ``SSMState`` stacked on the
+    Mamba2 layers (``cache_len`` and ``window`` unused for ssm)."""
     _check_arch(cfg)
     dev = resolve_device(device)
-    n = cfg.num_layers
-    if cfg.arch_type == "ssm":
-        one = ssm_lib.init_ssm_state(batch, cfg.d_model, cfg.ssm,
-                                     _dtype(cfg.compute_dtype), dev)
-        return DecodeCache(attn=None, ssm=SSMState(
-            *(t.unsqueeze(0).repeat((n,) + (1,) * t.ndim) for t in one)))
-    eff_len = min(cache_len, window) if window else cache_len
-    one = attn_lib.init_cache(batch, eff_len, cfg.num_kv_heads, cfg.head_dim,
-                              _dtype(cfg.compute_dtype), dev)
-    return DecodeCache(
-        attn=KVCache(*(t.unsqueeze(0).repeat((n,) + (1,) * t.ndim)
-                       for t in one)),
-        ssm=None)
+    dtype = _dtype(cfg.compute_dtype)
+    attn = ssm = None
+    if cfg.arch_type in ("ssm", "hybrid"):
+        ssm = _stack_copies(ssm_lib.init_ssm_state(batch, cfg.d_model,
+                                                   cfg.ssm, dtype, dev),
+                            cfg.num_layers)
+    if cfg.arch_type != "ssm":
+        eff_len = min(cache_len, window) if window else cache_len
+        n_attn = (num_shared_applications(cfg) if cfg.arch_type == "hybrid"
+                  else cfg.num_layers)
+        attn = _stack_copies(attn_lib.init_cache(
+            batch, eff_len, cfg.num_kv_heads, cfg.head_dim, dtype, dev),
+            n_attn)
+    return DecodeCache(attn=attn, ssm=ssm)
 
 
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
+
+def _stack_parts(cls, parts):
+    return cls(*(torch.stack(p) for p in zip(*parts))) if parts else None
+
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None, *,
@@ -225,37 +298,32 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             window: Optional[int] = None
             ) -> Tuple[Dict[str, torch.Tensor], DecodeCache]:
     """Returns ({"hidden": [B,T,d], "logits": [B,T,Va] f32}, cache).
-    ``cache_len`` and ``window`` size the KV cache; an ssm cache is the
-    state after the prompt and ignores them."""
+    ``cache_len`` and ``window`` size the KV caches; an SSM state is the
+    state after the prompt and ignores them. Each attention block (each
+    application of the hybrid's shared block) fills its own KV slot."""
     _check_arch(cfg)
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
-    if cfg.arch_type == "ssm":
-        states = []
-        for p in _unstack(params["layers"], cfg.num_layers):
+    cache_len = cache_len or x.shape[1]
+    eff_len = min(cache_len, window) if window else cache_len
+    caches, states = [], []
+    for kind, p, _ in _schedule(cfg, params):
+        if kind == "ssm":
             hn = rmsnorm(p["norm"], x, cfg.norm_eps)
             out, st = ssm_lib.ssm_forward(p["ssm"], hn, cfg.d_model, cfg.ssm,
                                           return_state=True)
             x = x + out
             states.append(st)
-        cache = DecodeCache(attn=None, ssm=SSMState(
-            *(torch.stack(parts) for parts in zip(*states))))
-    else:
-        t = x.shape[1]
-        cache_len = cache_len or t
-        eff_len = min(cache_len, window) if window else cache_len
-        caches = []
-        for p in _unstack(params["layers"], cfg.num_layers):
-            hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-            out, kv = attn_lib.attention_prefill(
-                p["attn"], hn, rope_theta=cfg.rope_theta, cache_len=eff_len,
-                window=window)
-            x = x + out
-            hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-            x = x + mlp(p["mlp"], hn)
-            caches.append(kv)
-        cache = DecodeCache(attn=KVCache(*(torch.stack(parts)
-                                           for parts in zip(*caches))),
-                            ssm=None)
+            continue
+        hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+        out, kv = attn_lib.attention_prefill(
+            p["attn"], hn, rope_theta=cfg.rope_theta, cache_len=eff_len,
+            window=window)
+        x = x + out
+        hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+        x = x + mlp(p["mlp"], hn)
+        caches.append(kv)
+    cache = DecodeCache(attn=_stack_parts(KVCache, caches),
+                        ssm=_stack_parts(SSMState, states))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = action_head(params["action_head"], x)
     return {"hidden": x, "logits": logits}, cache
@@ -268,41 +336,40 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
            cache: DecodeCache, *, window: Optional[int] = None
            ) -> Tuple[Dict[str, torch.Tensor], DecodeCache]:
-    """token: [B] or [B,1] int -> logits [B, 1, Va]. Updates the cache's
-    k/v/positions tensors (see ``attention_decode``), or each layer's conv
-    tail and SSM state, in place."""
+    """token: [B] or [B,1] int -> logits [B, 1, Va]. Updates the cache in
+    place: each attention block's k/v/positions slot (see
+    ``attention_decode``; the hybrid's application i writes slot i) and
+    each Mamba2 layer's conv tail and SSM state."""
     _check_arch(cfg)
     if token.ndim == 1:
         token = token[:, None]
     x = embed(params["embed"], token).to(_dtype(cfg.compute_dtype))
-    lengths = []
-    if cfg.arch_type == "ssm":
-        st = cache.ssm
-        for i, p in enumerate(_unstack(params["layers"], cfg.num_layers)):
+    kvs, st = cache.attn, cache.ssm
+    kv_lengths, ssm_lengths = [], []
+    for kind, p, i in _schedule(cfg, params):
+        if kind == "ssm":
             hn = rmsnorm(p["norm"], x, cfg.norm_eps)
             out, new = ssm_lib.ssm_decode(
                 p["ssm"], hn, SSMState(st.conv[i], st.ssm[i], st.length[i]),
                 cfg.d_model, cfg.ssm)
             st.conv[i].copy_(new.conv)
             st.ssm[i].copy_(new.ssm)
-            lengths.append(new.length)
+            ssm_lengths.append(new.length)
             x = x + out
-        new_cache = DecodeCache(attn=None, ssm=SSMState(
-            st.conv, st.ssm, torch.stack(lengths)))
-    else:
-        kvs = cache.attn
-        for i, p in enumerate(_unstack(params["layers"], cfg.num_layers)):
-            kv = KVCache(kvs.k[i], kvs.v[i], kvs.positions[i], kvs.length[i])
-            hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-            out, kv = attn_lib.attention_decode(
-                p["attn"], hn, kv, rope_theta=cfg.rope_theta, window=window)
-            x = x + out
-            hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-            x = x + mlp(p["mlp"], hn)
-            lengths.append(kv.length)
-        new_cache = DecodeCache(
-            attn=KVCache(kvs.k, kvs.v, kvs.positions, torch.stack(lengths)),
-            ssm=None)
+            continue
+        kv = KVCache(kvs.k[i], kvs.v[i], kvs.positions[i], kvs.length[i])
+        hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+        out, kv = attn_lib.attention_decode(
+            p["attn"], hn, kv, rope_theta=cfg.rope_theta, window=window)
+        x = x + out
+        hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+        x = x + mlp(p["mlp"], hn)
+        kv_lengths.append(kv.length)
+    new_cache = DecodeCache(
+        attn=None if kvs is None else KVCache(
+            kvs.k, kvs.v, kvs.positions, torch.stack(kv_lengths)),
+        ssm=None if st is None else SSMState(
+            st.conv, st.ssm, torch.stack(ssm_lengths)))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = action_head(params["action_head"], x)
     return {"hidden": x, "logits": logits}, new_cache

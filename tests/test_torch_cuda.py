@@ -16,7 +16,9 @@ within 1e-4 of the largest value, bf16 within one bf16 ulp (2^-7) of each
 value plus 1e-4 of the largest. So are the SSD scan kernels (K6, K7): their
 f32 outputs (y, states, ddt, dA) are held within 1e-4 of the largest value
 for f32 and bf16 inputs alike, their bf16 outputs (dx, dB, dC) within one
-bf16 ulp of each value plus 1e-4 of the largest.
+bf16 ulp of each value plus 1e-4 of the largest. So is K5, the GIPO loss
+over given logits: its forward's loss and metrics within 1e-4 relative
+(floored at 1), its d_logits as K3's and K4's outputs.
 """
 import pytest
 import torch
@@ -71,6 +73,7 @@ def _check_order(got, exp):
     (1, 77, 4, 1, 64, 16),         # MQA + window
     (3, 13, 4, 4, 256, None),      # the service's short prompt, wide head
     (1, 40, 2, 2, 8, 5),           # narrowest head
+    (2, 256, 32, 32, 64, None),    # zamba2-1.2b's shared attention
 ])
 def test_flash_kernel_matches_plain(dev, dtype, b, t, h, kv, d, window):
     g = torch.Generator(device=dev).manual_seed(t + h)
@@ -140,6 +143,30 @@ def test_decode_bf16_body_matches_kernel_order(dev, b, s, h, kv, d):
     _check_order(decode_attention(q, k, v, valid), exp)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s,h,kv,d,window", [
+    (2, 100, 100, 8, 2, 64, None),     # GQA, every key
+    (2, 13, 70, 4, 4, 128, None),      # T != S: queries see every key
+    (1, 77, 77, 4, 1, 64, 9),          # MQA + window, both directions
+    (2, 256, 256, 32, 32, 64, None),   # zamba2's heads
+])
+def test_flash_kernel_without_causal_mask(dev, dtype, b, t, s, h, kv, d,
+                                          window):
+    """``causal=False`` (``ops.flash_attention_op``'s option): every key of
+    the window, before or after the query."""
+    g = torch.Generator(device=dev).manual_seed(t + s)
+    q = torch.randn(b, t, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
+    out, lse = flash_attention(q, k, v, causal=False, window=window,
+                               return_lse=True)
+    torch.cuda.synchronize()
+    exp, exp_lse = _plain_dense(q, k, v, causal=False, window=window,
+                                return_lse=True)
+    _check(out, exp, dtype)
+    assert (lse - exp_lse).abs().max().item() <= 1e-3
+
+
 def test_dispatch_routes_cuda_tensors_to_the_kernels(dev):
     q = torch.randn(1, 16, 2, 64, device=dev)
     n0 = flash_attention.launches
@@ -185,6 +212,8 @@ def _check_grad(got, exp, dtype):
     (1, 77, 4, 1, 64, None),       # MQA, ragged
     (3, 50, 4, 4, 16, 5),          # narrow head, short window
     (1, 40, 2, 2, 24, 5),          # D % 16 != 0: the FMA body in bf16 too
+    (2, 256, 32, 32, 64, None),    # zamba2-1.2b's shared attention
+    (2, 19, 32, 32, 64, None),     # ... on the env's train sequence
 ])
 def test_flash_bwd_kernel_matches_plain(dev, dtype, b, t, h, kv, d, window):
     from repro_torch.kernels.flash_attention import (_plain_flash_bwd,
@@ -325,6 +354,9 @@ def _check_f32_out(got, exp):
     (8, 12, 4, 64, 128, 128),      # the env's prompt, T_OBS = 12
     (4, 19, 4, 64, 128, 128),      # the env's train sequence, 12 + 7
     (1, 300, 4, 64, 128, 128),     # two chunks and 44 steps
+    (2, 256, 64, 64, 64, 128),     # zamba2-1.2b: H 64, P 64, N 64
+    (8, 12, 64, 64, 64, 128),      # ... the env's prompt
+    (4, 19, 64, 64, 64, 128),      # ... the env's train sequence
 ])
 def test_ssd_scan_kernel_matches_plain(dev, dtype, b, t, h, p, n, chunk):
     from repro_torch.kernels.ssd_scan import plain_ssd_scan, ssd_scan
@@ -349,6 +381,10 @@ def test_ssd_scan_kernel_matches_plain(dev, dtype, b, t, h, p, n, chunk):
     (torch.bfloat16, 4, 19, 4, 64, 128, 128),    # the env's train sequence
     (torch.float32, 2, 19, 4, 64, 128, 128),     # ... f32: one chunk of 32
     (torch.bfloat16, 1, 300, 4, 64, 128, 128),   # two chunks and 44 steps
+    (torch.bfloat16, 2, 256, 64, 64, 64, 128),   # zamba2-1.2b's SSD
+    (torch.float32, 2, 256, 64, 64, 64, 128),    # ... f32 fits q 128 at N 64
+    (torch.bfloat16, 2, 12, 64, 64, 64, 128),    # ... the env's prompt
+    (torch.bfloat16, 4, 19, 64, 64, 64, 128),    # ... the env's train seq
 ])
 def test_ssd_scan_bwd_kernel_matches_plain(dev, dtype, b, t, h, p, n, chunk):
     from repro_torch.kernels.ssd_scan import (plain_ssd_scan_bwd, ssd_scan,
@@ -438,7 +474,158 @@ def test_ssd_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(RuntimeError, match="shared memory"):
         ssd_scan_bwd(*big, enter, torch.zeros(1, 128, 1, 64, device=dev),
                      torch.zeros(1, 1, 64, 128, device=dev), chunk=128)
+    # the refusal leaves no error behind for the next launch to report
+    ssd_scan(*args, chunk=32)
+    torch.cuda.synchronize()
     cpu = [v.cpu() for v in args]
     with dispatch.forced("cuda"):
         with pytest.raises(ValueError, match="CUDA tensors"):
             dispatch.ssd_scan(*cpu, chunk=32)
+
+
+# ---------------------------------------------------------------------------
+# K5: the GIPO loss over given logits
+# ---------------------------------------------------------------------------
+
+def _head_inputs(dev, n, v, dtype, seed, stale=False):
+    """Logits at the scale of trained action heads, the rest as K4's; row
+    0 fully masked, row 1's target past V and row 2's negative. logp_old
+    lies within 0.1 of the logits' own log-prob of the target (|log ρ| / σ
+    about 0.5: ω near 1, so the surrogate carries weight); ``stale``: -3 ±
+    0.3, far from it (ω near 0, the k3-KL's gradient large)."""
+    from repro_torch.kernels import gipo_loss as gl
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = (torch.rand(n, generator=g, device=dev) > 0.15).float()
+    targets = torch.randint(0, v, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+    mask[0] = 0.0
+    targets[1:3] = torch.tensor([v, -1], device=dev)
+    logits = (torch.randn(n, v, generator=g, device=dev) * 3).to(dtype)
+    noise = torch.randn(n, generator=g, device=dev)
+    logp_old = (noise * 0.3 - 3.0 if stale else
+                gl._softmax_rows(logits.float(), targets)[3] + 0.1 * noise)
+    return [logits, targets, logp_old,
+            torch.randn(n, generator=g, device=dev), mask]
+
+
+# K5's backward is held under each loss term alone, so that none hides
+# under another, and under the three together: (c_pg, c_kl, c_ent) / N
+HEAD_COEFS = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0),
+              (0.7, 0.1, -0.01))
+
+
+def _check_head(args, dtype, stale=False):
+    from repro_torch.kernels import gipo_loss as gl
+    n = args[0].shape[0]
+    n0 = (gl.gipo_head_fwd.launches, gl.gipo_head_bwd.launches)
+    got = gl._finalize(gl.gipo_head_fwd(*args, 0.2).sum(0))
+    coefs = [torch.tensor(c, device=args[0].device) / n for c in HEAD_COEFS]
+    ds = [gl.gipo_head_bwd(*args, 0.2, c) for c in coefs]
+    torch.cuda.synchronize()
+    assert (gl.gipo_head_fwd.launches, gl.gipo_head_bwd.launches) \
+        == (n0[0] + 1, n0[1] + len(coefs))
+    exp = gl._finalize(gl._plain_gipo_head_fwd(*args, 0.2).sum(0))
+    assert stale or exp[3]["omega_mean"].item() > 0.5
+    for x, y in zip(list(got[:3]) + list(got[3].values()),
+                    list(exp[:3]) + list(exp[3].values())):
+        assert abs(x.item() - y.item()) <= 1e-4 * max(abs(y.item()), 1.0)
+    for c, d in zip(coefs, ds):
+        ed = gl._plain_gipo_head_bwd(*args, 0.2, c)
+        assert d.dtype == args[0].dtype and d.shape == args[0].shape
+        _check_grad(d, ed, dtype)
+        assert not d[0].any()                        # the masked row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v", [
+    (257, 48),          # ragged N, the reference tests' shapes
+    (300, 64),
+    (100, 256),
+    (224, 256),         # one train micro-batch of action tokens
+    (1000, 1024),       # benchmarks/fused_loss.py's wide vocabulary
+    (77, 37),           # V off the vector width: scalar heads and tails
+    (9, 1),             # V = 1
+])
+def test_gipo_head_kernel_matches_plain(dev, dtype, n, v):
+    _check_head(_head_inputs(dev, n, v, dtype, n + v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v", [(257, 48), (224, 256), (1000, 1024)])
+def test_gipo_head_kernel_matches_plain_on_stale_logp(dev, dtype, n, v):
+    """logp_old far from the logits' log-probs: ω near 0 and the k3-KL's
+    gradient up to ~1e3."""
+    _check_head(_head_inputs(dev, n, v, dtype, n + v, stale=True), dtype,
+                stale=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gipo_head_kernel_takes_rows_off_16_bytes(dev, dtype):
+    """A logits view starting one element into its storage: loads and
+    stores start with a scalar head, d_logits at the logits' offset."""
+    n, v = 65, 64
+    args = _head_inputs(dev, n, v, dtype, 4)
+    base = torch.empty(n * v + 1, dtype=dtype, device=dev)
+    base[1:].copy_(args[0].reshape(-1))
+    args[0] = base[1:].view(n, v)
+    assert args[0].data_ptr() % 16
+    _check_head(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gipo_head_backward_is_bit_repeatable(dev, dtype):
+    from repro_torch.kernels import gipo_loss as gl
+    args = _head_inputs(dev, 16384, 256, dtype, 1)
+    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / 16384
+    one = gl.gipo_head_bwd(*args, 0.2, coefs)
+    two = gl.gipo_head_bwd(*args, 0.2, coefs)
+    assert torch.equal(one, two)
+    p1, p2 = (gl.gipo_head_fwd(*args, 0.2) for _ in range(2))
+    assert torch.equal(p1, p2)
+
+
+def test_gipo_loss_routes_and_ops_launch_their_kernels(dev):
+    """``dispatch.gipo_loss`` and every op of ``kernels.ops`` on CUDA
+    tensors launch their kernels; ``forced("torch")`` launches none."""
+    from repro_torch.kernels import gipo_loss as gl
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    args = _head_inputs(dev, 64, 48, torch.float32, 0)
+    args[0].requires_grad_()
+    n0 = (gl.gipo_head_fwd.launches, gl.gipo_head_bwd.launches)
+    pg, ent, kl, _ = dispatch.gipo_loss(*args, sigma=0.2)
+    (pg + 0.1 * kl - 0.01 * ent).backward()
+    assert (gl.gipo_head_fwd.launches,
+            gl.gipo_head_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    with dispatch.forced("torch"):
+        dispatch.gipo_loss(*args, sigma=0.2)
+    ops.gipo_loss_op(*args)
+    ops.gipo_head_loss_op(*args)
+    assert gl.gipo_head_fwd.launches == n0[0] + 3
+    h = torch.randn(64, 64, device=dev)
+    w = torch.randn(64, 48, device=dev)
+    n1 = gl.policy_loss_fwd.launches
+    ops.fused_policy_loss_op(h, w, *args[1:])
+    assert gl.policy_loss_fwd.launches == n1 + 1
+    q = torch.randn(1, 16, 2, 64, device=dev)
+    n2 = flash_attention.launches
+    ops.flash_attention_op(q, q, q, causal=False)
+    assert flash_attention.launches == n2 + 1
+    n3 = ssd_scan.launches
+    ops.ssd_scan_op(*_ssd_inputs(dev, 1, 64, 2, 16, 8, torch.float32, 0),
+                    chunk=32)
+    assert ssd_scan.launches == n3 + 1
+
+
+def test_gipo_head_kernel_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels import gipo_loss as gl
+    args = _head_inputs(dev, 32, 48, torch.float32, 0)
+    for i, bad, match in ((0, args[0].half(), "float32 or bfloat16"),
+                          (0, args[0].t(), "contiguous"),
+                          (1, args[1].long(), "int32"),
+                          (2, args[2][:16], "shape"),
+                          (4, args[4].cpu(), "CUDA tensor")):
+        with pytest.raises(ValueError, match=match):
+            gl.gipo_head_fwd(*args[:i], bad, *args[i + 1:], 0.2)
+    with pytest.raises(ValueError, match="coefs"):
+        gl.gipo_head_bwd(*args, 0.2, torch.zeros(3, device=dev).double())

@@ -126,7 +126,6 @@ def test_sampler_draws_from_its_generator():
 
 
 def test_other_arch_types_name_a_later_slice():
-    for arch in ("zamba2-1.2b", "granite-moe-1b-a400m"):
-        cfg = reduced(get_config(arch), layers=2, d_model=64)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ttransformer.init_params(cfg, torch.Generator(), device="cpu")
+    cfg = reduced(get_config("granite-moe-1b-a400m"), layers=2, d_model=64)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ttransformer.init_params(cfg, torch.Generator(), device="cpu")

@@ -31,8 +31,12 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
-print(bad)
-sys.exit(1 if bad else 0)
+missing = [m for m in ("repro_torch.kernels.ops",
+                       "repro_torch.kernels.gipo_loss",
+                       "repro_torch.models.transformer")
+           if m not in sys.modules]
+print(bad, missing)
+sys.exit(1 if bad or missing else 0)
 """
 
 
@@ -139,10 +143,14 @@ def test_entry_points_default_to_cuda():
                            d_model=64)
     ssm_cfg = tconfigs.reduced(tconfigs.get_config("mamba2-2.7b"), layers=2,
                                d_model=64)
+    hybrid_cfg = tconfigs.reduced(tconfigs.get_config("zamba2-1.2b"),
+                                  layers=2, d_model=64)
     calls = [
         lambda: init_adv_state(),
         lambda: transformer.init_params(ssm_cfg, torch.Generator()),
         lambda: transformer.init_decode_cache(ssm_cfg, 1, 4),
+        lambda: transformer.init_params(hybrid_cfg, torch.Generator()),
+        lambda: transformer.init_decode_cache(hybrid_cfg, 1, 4),
         lambda: init_train_state(cfg),
         lambda: make_train_step(cfg, tconfigs.RLConfig()),
         lambda: batch_from_numpy(dummy_batch(1, 1, 1, 1, 8, 8)),

@@ -10,8 +10,10 @@ Phases, each printing one line of its numbers:
   2. kernels: each CUDA kernel against its plain PyTorch version on the card,
      at the slices' shapes, in f32 and bf16: K1 flash forward and K2 decode
      (the bf16 bodies also against the kernels' own order of arithmetic, to
-     within the output's rounding), K3 flash backward, K4 fused policy
-     loss forward and backward (ragged, GQA; d 4096 and 2560), K5 the GIPO
+     within the output's rounding), K3 flash backward (timed as the
+     wrapper's call and as its kernels' own device time), K4 fused policy
+     loss forward and backward (ragged, GQA; d 4096 and 2560; behaviour
+     log-probs live, ω mean above 0.5, and once stale), K5 the GIPO
      loss over given logits, forward and backward (the reference tests'
      ragged shapes, the action head's N 224 x V 256 and
      benchmarks/fused_loss.py's FULL_SHAPES; the backward twice, bit for
@@ -31,7 +33,9 @@ Phases, each printing one line of its numbers:
      on the kernel route, with launch counts proving every attention
      backward ran on K3 and every loss on K4; every gradient leaf nonzero;
      step 1's metrics and gradients (per leaf and layer) compared with the
-     plain route's; the three steps replayed on the plain route from the
+     plain route's, on the dummy batch's stale behaviour log-probs and
+     again on live ones (the plain route's own plus 0.1 noise, ω mean
+     above 0.5); the three steps replayed on the plain route from the
      same seed and compared.
   6. mamba2-2.7b: phases 3-5 again for the ssm family: full depth (64
      layers) on 256-token prompts and on the toy env's 12-token prompts, K6
@@ -119,6 +123,16 @@ ROUTE_FLOOR = 1e-3
 # action hiddens centred over the 7 positions, 3% of their norm, so their
 # 5.6e-3 difference between the routes becomes 0.16 there.)
 LEAF_BOUND = 5e-2
+# Step 1 again on openvla-7b with live behaviour log-probs: the plain
+# route's own action log-probs of the batch plus 0.1 N(0, 1), so ω is near
+# 0.9 and the surrogate's gradient, which the stale dummy μ hides (ω ≈ 0),
+# carries weight. Set before the first run: the routes' action log-probs
+# differ by ~5e-3 (the action hiddens' 5.6e-3), so the near-zero pg loss
+# (a mean of ±A over 1568 tokens, ~0.03) and the k3-KL (~5e-3) may differ
+# by ~1e-2 relative; the per-leaf bound doubles the stale one's, as the pg
+# gradient now adds the routes' log-prob differences.
+LIVE_ROUTE_BOUND = 3e-2
+LIVE_LEAF_BOUND = 0.1
 # Steps 1-3 from the same seed-0 state on both routes: the largest relative
 # difference of the loss, KL, entropy and grad norm per step. Measured
 # 6.1e-2 on the H100 (step 2's loss and KL, 6.0e7 vs 5.7e7: the step-2 jump
@@ -370,15 +384,25 @@ def _time_decode(case, flush):
 
 def _time_flash_bwd(case, flush):
     """K3, its plain version and the library's flash backward (fed by the
-    library's own forward, timed alone) on one bf16 causal case."""
+    library's own forward, timed alone) on one bf16 causal case. K3 is
+    timed twice: the wrapper's call (everything it puts on the stream) and
+    its kernels' own launch on buffers allocated beforehand; the gap is
+    work outside the kernels."""
     import torch
-    from repro_torch.kernels.flash_attention import (_plain_flash_bwd,
+    from repro_torch.kernels.flash_attention import (_launch_bwd,
+                                                     _plain_flash_bwd,
                                                      flash_attention_bwd)
     q, k, v, o, lse, do = (case[x] for x in ("q", "k", "v", "o", "lse",
                                              "do"))
     b, t, h, d = q.shape
     ms, host_ms = _median_ms(
         lambda: flash_attention_bwd(q, k, v, o, lse, do), flush=flush)
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    aux = torch.empty((2, b, h, -(-t // 64) * 64), dtype=torch.float32,
+                      device=q.device)
+    kernels_ms, _ = _median_ms(
+        lambda: _launch_bwd(q, k, v, o, lse, do, aux, *grads, True, None),
+        flush=flush)
     plain_ms, _ = _median_ms(
         lambda: _plain_flash_bwd(q, k, v, o, lse, do), flush=flush)
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
@@ -394,11 +418,12 @@ def _time_flash_bwd(case, flush):
         _nbytes(q, k, v, o, lse, do) + _nbytes(q, k, v),
         10.0 * d * pairs * b * h, "bfloat16")
     shape = f"B={b} T=S={t} H={h} KV={k.shape[2]} D={d} bf16"
-    print(f"[kernels] flash_bwd {shape}: kernel {ms:.4f} ms | plain "
-          f"{plain_ms:.4f} ms | sdpa flash bwd {lib_ms:.4f} ms | bound "
-          f"{bound_ms:.4f} ms ({bound_by}) | host enqueue {host_ms:.4f} ms")
-    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+    print(f"[kernels] flash_bwd {shape}: kernel {ms:.4f} ms (its kernels' "
+          f"own device time {kernels_ms:.4f}) | plain {plain_ms:.4f} ms | "
+          f"sdpa flash bwd {lib_ms:.4f} ms | bound {bound_ms:.4f} ms "
+          f"({bound_by}) | host enqueue {host_ms:.4f} ms")
+    return dict(shape=shape, ms=ms, kernels_ms=kernels_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
 def _time_policy(case, flush):
@@ -433,15 +458,25 @@ def _time_policy(case, flush):
     return out
 
 
-def _policy_case(gen, dev, n, d, va, dtype):
+def _policy_case(gen, dev, n, d, va, dtype, *, stale=False):
+    """K4's inputs. ``logp_old`` is the logits' own log-prob of the target
+    plus 0.1 N(0, 1) (|log ρ| / σ about 0.5: ω near 0.9, the surrogate
+    carries weight), or, ``stale``, -5 ± 0.3, far from the log-probs near
+    -6 ± 1 (ω near 0)."""
     import torch
+    from repro_torch.kernels.gipo_loss import _logits32
+    h = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(d, va, generator=gen, device=dev) * d ** -0.5).to(dtype)
+    tg = torch.randint(0, va, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    noise = torch.randn(n, generator=gen, device=dev)
+    if stale:
+        lo = noise * 0.3 - 5.0
+    else:
+        logp = torch.log_softmax(_logits32(h, w), dim=-1)
+        lo = logp.gather(1, tg.long()[:, None])[:, 0] + 0.1 * noise
     return dict(
-        h=torch.randn(n, d, generator=gen, device=dev).to(dtype),
-        w=(torch.randn(d, va, generator=gen, device=dev)
-           * d ** -0.5).to(dtype),
-        tg=torch.randint(0, va, (n,), generator=gen, device=dev,
-                         dtype=torch.int32),
-        lo=torch.randn(n, generator=gen, device=dev) * 0.3 - 5.0,
+        h=h, w=w, tg=tg, lo=lo,
         ad=torch.randn(n, generator=gen, device=dev),
         mk=(torch.rand(n, generator=gen, device=dev) > 0.15).float(),
         coefs=torch.tensor([0.7, 0.1, -0.01], device=dev) / n)
@@ -521,7 +556,9 @@ def phase_kernels(dev):
                 if window is not None:
                     ok &= (pos[:, None] - pos[None, :]) < window
                 got = flash_attention(qe, ke, v, window=window)
-                ref, _ = tiled_softmax_attention(qe, ke, v, ok[None, None])
+                # bf16 at D 128: the Hopper body's base-2 softmax
+                ref, _ = tiled_softmax_attention(qe, ke, v, ok[None, None],
+                                                 base2=True)
                 excess = _check_order(tag, got, ref)
                 order = (f" | kernel order: max abs err "
                          f"{(got.float() - ref).abs().max().item():.3e}, "
@@ -622,10 +659,12 @@ def phase_kernels(dev):
     # --- K4 fused policy loss -----------------------------------------------
     from repro_torch.kernels import gipo_loss as gl
     k4 = {}
-    for (n, d, va) in [(224, 4096, 256), (3584, 4096, 256), (224, 2560, 256),
-                       (300, 64, 48), (37, 128, 128)]:
+    for (n, d, va, stale) in [(224, 4096, 256, False),
+                              (3584, 4096, 256, False),
+                              (224, 2560, 256, False), (300, 64, 48, False),
+                              (37, 128, 128, False), (224, 4096, 256, True)]:
         for dtype in (torch.float32, torch.bfloat16):
-            c = _policy_case(gen, dev, n, d, va, dtype)
+            c = _policy_case(gen, dev, n, d, va, dtype, stale=stale)
             args = [c[x] for x in ("h", "w", "tg", "lo", "ad", "mk")]
             got = gl._finalize(gl.policy_loss_fwd(*args, 0.2).sum(0))
             exp = gl._finalize(gl._plain_policy_loss_fwd(*args, 0.2).sum(0))
@@ -633,7 +672,12 @@ def phase_kernels(dev):
             dh2, dw2 = gl.policy_loss_bwd(*args, 0.2, c["coefs"])
             edh, edw = gl._plain_policy_loss_bwd(*args, 0.2, c["coefs"])
             torch.cuda.synchronize()
-            tag = f"policy_loss N={n} d={d} Va={va} {str(dtype)[6:]}"
+            tag = f"policy_loss N={n} d={d} Va={va} " \
+                  f"{'stale' if stale else 'live'} {str(dtype)[6:]}"
+            omega = got[3]["omega_mean"].item()
+            if not stale and not omega > 0.5:
+                raise AssertionError(f"{tag}: omega mean {omega} <= 0.5: "
+                                     f"the surrogate term is not live")
             vals = list(got[:3]) + [got[3][x] for x in sorted(got[3])]
             evals = list(exp[:3]) + [exp[3][x] for x in sorted(exp[3])]
             ferr = max(abs(x.item() - y.item()) / max(abs(y.item()), 1.0)
@@ -644,11 +688,12 @@ def phase_kernels(dev):
                    for nm, x, y in (("dh", dh, edh), ("dw", dw, edw))]
             if not (torch.equal(dh, dh2) and torch.equal(dw, dw2)):
                 raise AssertionError(f"{tag}: two backward runs differ")
-            print(f"[kernels] {tag}: forward rel err {ferr:.3e} | max abs "
-                  f"err dh {res[0][0]:.3e} dw {res[1][0]:.3e} | beyond the "
-                  f"bar's rounding term, of the largest value: "
-                  f"{max(r[1] for r in res):.3e} | two runs equal")
-            if dtype == torch.bfloat16 and d in (4096, 2560):
+            print(f"[kernels] {tag}: omega mean {omega:.3f} | forward rel "
+                  f"err {ferr:.3e} | max abs err dh {res[0][0]:.3e} dw "
+                  f"{res[1][0]:.3e} | beyond the bar's rounding term, of the "
+                  f"largest value: {max(r[1] for r in res):.3e} | two runs "
+                  f"equal")
+            if dtype == torch.bfloat16 and d in (4096, 2560) and not stale:
                 k4[n, d] = dict(c, err=max([ferr] + [r[0] for r in res]))
             del c, args, dh, dw, dh2, dw2, edh, edw
     t224, t3584, t2560 = (_time_policy(k4[key], flush) for key in
@@ -1349,7 +1394,8 @@ def phase_trace(dev, cfg, params, *, obs_len, frame):
 
 
 def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
-                remat=False, plain_remat=False, f32_witness=None):
+                remat=False, plain_remat=False, f32_witness=None,
+                live_bounds=None):
     """``arch`` at full width and ``n_layers`` layers, on ``dummy_batch``
     segments of ``obs_len`` observation tokens: the kernel route's
     step-1 gradients (every leaf nonzero) against the plain route's, then
@@ -1364,7 +1410,9 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
     activations would not fit beside the kernel route's gradients.
     ``f32_witness``: (chunk, bounds as ``bounds``) to run step 1 and steps
     1-3 again on an f32 copy of the model, both routes checkpointing each
-    layer.
+    layer. ``live_bounds``: bounds as ``bounds[:2]`` for one more step-1
+    comparison whose behaviour log-probs are live (``_live_behaviour``),
+    with ω's mean held above 0.5.
     Returns the launches by name over the three steps."""
     import dataclasses
     import torch
@@ -1394,6 +1442,21 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
     m_kernel = _compare_step1(f"{arch} bf16", cfg, rl, state, batch,
                               (remat, remat or plain_remat), bounds[:2])
+    if live_bounds is not None:
+        live = batch._replace(
+            behavior_logp=_live_behaviour(cfg, state.params, batch))
+        m_live = _compare_step1(f"{arch} bf16, live behaviour log-probs",
+                                cfg, rl, state, live,
+                                (remat, remat or plain_remat), live_bounds)
+        omega = m_live["omega_mean"].item()
+        print(f"[train] {arch} live behaviour log-probs: omega mean "
+              f"{omega:.3f}, pg {m_live['pg_loss'].item():.5f}, kl "
+              f"{m_live['kl'].item():.5f} (stale: omega "
+              f"{m_kernel['omega_mean'].item():.3f}, pg "
+              f"{m_kernel['pg_loss'].item():.5f})")
+        if not omega > 0.5:
+            raise AssertionError(f"{arch} live step 1: omega mean {omega}")
+        del live, m_live
     compare_peak = torch.cuda.max_memory_allocated(dev)
 
     want = {k: per for k, (_, per) in counters.items()}
@@ -1475,6 +1538,26 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
     if f32_witness is not None:
         _train_f32_witness(dev, cfg, rl, np_batch, *f32_witness)
     return totals
+
+
+def _live_behaviour(cfg, params, batch):
+    """Behaviour log-probs [B, T+1, A] that a rollout one small update ago
+    would have recorded: the plain route's own action log-probs of
+    ``batch`` plus 0.1 N(0, 1) (numpy, seed 1)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import train_step as ts
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.policy import action_log_prob
+    with torch.no_grad(), dispatch.forced("torch"):
+        hidden, _, _ = ts._score_batch_hidden(cfg, params, batch,
+                                              remat=False)
+        # the fused loss's own f32 logits of the action head
+        logits = hidden.float() @ params["action_head"]["w"].float()
+        logp = action_log_prob(logits, batch.actions)
+    noise = np.random.default_rng(1).standard_normal(tuple(logp.shape))
+    return logp + 0.1 * torch.from_numpy(noise.astype(np.float32)).to(
+        logp.device)
 
 
 def _step1_grads(cfg, rl, state, batch, mode, remat):
@@ -1966,7 +2049,8 @@ def main() -> int:
         counting(flash_attention=TRAIN_LAYERS * ga,
                  flash_attention_bwd=TRAIN_LAYERS * ga,
                  fused_policy_loss_fwd=ga, fused_policy_loss_bwd=ga),
-        (ROUTE_BOUND, LEAF_BOUND, STEPS_BOUND))
+        (ROUTE_BOUND, LEAF_BOUND, STEPS_BOUND),
+        live_bounds=(LIVE_ROUTE_BOUND, LIVE_LEAF_BOUND))
     torch.cuda.empty_cache()
 
     # mamba2-2.7b: serving (full depth, T = 256) and training (16 layers)

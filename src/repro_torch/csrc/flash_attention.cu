@@ -8,27 +8,30 @@
 // kpos <= qpos when causal, and qpos - kpos < window when a window is set.
 //
 // What bounds it on the H100: at the openvla-7b prompt shapes (B=8,
-// T=S=268, H=32, D=128, bf16) it moves ~70 MB (q, k, v, o once each) and
+// T=S=268, H=32, D=128, bf16) it moves ~70 MB (q, k, v and o once each) and
 // does ~4.7 GFLOP of causal work, so the memory bound (~21 us at 3.35 TB/s)
-// is above the tensor-core bound (~5 us at 989 TFLOP/s).
+// is above the tensor-core bound (~5 us at 989 TFLOP/s). At these short
+// sequences a CTA sees one to five key tiles, so what decides its time is
+// how much of the loads' latency is hidden behind the tensor cores.
 //
-// Design: one CTA per (q-tile of 64 rows, head, batch). The TPU grid's
-// sequential kv axis becomes a loop inside the CTA over 64-key tiles staged
-// in shared memory, with an f32 online softmax and f32 accumulator. The CTA
-// reads its K/V head h / (H / KV) directly: no KV duplication. Tiles fully
-// above the causal diagonal or before the window start are skipped; the
-// ragged edges are masked here (kpos < S for keys, no store for qpos >= T)
-// instead of padding on the host. Masked scores are -inf, so they
-// contribute exp(-inf) = 0 while m keeps the finite NEG_INF sentinel.
+// Design: one CTA per (q tile, head, batch). The TPU grid's sequential kv
+// axis becomes a loop inside the CTA over 64-key tiles. The CTA reads its
+// K/V head h / (H / KV) directly: no KV duplication. Tiles fully above the
+// causal diagonal or before the window start are skipped; the ragged edges
+// are masked here (kpos < S for keys, no store for qpos >= T) instead of
+// padding on the host. Masked scores are -inf, so they contribute
+// exp(-inf) = 0 while m keeps the finite NEG_INF sentinel.
 //
 // Two bodies, chosen by what the inputs are: bf16 with D % 16 == 0 and
-// D <= 128 (the serving path) runs both products on the tensor cores with
-// mma.sync (flash_fwd_mma_kernel); f32, and bf16 heads outside that range,
-// run them as f32 FMAs out of shared memory (flash_fwd_kernel), which is
-// limited by shared-memory bandwidth and FMA issue. wgmma/TMA, and keeping
-// the working set in bf16 for fewer bytes, are later work.
+// D <= 128 (every model's attention) runs the Hopper body below: TMA loads
+// into a ring of shared-memory stages, wgmma for both products, one producer
+// warp and one consumer warpgroup (flash_fwd_hopper_kernel). f32,
+// and bf16 heads outside that range, run the products as f32 FMAs out of
+// shared memory (flash_fwd_kernel), which is limited by shared-memory
+// bandwidth and FMA issue.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -256,169 +259,177 @@ int launch_nj(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 with D a multiple of 16 up to 128 (the serving path: D = 128): the two
-// products run on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate). 4 warps per CTA, each owning 16 query rows of the 64-row
-// tile; Q stays in registers as A fragments, K and V are staged in shared
-// memory row-major; K's B fragments are 32-bit loads, V's come transposed
-// through ldmatrix. The score accumulators are rescaled, masked and
-// exponentiated in registers and repacked directly as the A fragments of
-// the P V product.
+// bf16 with D a multiple of 16 up to 128 (every attention the models run):
+// a warp-specialised Hopper body. One producer warp streams the CTA's K and
+// V tiles (64 keys each) by TMA through a ring of NSLOT single-tile
+// shared-memory slots, in the order K0, V0, K1, V1, ..., each slot with an
+// mbarrier full/empty pair. One consumer warpgroup, the CTA's 64 query
+// rows, runs S = Q K^T on wgmma from shared memory (Q and K K-major), the
+// online softmax in registers, and O += P V on wgmma with P as the
+// register A operand (rounded to bf16, as the reference casts p to v's
+// type) and V read MN-major through the transpose bit. A K slot is freed
+// as soon as its S product is done; a tile's P V stays in flight while the
+// next tile's S product runs. Heads narrower than 64 or 128 are padded to
+// DP by TMA's zero fill, as are rows past T and keys past S (keys then
+// masked). Scores are scaled by scale * log2(e) and exponentiated with
+// exp2f; the mask is evaluated only on tiles that cross the diagonal, the
+// window edge or S. The LSE leaves in natural log.
+//
+// At these short sequences a CTA sees one to five key tiles, so what hides
+// the loads' latency is CTAs in flight, not ring depth: the shared memory
+// (Q and NSLOT tiles) and the register cap (launch bounds) are sized for
+// 3 CTAs an SM at D = 128 and 4 at D = 64. Measured on the H100 (PERF.md):
+// 64 query rows a CTA at every T of the main path beat 128-row CTAs (two
+// consumer warpgroups sharing each K/V tile: ~150 registers a thread, one
+// CTA an SM), and a deeper ring did not help at D = 128.
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BQ = 64;       // 4 warps x 16 query rows
-constexpr int MMA_BK = 64;       // keys per tile (8 n-tiles of the S product)
-constexpr int MMA_THREADS = 128;
+namespace hp = repro::hopper;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int HB_K = 64;          // keys per tile
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+template <int DP, int NSLOT>
+struct FwdLayout {                // byte offsets in aligned shared memory
+  static constexpr int TILE = (DP / 64) * hp::CHUNK_BYTES;  // 64 rows
+  static constexpr int SLOT_OFF = TILE;                     // after Q
+  static constexpr int BAR_OFF = SLOT_OFF + NSLOT * TILE;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * NSLOT) + 1024;
+};
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// The ring's items in order: K of tile 0, V of tile 0, K of tile 1, ...;
+// item i lands in slot i % NSLOT, in that slot's round i / NSLOT.
+template <int NSLOT>
+struct Item {
+  int slot, parity;
+  __device__ __forceinline__ explicit Item(int i)
+      : slot(i % NSLOT), parity((i / NSLOT) & 1) {}
+};
 
-// Two transposed 8x8 bf16 tiles from shared memory (rows addressed by lanes
-// 0-15): the B fragment of an m16n8k16 product whose k axis runs along the
-// stored rows, here V's keys.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
+template <int DP, int NSLOT, int MINB>
+__global__ void __launch_bounds__(160, MINB)
+flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ lse, int Tq, int S, int H, int KV,
+                        int D, int causal, int window, float scale_log2) {
+  using L = FwdLayout<DP, NSLOT>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hp::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + NSLOT;
+  const uint8_t* slots = smem + L::SLOT_OFF;
 
-template <int KD>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int Tq, int S, int H, int KV, int causal, int window,
-                     float scale) {
-  constexpr int D = KD * 16;
-  // K and V tiles row-major with rows padded to D + 8: the 32-bit K loads
-  // and the V ldmatrix rows then fall in distinct banks
-  constexpr int KS = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 Ks[MMA_BK * KS];
-  __shared__ __align__(16) __nv_bfloat16 Vs[MMA_BK * KS];
-
-  const int q0 = blockIdx.x * MMA_BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // the last q tiles, which see the most keys, go first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;     // mma group / thread in group
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const long q_row = (long)H * D;
-  const long k_row = (long)KV * D;
-  const __nv_bfloat16* qb = q + (long)b * Tq * q_row + (long)h * D;
-  const __nv_bfloat16* kb = k + (long)b * S * k_row + (long)kvh * D;
-  const __nv_bfloat16* vb = v + (long)b * S * k_row + (long)kvh * D;
+  // kv tiles that any row of this CTA can see
+  const int q_last = min(q0 + 64, Tq) - 1;
+  const int k_end = causal ? min(S, q_last + 1) : S;
+  const int k_begin =
+      (window > 0 ? max(0, q0 - window + 1) : 0) / HB_K * HB_K;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + HB_K - 1) / HB_K
+                                      : 0;
 
-  // this thread's two rows of the fragments: r0 and r0 + 8
-  const int r0 = q0 + warp * 16 + g;
-  const int r1 = r0 + 8;
+  if (threadIdx.x == 0) {
+    hp::bar_init(q_full, 1);
+    for (int s = 0; s < NSLOT; ++s) {
+      hp::bar_init(&full[s], 1);
+      hp::bar_init(&empty[s], 128);
+    }
+    hp::bar_init_fence();
+  }
+  __syncthreads();
 
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = r0 < Tq ? ld32(qb + r0 * q_row + c) : 0u;
-    qa[kk][1] = r1 < Tq ? ld32(qb + r1 * q_row + c) : 0u;
-    qa[kk][2] = r0 < Tq ? ld32(qb + r0 * q_row + c + 8) : 0u;
-    qa[kk][3] = r1 < Tq ? ld32(qb + r1 * q_row + c + 8) : 0u;
+  if (warp == 4) {                        // the producer warp
+    if (lane == 0) {
+      hp::prefetch_map(&qmap);
+      hp::prefetch_map(&kmap);
+      hp::prefetch_map(&vmap);
+      hp::bar_expect(q_full, L::TILE);
+      hp::tma_rows<DP>(smem, &qmap, q_full, h, q0, b);
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const Item<NSLOT> it(i);
+        if (i >= NSLOT) hp::bar_wait(&empty[it.slot], it.parity ^ 1);
+        hp::bar_expect(&full[it.slot], L::TILE);
+        hp::tma_rows<DP>(smem + L::SLOT_OFF + it.slot * L::TILE,
+                         (i & 1) ? &vmap : &kmap, &full[it.slot], kvh,
+                         k_begin + (i / 2) * HB_K, b);
+      }
+    }
+    return;
   }
 
-  float acc[2 * KD][4];
+  // the consumer warpgroup: rows q0 .. q0 + 63
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;   // this thread's rows
+
+  float acc[DP / 2];
 #pragma unroll
-  for (int n = 0; n < 2 * KD; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
-  const int q_last = min(q0 + MMA_BQ, Tq) - 1;
-  const int k_end = causal ? min(S, q_last + 1) : S;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  k_begin = (k_begin / MMA_BK) * MMA_BK;
+  // A tile's K slot is released once S = Q K^T is done. Its P V product
+  // stays in flight while the next tile's S product runs; its V slot is
+  // released once both are done.
+  uint32_t pa[4][4];
+  int v_pending = -1;
+  hp::bar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = k_begin + j * HB_K;
+    const Item<NSLOT> ik(2 * j), iv(2 * j + 1);
+    const uint8_t* Ks = slots + ik.slot * L::TILE;
+    const uint8_t* Vs = slots + iv.slot * L::TILE;
+    hp::bar_wait(&full[ik.slot], ik.parity);
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hp::wgmma_ss(sc, hp::desc_k(smem, kk), hp::desc_k(Ks, kk), kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+    hp::fence_regs(acc);
+    hp::fence_regs(pa);
+    hp::bar_arrive(&empty[ik.slot]);
+    if (v_pending >= 0) hp::bar_arrive(&empty[v_pending]);
 
-  for (int k0 = k_begin; k0 < k_end; k0 += MMA_BK) {
-#pragma unroll
-    for (int it = 0; it < MMA_BK * (D / 8) / MMA_THREADS; ++it) {
-      const int idx = tid + it * MMA_THREADS;
-      const int row = idx / (D / 8), ch = idx % (D / 8);
-      const int kpos = k0 + row;
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      const uint4 kv8 = kpos < S ? *reinterpret_cast<const uint4*>(
-                                       kb + kpos * k_row + ch * 8)
-                                 : zero;
-      const uint4 vv8 = kpos < S ? *reinterpret_cast<const uint4*>(
-                                       vb + kpos * k_row + ch * 8)
-                                 : zero;
-      *reinterpret_cast<uint4*>(&Ks[row * KS + ch * 8]) = kv8;
-      *reinterpret_cast<uint4*>(&Vs[row * KS + ch * 8]) = vv8;
-    }
-    __syncthreads();
-
-    // S = Q K^T: 8 n-tiles of 8 keys
-    float sc[MMA_BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < MMA_BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const __nv_bfloat16* kp = &Ks[(n * 8 + g) * KS + kk * 16 + 2 * t];
-        mma_bf16(sc[n], qa[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
-
+    const bool masked = k0 + HB_K > S || (causal && k0 + HB_K - 1 > q0) ||
+                        (window > 0 && q0 + 63 - k0 >= window);
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < MMA_BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
+    for (int i = 0; i < 32; ++i) {
+      float x = __fmul_rn(sc[i], scale_log2);
+      if (masked) {
+        const int row = (i & 2) ? r1 : r0;
+        const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
         bool ok = key < S;
         if (causal) ok = ok && key <= row;
-        if (window > 0) ok = ok && (row - key) < window;
-        const float s = ok ? sc[n][e] * scale : -INFINITY;
-        sc[n][e] = s;
-        if (e < 2) mx0 = fmaxf(mx0, s); else mx1 = fmaxf(mx1, s);
+        if (window > 0) ok = ok && row - key < window;
+        x = ok ? x : -INFINITY;
       }
-    // the four threads of a group hold one row between them
+      sc[i] = x;
+      if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+    }
+    // the four threads of a quad hold one row between them
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
-
-    // P (rounded to bf16) as the A fragments of the P V product
-    uint32_t pa[MMA_BK / 16][4];
+    const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < MMA_BK / 8; ++n) {
-      const float p0 = expf(sc[n][0] - mn0), p1 = expf(sc[n][1] - mn0);
-      const float p2 = expf(sc[n][2] - mn1), p3 = expf(sc[n][3] - mn1);
-      sum0 += p0 + p1;
-      sum1 += p2 + p3;
-      pa[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
-      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+    for (int i = 0; i < 32; ++i) {
+      const float p = exp2f(sc[i] - ((i & 2) ? mn1 : mn0));
+      sc[i] = p;
+      if (i & 2) sum1 += p; else sum0 += p;
     }
     sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
     sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
@@ -430,65 +441,65 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     m1 = mn1;
 
 #pragma unroll
-    for (int dn = 0; dn < 2 * KD; ++dn) {
-      acc[dn][0] *= corr0;
-      acc[dn][1] *= corr0;
-      acc[dn][2] *= corr1;
-      acc[dn][3] *= corr1;
+    for (int kk = 0; kk < 4; ++kk) hp::a_frag(pa[kk], sc, kk);
 #pragma unroll
-      for (int j = 0; j < MMA_BK / 16; ++j) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, &Vs[(j * 16 + lane % 16) * KS + dn * 8]);
-        mma_bf16(acc[dn], pa[j], b0, b1);
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? corr1 : corr0;
+    hp::bar_wait(&full[iv.slot], iv.parity);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hp::wgmma_rs(acc, pa[kk], hp::desc_mn(Vs, kk));
+    hp::wgmma_commit();
+    v_pending = iv.slot;
   }
+  hp::wgmma_wait<0>();
+  hp::fence_regs(acc);
+  hp::fence_regs(pa);
+  if (v_pending >= 0) hp::bar_arrive(&empty[v_pending]);
 
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const long q_row = (long)H * D;
 #pragma unroll
-  for (int dn = 0; dn < 2 * KD; ++dn) {
-    const int col = dn * 8 + 2 * t;
+  for (int jn = 0; jn < DP / 8; ++jn) {
+    const int col = 8 * jn + 2 * t;
+    if (col >= D) continue;
     if (r0 < Tq)
       *reinterpret_cast<uint32_t*>(o + ((long)b * Tq + r0) * q_row +
                                    (long)h * D + col) =
-          pack_bf16(acc[dn][0] / d0, acc[dn][1] / d0);
+          hp::pack_bf16(acc[4 * jn] / d0, acc[4 * jn + 1] / d0);
     if (r1 < Tq)
       *reinterpret_cast<uint32_t*>(o + ((long)b * Tq + r1) * q_row +
                                    (long)h * D + col) =
-          pack_bf16(acc[dn][2] / d1, acc[dn][3] / d1);
+          hp::pack_bf16(acc[4 * jn + 2] / d1, acc[4 * jn + 3] / d1);
   }
   if (lse != nullptr && t == 0) {
-    if (r0 < Tq) lse[((long)b * Tq + r0) * H + h] = m0 + logf(d0);
-    if (r1 < Tq) lse[((long)b * Tq + r1) * H + h] = m1 + logf(d1);
+    constexpr float LN2 = 0.6931471805599453f;
+    if (r0 < Tq) lse[((long)b * Tq + r0) * H + h] = (m0 + log2f(d0)) * LN2;
+    if (r1 < Tq) lse[((long)b * Tq + r1) * H + h] = (m1 + log2f(d1)) * LN2;
   }
 }
 
-template <int KD>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int Tq, int S, int H, int KV, int causal,
-               int window, float scale, cudaStream_t stream) {
-  const dim3 grid((Tq + MMA_BQ - 1) / MMA_BQ, H, B);
-  flash_fwd_mma_kernel<KD><<<grid, MMA_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), Tq, S, H, KV, causal, window, scale);
-  return (int)cudaGetLastError();
-}
-
-int launch_mma_kd(const void* q, const void* k, const void* v, void* o,
+template <int DP, int NSLOT, int MINB>
+int launch_hopper(const void* q, const void* k, const void* v, void* o,
                   void* lse, int B, int Tq, int S, int H, int KV, int D,
                   int causal, int window, float scale, cudaStream_t stream) {
-#define REPRO_KD(n)                                                          \
-  case n:                                                                    \
-    return launch_mma<n>(q, k, v, o, lse, B, Tq, S, H, KV, causal, window,   \
-                         scale, stream);
-  switch (D / 16) {
-    REPRO_KD(1) REPRO_KD(2) REPRO_KD(3) REPRO_KD(4)
-    REPRO_KD(5) REPRO_KD(6) REPRO_KD(7) REPRO_KD(8)
-  }
-#undef REPRO_KD
-  return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int err = hp::make_map(&qm, q, B, Tq, H, D);
+  if (err == 0) err = hp::make_map(&km, k, B, S, KV, D);
+  if (err == 0) err = hp::make_map(&vm, v, B, S, KV, D);
+  if (err != 0) return err;
+  const int smem = FwdLayout<DP, NSLOT>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_hopper_kernel<DP, NSLOT, MINB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return repro::refused(e);
+  const dim3 grid((Tq + 63) / 64, H, B);
+  // scale * log2(e) rounded once to f32, as kernels/ref.py rounds it
+  const float scale_log2 = (float)((double)scale * 1.4426950408889634);
+  flash_fwd_hopper_kernel<DP, NSLOT, MINB><<<grid, 160, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      Tq, S, H, KV, D, causal, window, scale_log2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -506,8 +517,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return launch_nj<float>(q, k, v, o, lse, B, Tq, S, H, KV, D, causal,
                             window, scale, st);
   if (dtype == repro::DTYPE_BF16 && D % 16 == 0 && D <= 128)
-    return launch_mma_kd(q, k, v, o, lse, B, Tq, S, H, KV, D, causal, window,
-                         scale, st);
+    return D <= 64 ? launch_hopper<64, 4, 4>(q, k, v, o, lse, B, Tq, S, H,
+                                             KV, D, causal, window, scale,
+                                             st)
+                   : launch_hopper<128, 3, 3>(q, k, v, o, lse, B, Tq, S, H,
+                                              KV, D, causal, window, scale,
+                                              st);
   if (dtype == repro::DTYPE_BF16)
     return launch_nj<__nv_bfloat16>(q, k, v, o, lse, B, Tq, S, H, KV, D,
                                     causal, window, scale, st);

@@ -3,11 +3,10 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention.py:
 // `_attn_bwd_dq_kernel` and `_attn_bwd_dkv_kernel`, launched by
-// `flash_attention_bwd`. q, dO [B,T,H,D], k/v [B,S,KV,D] (f32 or bf16,
-// contiguous), lse [B,T,H] f32 from the forward, dd = rowsum(dO o O) [B,T,H]
-// f32 (one plain reduction outside, as the reference computes it outside
-// Pallas) -> dq like q, dk/dv like k, accumulated in f32:
-//   p = exp(q.k * scale - lse), ds = p o (dO.V^T - dd),
+// `flash_attention_bwd`. q, o, dO [B,T,H,D], k/v [B,S,KV,D] (f32 or bf16,
+// contiguous), lse [B,T,H] f32 from the forward -> dq like q, dk/dv like k,
+// accumulated in f32:
+//   dd = rowsum(dO o O), p = exp(q.k * scale - lse), ds = p o (dO.V^T - dd),
 //   dq = ds.K * scale, dk = ds^T.Q * scale, dv = p^T.dO.
 // The mask is the forward's (top-left causal, window, positions from 0).
 // Rows qpos >= T and keys kpos >= S are masked here, with no host padding:
@@ -19,29 +18,38 @@
 // T x S x D products over the causal half (~57 GFLOP, ~57 us at 989 TFLOP/s
 // on the tensor cores), so it is memory-bound.
 //
-// Design: two kernels, as the TPU has. dq: one CTA per (64-row q tile, head,
-// batch) looping over the kv tiles the tile can see. dk/dv: one CTA per
-// (64-key kv tile, kv head, batch) looping over the `group` q heads of its
-// kv head and over the q tiles that see the kv tile, so GQA is folded inside
-// the kernel: no per-q-head f32 [B,S,H,D] partials and no sum outside. The
-// TPU's sequential grid axes become these in-CTA loops; every output element
-// is summed by one thread in a fixed order (no atomics).
+// Design: two kernels, as the TPU has, launched back to back on one
+// stream. dq: one CTA per (64-row q tile, head, batch) looping over the kv
+// tiles the tile can see; it also computes dd for its rows from O and dO
+// (the reference computes it outside Pallas; here it stays on the card, in
+// no extra launch) and leaves dd, and for the Hopper body lse * log2(e), in
+// a scratch [2, B, H, T rounded up to 64] for the second kernel. dk/dv: one
+// CTA per (64-key kv tile, kv head, batch) looping over the `group` q heads
+// of its kv head and over the q tiles that see the kv tile, so GQA is
+// folded inside the kernel: no per-q-head f32 [B,S,H,D] partials and no sum
+// outside. The TPU's sequential grid axes become these in-CTA loops; every
+// output element is summed by one thread in a fixed order (no atomics), so
+// reruns are bit-equal.
 //
 // Two bodies, chosen by what the inputs are, as in the forward: bf16 with
-// D % 16 == 0 and D <= 128 (the training path) runs all five products on
-// the tensor cores (mma.sync, 4 warps x 16 rows, 32-row steps; see the note
-// above flash_bwd_dq_mma_kernel); f32, and bf16 heads of other widths, stage
-// f32 tiles in shared memory and run the products as f32 FMAs (16 x 16
-// threads, 4 x 4 micro-tiles), heads up to D = 128. wgmma/TMA and
-// pipelined loads are later work.
+// D % 16 == 0 and D <= 128 (the training path) runs the Hopper bodies (see
+// the note above flash_bwd_dq_hopper_kernel); f32, and bf16 heads of other
+// widths, stage f32 tiles in shared memory and run the products as f32
+// FMAs (16 x 16 threads, 4 x 4 micro-tiles), heads up to D = 128.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int BQ = 64;         // query rows per tile
 constexpr int BK = 64;         // keys per tile
 constexpr int NTHREADS = 256;  // 16 x 16 thread grid
+
+// rows of the dd / lse scratch per (batch, head): T rounded up to 64
+__host__ __device__ __forceinline__ int pad64(int T) {
+  return (T + 63) / 64 * 64;
+}
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int T, int S,
                                         int causal, int window) {
@@ -146,9 +154,10 @@ size_t dkv_smem(int D) {
 template <typename T, int NJ>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dd, T* __restrict__ dq,
+                    const T* __restrict__ v, const T* __restrict__ out,
+                    const T* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dd,
+                    T* __restrict__ dq,
                     int Tq, int S, int H, int KV, int D, int causal,
                     int window, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -172,11 +181,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile(Qs, qb, q0, Tq, q_row, D);
   load_tile(dOs, dob, q0, Tq, q_row, D);
-  for (int r = tid; r < BQ; r += NTHREADS) {
-    const bool in = q0 + r < Tq;
-    const long i = ((long)b * Tq + q0 + r) * H + h;
-    lse_s[r] = in ? lse[i] : 0.f;
-    dd_s[r] = in ? dd[i] : 0.f;
+  for (int r = tid; r < BQ; r += NTHREADS)
+    lse_s[r] = q0 + r < Tq ? lse[((long)b * Tq + q0 + r) * H + h] : 0.f;
+  __syncthreads();
+  {
+    // dd = rowsum(dO o O): four threads a row (neighbouring lanes), each
+    // every fourth column; written for the dk/dv kernel too
+    const int r = tid / 4, part = tid % 4;
+    const T* orow = out + ((long)b * Tq + q0 + r) * q_row + (long)h * D;
+    float sum = 0.f;
+    if (q0 + r < Tq)
+      for (int c = part; c < D; c += 4)
+        sum += dOs[r * DP + c] * repro::to_f(orow[c]);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (part == 0) {
+      dd_s[r] = sum;
+      dd[((long)b * H + h) * pad64(Tq) + q0 + r] = sum;
+    }
   }
 
   float acc[4][NJ];
@@ -276,7 +298,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool in = q0 + r < Tq;
         const long i = ((long)b * Tq + q0 + r) * H + h;
         lse_s[r] = in ? lse[i] : 0.f;
-        dd_s[r] = in ? dd[i] : 0.f;
+        dd_s[r] = in ? dd[((long)b * H + h) * pad64(Tq) + q0 + r] : 0.f;
       }
       __syncthreads();
       // rows: keys ty + 16 i; columns: queries tx + 16 j
@@ -316,10 +338,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NJ>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* dd, void* dq, void* dk, void* dv,
-           int B, int Tq, int S, int H, int KV, int D, int causal, int window,
-           float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, const void* out,
+           const void* dout, const void* lse, void* aux, void* dq, void* dk,
+           void* dv, int B, int Tq, int S, int H, int KV, int D, int causal,
+           int window, float scale, cudaStream_t st) {
   const size_t s1 = dq_smem(D), s2 = dkv_smem(D);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -334,11 +356,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const T* vp = static_cast<const T*>(v);
   const T* dop = static_cast<const T*>(dout);
   const float* lp = static_cast<const float*>(lse);
-  const float* ddp = static_cast<const float*>(dd);
+  float* ddp = static_cast<float*>(aux);       // plane 0 of the scratch
   flash_bwd_dq_kernel<T, NJ><<<dim3((Tq + BQ - 1) / BQ, H, B), NTHREADS, s1,
-                               st>>>(qp, kp, vp, dop, lp, ddp,
-                                     static_cast<T*>(dq), Tq, S, H, KV, D,
-                                     causal, window, scale);
+                               st>>>(qp, kp, vp, static_cast<const T*>(out),
+                                     dop, lp, ddp, static_cast<T*>(dq), Tq, S,
+                                     H, KV, D, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_kernel<T, NJ><<<dim3((S + BK - 1) / BK, KV, B), NTHREADS, s2,
@@ -350,14 +372,14 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }
 
 template <typename T>
-int launch_nj(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* dd, void* dq, void* dk, void* dv,
-              int B, int Tq, int S, int H, int KV, int D, int causal,
-              int window, float scale, cudaStream_t st) {
+int launch_nj(const void* q, const void* k, const void* v, const void* out,
+              const void* dout, const void* lse, void* aux, void* dq,
+              void* dk, void* dv, int B, int Tq, int S, int H, int KV, int D,
+              int causal, int window, float scale, cudaStream_t st) {
 #define REPRO_NJ(n)                                                        \
   case n:                                                                  \
-    return launch<T, n>(q, k, v, dout, lse, dd, dq, dk, dv, B, Tq, S, H,   \
-                        KV, D, causal, window, scale, st);
+    return launch<T, n>(q, k, v, out, dout, lse, aux, dq, dk, dv, B, Tq, S, \
+                        H, KV, D, causal, window, scale, st);
   switch ((D + 15) / 16) {
     REPRO_NJ(1) REPRO_NJ(2) REPRO_NJ(3) REPRO_NJ(4)
     REPRO_NJ(5) REPRO_NJ(6) REPRO_NJ(7) REPRO_NJ(8)
@@ -366,387 +388,451 @@ int launch_nj(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaErrorInvalidValue;
 }
 
-
 // ---------------------------------------------------------------------------
-// bf16 with D a multiple of 16 up to 128 (the training path: D = 128): every
-// product runs on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate), 4 warps of 16 rows each. q, k, v and dO are bf16 already, so
-// S = Q K^T and dP = dO V^T are exact products summed in f32, as in the FMA
-// body. P and dS are f32; to keep that precision through the second
-// products (the reference computes them in f32), each is split as
-// hi + lo with hi = bf16(x), lo = bf16(x - hi) and multiplied twice, which
-// leaves a relative error of ~2^-16 instead of bf16's 2^-8. The B operands
-// of the second products (K, Q, dO staged row-major) come transposed
-// through ldmatrix, as V's do in the forward.
+// bf16 with D a multiple of 16 up to 128 (the training path): warp-
+// specialised Hopper bodies. Each CTA is one producer warpgroup, of which
+// one thread issues TMA loads, and one consumer warpgroup that owns the
+// CTA's 64 rows (dq: query rows; dk/dv: keys); register reallocation
+// (setmaxnreg) gives the consumer the registers its accumulators need. The
+// CTA's own operand (dq: Q and dO; dk/dv: K and V) is loaded once; the
+// moving one (dq: K and V; dk/dv: Q, dO and the rows' lse * log2(e) and
+// dd) streams through a two-stage ring of 64-row tiles with an mbarrier
+// full/empty pair per stage. S = Q K^T and dP = dO V^T run on wgmma from
+// shared memory (both operands K-major). P and dS are f32; to keep that
+// precision through the second products (the reference computes them in
+// f32), each is split as hi + lo with hi = bf16(x), lo = bf16(x - hi) and
+// fed twice as wgmma's register A operand, which leaves a relative error of
+// ~2^-16 instead of bf16's 2^-8; the B operands (K for dq, dO and Q for dv
+// and dk) are read MN-major through the transpose bit. Heads narrower than
+// 64 or 128 are padded by TMA's zero fill, as are rows past T and keys past
+// S; the mask is evaluated only on tiles that cross the diagonal, the
+// window edge, S or (dk/dv) T.
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;   // 4 warps x 16 rows
-constexpr int MMA_ROWS = 64;       // rows of the CTA's own operand
-constexpr int MMA_TILE = 32;       // keys (dq) or queries (dk/dv) per step
+namespace hp = repro::hopper;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int HB_STAGES = 2;
+constexpr int HB_PRODUCER_REGS = 24;
+constexpr int HB_CONSUMER_REGS = 232;   // 2 CTAs of 256 threads an SM
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+template <int DP>
+struct BwdLayout {                // byte offsets in aligned shared memory
+  static constexpr int TILE = (DP / 64) * hp::CHUNK_BYTES;  // 64 rows
+  static constexpr int RING_OFF = 2 * TILE;   // after the resident pair
+  // a stage: two tiles, then 64 lse * log2(e) and 64 dd (dk/dv), padded
+  // to keep the next stage's tiles on 1024-byte swizzle atoms
+  static constexpr int STAGE = 2 * TILE + 1024;
+  static constexpr int VEC_OFF = RING_OFF + HB_STAGES * STAGE;  // dq's rows
+  static constexpr int BAR_OFF = VEC_OFF + 2 * 64 * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * HB_STAGES) + 1024;
+};
 
-// x = hi + lo in bf16 pairs: the high parts, and the rounding remainders
-__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
-}
+template <int DP>
+__global__ void __launch_bounds__(256, 2)
+flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const __nv_bfloat16* __restrict__ out,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           float* __restrict__ aux,
+                           __nv_bfloat16* __restrict__ dq, int Tq, int S,
+                           int H, int KV, int D, int causal, int window,
+                           float scale, float scale_log2) {
+  using L = BwdLayout<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hp::align1024(smem_raw);
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + HB_STAGES;
+  float* lse2_s = reinterpret_cast<float*>(smem + L::VEC_OFF);
+  float* dd_s = lse2_s + 64;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-
-// shared memory of either tensor-core kernel: two [64, D + 8] and two
-// [32, D + 8] bf16 tiles (rows padded for conflict-free fragments), and the
-// dk/dv kernel's 32 lse and dd values
-size_t mma_smem_bytes(int D) {
-  return sizeof(__nv_bfloat16) * (2 * MMA_ROWS + 2 * MMA_TILE) * (D + 8) +
-         sizeof(float) * 2 * MMA_TILE;
-}
-
-// rows [r0, r0 + n) of a [.., L, heads, D] bf16 tensor into smem rows of
-// stride KS, zero past L
-template <int D, int KS>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* base, int r0,
-                                           int n, int L, long row) {
-  for (int idx = threadIdx.x; idx < n * (D / 8); idx += MMA_THREADS) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L)
-      u = *reinterpret_cast<const uint4*>(base + (long)(r0 + r) * row + c);
-    *reinterpret_cast<uint4*>(&dst[r * KS + c]) = u;
-  }
-}
-
-// c[n] (n < 4: 32 columns) = A(16 rows of smem `a` at row a0) . B(rows of
-// smem `b`)^T over D, both row-major with stride KS
-template <int KD, int KS>
-__device__ __forceinline__ void scores16x32(float (&c)[4][4],
-                                            const __nv_bfloat16* a, int a0,
-                                            const __nv_bfloat16* b, int g,
-                                            int t) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int col = kk * 16 + 2 * t;
-    uint32_t fa[4];
-    fa[0] = ld32(&a[(a0 + g) * KS + col]);
-    fa[1] = ld32(&a[(a0 + g + 8) * KS + col]);
-    fa[2] = ld32(&a[(a0 + g) * KS + col + 8]);
-    fa[3] = ld32(&a[(a0 + g + 8) * KS + col + 8]);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const __nv_bfloat16* bp = &b[(n * 8 + g) * KS + col];
-      mma_bf16(c[n], fa, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-// acc[dn] += X(16 x 32, f32 accumulators in c) . Y(32 rows of smem y), with
-// X split hi + lo
-template <int KD, int KS>
-__device__ __forceinline__ void accumulate_split(float (&acc)[2 * KD][4],
-                                                 const float (&x)[4][4],
-                                                 const __nv_bfloat16* y,
-                                                 int lane) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {         // k16 chunks of the 32 columns
-    uint32_t hi[4], lo[4];
-    split_pack(x[2 * j][0], x[2 * j][1], hi[0], lo[0]);
-    split_pack(x[2 * j][2], x[2 * j][3], hi[1], lo[1]);
-    split_pack(x[2 * j + 1][0], x[2 * j + 1][1], hi[2], lo[2]);
-    split_pack(x[2 * j + 1][2], x[2 * j + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int dn = 0; dn < 2 * KD; ++dn) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1, &y[(j * 16 + lane % 16) * KS + dn * 8]);
-      mma_bf16(acc[dn], hi, b0, b1);
-      mma_bf16(acc[dn], lo, b0, b1);
-    }
-  }
-}
-
-template <int KD>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dd,
-                        __nv_bfloat16* __restrict__ dq, int Tq, int S, int H,
-                        int KV, int causal, int window, float scale) {
-  constexpr int D = KD * 16;
-  constexpr int KS = D + 8;     // padded rows: conflict-free fragments
-  extern __shared__ uint4 mma_smem[];       // mma_smem_bytes(D) bytes
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* dOs = Qs + MMA_ROWS * KS;
-  __nv_bfloat16* Ks = dOs + MMA_ROWS * KS;
-  __nv_bfloat16* Vs = Ks + MMA_TILE * KS;
-
-  const int q0 = blockIdx.x * MMA_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long q_row = (long)H * D, k_row = (long)KV * D;
-  const __nv_bfloat16* kb = k + (long)b * S * k_row + (long)kvh * D;
-  const __nv_bfloat16* vb = v + (long)b * S * k_row + (long)kvh * D;
-  stage_rows<D, KS>(Qs, q + (long)b * Tq * q_row + (long)h * D, q0, MMA_ROWS,
-                    Tq, q_row);
-  stage_rows<D, KS>(dOs, dout + (long)b * Tq * q_row + (long)h * D, q0,
-                    MMA_ROWS, Tq, q_row);
-
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const long i0 = ((long)b * Tq + r0) * H + h, i1 = i0 + 8L * H;
-  const float lse0 = r0 < Tq ? lse[i0] : 0.f, lse1 = r1 < Tq ? lse[i1] : 0.f;
-  const float dd0 = r0 < Tq ? dd[i0] : 0.f, dd1 = r1 < Tq ? dd[i1] : 0.f;
-
-  float acc[2 * KD][4];
-#pragma unroll
-  for (int dn = 0; dn < 2 * KD; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-
-  const int q_last = min(q0 + MMA_ROWS, Tq) - 1;
+  const int q_last = min(q0 + 64, Tq) - 1;
   const int k_end = causal ? min(S, q_last + 1) : S;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  k_begin = (k_begin / MMA_TILE) * MMA_TILE;
+  const int k_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / 64 * 64;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + 63) / 64 : 0;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += MMA_TILE) {
-    __syncthreads();        // Q/dO staged; the previous tile's readers done
-    stage_rows<D, KS>(Ks, kb, k0, MMA_TILE, S, k_row);
-    stage_rows<D, KS>(Vs, vb, k0, MMA_TILE, S, k_row);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    scores16x32<KD, KS>(s, Qs, warp * 16, Ks, g, t);
-    scores16x32<KD, KS>(dp, dOs, warp * 16, Vs, g, t);
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        const float p = visible(row, key, Tq, S, causal, window)
-                            ? expf(s[n][e] * scale - (e < 2 ? lse0 : lse1))
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - (e < 2 ? dd0 : dd1));      // ds
+  if (threadIdx.x == 0) {
+    hp::bar_init(res_full, 1);
+    for (int s = 0; s < HB_STAGES; ++s) {
+      hp::bar_init(&full[s], 1);
+      hp::bar_init(&empty[s], 128);
+    }
+    hp::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {                // the producer warpgroup
+    hp::regs_dec<HB_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hp::prefetch_map(&kmap);
+      hp::prefetch_map(&vmap);
+      hp::bar_expect(res_full, 2 * L::TILE);
+      hp::tma_rows<DP>(smem, &qmap, res_full, h, q0, b);
+      hp::tma_rows<DP>(smem + L::TILE, &domap, res_full, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % HB_STAGES;
+        if (j >= HB_STAGES) hp::bar_wait(&empty[s], (j / HB_STAGES - 1) & 1);
+        uint8_t* st = smem + L::RING_OFF + s * L::STAGE;
+        hp::bar_expect(&full[s], 2 * L::TILE);
+        hp::tma_rows<DP>(st, &kmap, &full[s], kvh, k_begin + 64 * j, b);
+        hp::tma_rows<DP>(st + L::TILE, &vmap, &full[s], kvh,
+                         k_begin + 64 * j, b);
       }
-    accumulate_split<KD, KS>(acc, s, Ks, lane);
+    }
+    return;
+  }
+  hp::regs_inc<HB_CONSUMER_REGS>();
+
+  const int c = threadIdx.x - 128;        // thread in the consumer group
+  const int wl = c / 32, lane = c % 32, g = lane / 4, t = lane % 4;
+  const long q_row = (long)H * D;
+  const int tpad = pad64(Tq);
+  float* aux_dd = aux + ((long)b * H + h) * tpad;
+  float* aux_lse2 = aux + (long)gridDim.z * H * tpad + ((long)b * H + h) * tpad;
+  {
+    // dd = rowsum(dO o O) and lse * log2(e) for the 64 rows, two threads a
+    // row (every other 8 columns each), while Q and dO arrive; written for
+    // the dk/dv kernel too (0 past T)
+    const int r = c / 2, half = c % 2, qpos = q0 + r;
+    float sum = 0.f, l2 = 0.f;
+    if (qpos < Tq) {
+      const long off = ((long)b * Tq + qpos) * q_row + (long)h * D;
+      for (int cc = 8 * half; cc < D; cc += 16) {
+        float fo[8], fd[8];
+        repro::load8(out + off + cc, fo);
+        repro::load8(dout + off + cc, fd);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum += fd[i] * fo[i];
+      }
+      l2 = __fmul_rn(lse[((long)b * Tq + qpos) * H + h], LOG2E);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      dd_s[r] = sum;
+      lse2_s[r] = l2;
+      aux_dd[q0 + r] = sum;
+      aux_lse2[q0 + r] = l2;
+    }
+    hp::named_sync(1, 128);
+  }
+  const int lr0 = 16 * wl + g, lr1 = lr0 + 8;   // this thread's rows
+  const int r0 = q0 + lr0, r1 = q0 + lr1;
+  const float lse0 = lse2_s[lr0], lse1 = lse2_s[lr1];
+  const float dd0 = dd_s[lr0], dd1 = dd_s[lr1];
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  hp::bar_wait(res_full, 0);
+  const uint8_t* Qs = smem;
+  const uint8_t* dOs = smem + L::TILE;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % HB_STAGES;
+    const int k0 = k_begin + 64 * j;
+    hp::bar_wait(&full[s], (j / HB_STAGES) & 1);
+    const uint8_t* Ks = smem + L::RING_OFF + s * L::STAGE;
+    const uint8_t* Vs = Ks + L::TILE;
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hp::wgmma_ss(sc, hp::desc_k(Qs, kk), hp::desc_k(Ks, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hp::wgmma_ss(dp, hp::desc_k(dOs, kk), hp::desc_k(Vs, kk), kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+    hp::fence_regs(dp);
+
+    const bool masked = k0 + 64 > S || (causal && k0 + 63 > q0) ||
+                        (window > 0 && q0 + 63 - k0 >= window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi_row = i & 2;
+      float p = exp2f(__fmul_rn(sc[i], scale_log2) - (hi_row ? lse1 : lse0));
+      if (masked &&
+          !visible(hi_row ? r1 : r0, k0 + 8 * (i / 4) + 2 * t + (i & 1), Tq,
+                   S, causal, window))
+        p = 0.f;
+      sc[i] = p * (dp[i] - (hi_row ? dd1 : dd0));           // ds
+    }
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hp::a_frag_split(hi[kk], lo[kk], sc, kk);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hp::wgmma_rs(acc, hi[kk], hp::desc_mn(Ks, kk));
+      hp::wgmma_rs(acc, lo[kk], hp::desc_mn(Ks, kk));
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+    hp::fence_regs(hi);
+    hp::fence_regs(lo);
+    hp::bar_arrive(&empty[s]);
   }
 
 #pragma unroll
-  for (int dn = 0; dn < 2 * KD; ++dn) {
-    const int col = dn * 8 + 2 * t;
+  for (int jn = 0; jn < DP / 8; ++jn) {
+    const int col = 8 * jn + 2 * t;
+    if (col >= D) continue;
     if (r0 < Tq)
       *reinterpret_cast<uint32_t*>(dq + ((long)b * Tq + r0) * q_row +
                                    (long)h * D + col) =
-          pack_bf16(acc[dn][0] * scale, acc[dn][1] * scale);
+          hp::pack_bf16(acc[4 * jn] * scale, acc[4 * jn + 1] * scale);
     if (r1 < Tq)
       *reinterpret_cast<uint32_t*>(dq + ((long)b * Tq + r1) * q_row +
                                    (long)h * D + col) =
-          pack_bf16(acc[dn][2] * scale, acc[dn][3] * scale);
+          hp::pack_bf16(acc[4 * jn + 2] * scale, acc[4 * jn + 3] * scale);
   }
 }
 
-template <int KD>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dd,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int Tq, int S, int H,
-                         int KV, int causal, int window, float scale) {
-  constexpr int D = KD * 16;
-  constexpr int KS = D + 8;
-  extern __shared__ uint4 mma_smem[];       // mma_smem_bytes(D) bytes
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* Vs = Ks + MMA_ROWS * KS;
-  __nv_bfloat16* Qs = Vs + MMA_ROWS * KS;
-  __nv_bfloat16* dOs = Qs + MMA_TILE * KS;
-  float* lse_s = reinterpret_cast<float*>(dOs + MMA_TILE * KS);
-  float* dd_s = lse_s + MMA_TILE;
+template <int DP>
+__global__ void __launch_bounds__(256, 2)
+flash_bwd_dkv_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap domap,
+                            const float* __restrict__ aux,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int Tq, int S,
+                            int H, int KV, int D, int causal, int window,
+                            float scale, float scale_log2) {
+  using L = BwdLayout<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hp::align1024(smem_raw);
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + HB_STAGES;
 
-  const int k0 = blockIdx.x * MMA_ROWS, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * 64, kvh = blockIdx.y, b = blockIdx.z;
   const int group = H / KV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long q_row = (long)H * D, k_row = (long)KV * D;
-  stage_rows<D, KS>(Ks, k + (long)b * S * k_row + (long)kvh * D, k0,
-                    MMA_ROWS, S, k_row);
-  stage_rows<D, KS>(Vs, v + (long)b * S * k_row + (long)kvh * D, k0,
-                    MMA_ROWS, S, k_row);
+  // q tiles that can see this kv tile, for each of the group's q heads
+  const int q_begin = causal ? k0 / 64 * 64 : 0;
+  const int q_end = window > 0 ? min(Tq, k0 + 63 + window) : Tq;
+  const int n_qt = q_end > q_begin ? (q_end - q_begin + 63) / 64 : 0;
+  const int n_tiles = group * n_qt;
+  const int tpad = pad64(Tq);
 
-  float dk_acc[2 * KD][4], dv_acc[2 * KD][4];
-#pragma unroll
-  for (int dn = 0; dn < 2 * KD; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
-
-  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;   // this thread's keys
-  const int q_begin = causal ? (k0 / MMA_TILE) * MMA_TILE : 0;
-  const int q_end = window > 0 ? min(Tq, k0 + MMA_ROWS - 1 + window) : Tq;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    const __nv_bfloat16* qb = q + (long)b * Tq * q_row + (long)h * D;
-    const __nv_bfloat16* dob = dout + (long)b * Tq * q_row + (long)h * D;
-    for (int q0 = q_begin; q0 < q_end; q0 += MMA_TILE) {
-      __syncthreads();      // the previous tile's readers are done
-      stage_rows<D, KS>(Qs, qb, q0, MMA_TILE, Tq, q_row);
-      stage_rows<D, KS>(dOs, dob, q0, MMA_TILE, Tq, q_row);
-      for (int r = threadIdx.x; r < MMA_TILE; r += MMA_THREADS) {
-        const bool in = q0 + r < Tq;
-        const long i = ((long)b * Tq + q0 + r) * H + h;
-        lse_s[r] = in ? lse[i] : 0.f;
-        dd_s[r] = in ? dd[i] : 0.f;
-      }
-      __syncthreads();
-      // rows: keys; columns: queries
-      float st[4][4], dpt[4][4];
-      scores16x32<KD, KS>(st, Ks, warp * 16, Qs, g, t);
-      scores16x32<KD, KS>(dpt, Vs, warp * 16, dOs, g, t);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = e < 2 ? kr0 : kr1;
-          const int c = n * 8 + 2 * t + (e & 1);
-          const float p = visible(q0 + c, key, Tq, S, causal, window)
-                              ? expf(st[n][e] * scale - lse_s[c])
-                              : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - dd_s[c]);           // ds^T
-        }
-      accumulate_split<KD, KS>(dv_acc, st, dOs, lane);
-      accumulate_split<KD, KS>(dk_acc, dpt, Qs, lane);
+  if (threadIdx.x == 0) {
+    hp::bar_init(res_full, 1);
+    for (int s = 0; s < HB_STAGES; ++s) {
+      hp::bar_init(&full[s], 1);
+      hp::bar_init(&empty[s], 128);
     }
+    hp::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {                // the producer warpgroup
+    hp::regs_dec<HB_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hp::prefetch_map(&qmap);
+      hp::prefetch_map(&domap);
+      hp::bar_expect(res_full, 2 * L::TILE);
+      hp::tma_rows<DP>(smem, &kmap, res_full, kvh, k0, b);
+      hp::tma_rows<DP>(smem + L::TILE, &vmap, res_full, kvh, k0, b);
+      const float* aux_lse2 = aux + (long)gridDim.z * H * tpad;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % HB_STAGES;
+        const int h = kvh * group + j / n_qt;
+        const int q0 = q_begin + 64 * (j % n_qt);
+        if (j >= HB_STAGES) hp::bar_wait(&empty[s], (j / HB_STAGES - 1) & 1);
+        uint8_t* st = smem + L::RING_OFF + s * L::STAGE;
+        hp::bar_expect(&full[s], 2 * L::TILE + 2 * 64 * 4);
+        hp::tma_rows<DP>(st, &qmap, &full[s], h, q0, b);
+        hp::tma_rows<DP>(st + L::TILE, &domap, &full[s], h, q0, b);
+        const long row = ((long)b * H + h) * tpad + q0;
+        hp::bulk_load(st + 2 * L::TILE, aux_lse2 + row, 64 * 4, &full[s]);
+        hp::bulk_load(st + 2 * L::TILE + 64 * 4, aux + row, 64 * 4,
+                      &full[s]);
+      }
+    }
+    return;
+  }
+  hp::regs_inc<HB_CONSUMER_REGS>();
+
+  const int c = threadIdx.x - 128;
+  const int wl = c / 32, lane = c % 32, g = lane / 4, t = lane % 4;
+  const int kr0 = k0 + 16 * wl + g, kr1 = kr0 + 8;   // this thread's keys
+
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  hp::bar_wait(res_full, 0);
+  const uint8_t* Ks = smem;
+  const uint8_t* Vs = smem + L::TILE;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % HB_STAGES;
+    const int q0 = q_begin + 64 * (j % n_qt);
+    hp::bar_wait(&full[s], (j / HB_STAGES) & 1);
+    const uint8_t* st = smem + L::RING_OFF + s * L::STAGE;
+    const uint8_t* Qs = st;
+    const uint8_t* dOs = st + L::TILE;
+    const float* lse2_s = reinterpret_cast<const float*>(st + 2 * L::TILE);
+    const float* dd_s = lse2_s + 64;
+    // rows: keys; columns: queries
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hp::wgmma_ss(sc, hp::desc_k(Ks, kk), hp::desc_k(Qs, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      hp::wgmma_ss(dp, hp::desc_k(Vs, kk), hp::desc_k(dOs, kk), kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+    hp::fence_regs(dp);
+
+    const bool masked = k0 + 64 > S || q0 + 64 > Tq ||
+                        (causal && k0 + 63 > q0) ||
+                        (window > 0 && q0 + 63 - k0 >= window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + 2 * t + (i & 1);
+      float p = exp2f(__fmul_rn(sc[i], scale_log2) - lse2_s[col]);
+      if (masked &&
+          !visible(q0 + col, (i & 2) ? kr1 : kr0, Tq, S, causal, window))
+        p = 0.f;
+      sc[i] = p;                                             // p^T
+      dp[i] = p * (dp[i] - dd_s[col]);                       // ds^T
+    }
+    // dv += p^T dO; ds^T's fragments are formed while it runs
+    uint32_t phi[4][4], plo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hp::a_frag_split(phi[kk], plo[kk], sc, kk);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hp::wgmma_rs(dv_acc, phi[kk], hp::desc_mn(dOs, kk));
+      hp::wgmma_rs(dv_acc, plo[kk], hp::desc_mn(dOs, kk));
+    }
+    hp::wgmma_commit();
+    uint32_t dhi[4][4], dlo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hp::a_frag_split(dhi[kk], dlo[kk], dp, kk);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hp::wgmma_rs(dk_acc, dhi[kk], hp::desc_mn(Qs, kk));
+      hp::wgmma_rs(dk_acc, dlo[kk], hp::desc_mn(Qs, kk));
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dv_acc);
+    hp::fence_regs(dk_acc);
+    hp::fence_regs(phi);
+    hp::fence_regs(plo);
+    hp::fence_regs(dhi);
+    hp::fence_regs(dlo);
+    hp::bar_arrive(&empty[s]);
   }
 
+  const long k_row = (long)KV * D;
 #pragma unroll
-  for (int dn = 0; dn < 2 * KD; ++dn) {
-    const int col = dn * 8 + 2 * t;
+  for (int jn = 0; jn < DP / 8; ++jn) {
+    const int col = 8 * jn + 2 * t;
+    if (col >= D) continue;
     const long o0 = ((long)b * S + kr0) * k_row + (long)kvh * D + col;
     const long o1 = o0 + 8 * k_row;
     if (kr0 < S) {
       *reinterpret_cast<uint32_t*>(dk + o0) =
-          pack_bf16(dk_acc[dn][0] * scale, dk_acc[dn][1] * scale);
+          hp::pack_bf16(dk_acc[4 * jn] * scale, dk_acc[4 * jn + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + o0) =
-          pack_bf16(dv_acc[dn][0], dv_acc[dn][1]);
+          hp::pack_bf16(dv_acc[4 * jn], dv_acc[4 * jn + 1]);
     }
     if (kr1 < S) {
-      *reinterpret_cast<uint32_t*>(dk + o1) =
-          pack_bf16(dk_acc[dn][2] * scale, dk_acc[dn][3] * scale);
+      *reinterpret_cast<uint32_t*>(dk + o1) = hp::pack_bf16(
+          dk_acc[4 * jn + 2] * scale, dk_acc[4 * jn + 3] * scale);
       *reinterpret_cast<uint32_t*>(dv + o1) =
-          pack_bf16(dv_acc[dn][2], dv_acc[dn][3]);
+          hp::pack_bf16(dv_acc[4 * jn + 2], dv_acc[4 * jn + 3]);
     }
   }
 }
 
-template <int KD>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* dd, void* dq, void* dk, void* dv,
-               int B, int Tq, int S, int H, int KV, int causal, int window,
-               float scale, cudaStream_t st) {
+template <int DP>
+int launch_hopper(const void* q, const void* k, const void* v,
+                  const void* out, const void* dout, const void* lse,
+                  void* aux, void* dq, void* dk, void* dv, int B, int Tq,
+                  int S, int H, int KV, int D, int causal, int window,
+                  float scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
-  const int smem = (int)mma_smem_bytes(KD * 16);
+  CUtensorMap qm, km, vm, dom;
+  int e = hp::make_map(&qm, q, B, Tq, H, D);
+  if (e == 0) e = hp::make_map(&dom, dout, B, Tq, H, D);
+  if (e == 0) e = hp::make_map(&km, k, B, S, KV, D);
+  if (e == 0) e = hp::make_map(&vm, v, B, S, KV, D);
+  if (e != 0) return e;
+  const int smem = BwdLayout<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<KD>,
+      flash_bwd_dq_hopper_kernel<DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return repro::refused(err);
-  err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<KD>,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_hopper_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return repro::refused(err);
-  flash_bwd_dq_mma_kernel<KD>
-      <<<dim3((Tq + MMA_ROWS - 1) / MMA_ROWS, H, B), MMA_THREADS, smem,
-         st>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k),
-          static_cast<const bf*>(v), static_cast<const bf*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(dd),
-          static_cast<bf*>(dq), Tq, S, H, KV, causal, window, scale);
+  // scale * log2(e) rounded once to f32, as in the forward
+  const float scale_log2 = (float)((double)scale * 1.4426950408889634);
+  flash_bwd_dq_hopper_kernel<DP>
+      <<<dim3((Tq + 63) / 64, H, B), 256, smem, st>>>(
+          qm, km, vm, dom, static_cast<const bf*>(out),
+          static_cast<const bf*>(dout), static_cast<const float*>(lse),
+          static_cast<float*>(aux), static_cast<bf*>(dq), Tq, S, H, KV, D,
+          causal, window, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_mma_kernel<KD>
-      <<<dim3((S + MMA_ROWS - 1) / MMA_ROWS, KV, B), MMA_THREADS, smem,
-         st>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k),
-          static_cast<const bf*>(v), static_cast<const bf*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(dd),
-          static_cast<bf*>(dk), static_cast<bf*>(dv), Tq, S, H, KV, causal,
-          window, scale);
+  flash_bwd_dkv_hopper_kernel<DP>
+      <<<dim3((S + 63) / 64, KV, B), 256, smem, st>>>(
+          qm, km, vm, dom, static_cast<const float*>(aux),
+          static_cast<bf*>(dk), static_cast<bf*>(dv), Tq, S, H, KV, D, causal,
+          window, scale, scale_log2);
   return (int)cudaGetLastError();
-}
-
-int launch_mma_kd(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* dd, void* dq,
-                  void* dk, void* dv, int B, int Tq, int S, int H, int KV,
-                  int D, int causal, int window, float scale,
-                  cudaStream_t st) {
-#define REPRO_KD(n)                                                         \
-  case n:                                                                   \
-    return launch_mma<n>(q, k, v, dout, lse, dd, dq, dk, dv, B, Tq, S, H,   \
-                         KV, causal, window, scale, st);
-  switch (D / 16) {
-    REPRO_KD(1) REPRO_KD(2) REPRO_KD(3) REPRO_KD(4)
-    REPRO_KD(5) REPRO_KD(6) REPRO_KD(7) REPRO_KD(8)
-  }
-#undef REPRO_KD
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int flash_attention_bwd(const void* q, const void* k,
-                                   const void* v, const void* dout,
-                                   const void* lse, const void* dd, void* dq,
-                                   void* dk, void* dv, int B, int Tq, int S,
-                                   int H, int KV, int D, int causal,
-                                   int window, int dtype, float scale,
-                                   void* stream) {
-  // the wrapper checks shapes; these guard the launch itself
+                                   const void* v, const void* out,
+                                   const void* dout, const void* lse,
+                                   void* aux, void* dq, void* dk, void* dv,
+                                   int B, int Tq, int S, int H, int KV, int D,
+                                   int causal, int window, int dtype,
+                                   float scale, void* stream) {
+  // the wrapper checks shapes and allocates aux, f32 [2, B, H, T rounded
+  // up to 64]; these guard the launch itself
   if (D % 8 != 0 || D > 128 || KV <= 0 || H % KV != 0 || Tq <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::DTYPE_F32)
-    return launch_nj<float>(q, k, v, dout, lse, dd, dq, dk, dv, B, Tq, S, H,
-                            KV, D, causal, window, scale, st);
+    return launch_nj<float>(q, k, v, out, dout, lse, aux, dq, dk, dv, B, Tq,
+                            S, H, KV, D, causal, window, scale, st);
   if (dtype == repro::DTYPE_BF16 && D % 16 == 0)
-    return launch_mma_kd(q, k, v, dout, lse, dd, dq, dk, dv, B, Tq, S, H, KV,
-                         D, causal, window, scale, st);
+    return D <= 64
+               ? launch_hopper<64>(q, k, v, out, dout, lse, aux, dq, dk, dv,
+                                   B, Tq, S, H, KV, D, causal, window, scale,
+                                   st)
+               : launch_hopper<128>(q, k, v, out, dout, lse, aux, dq, dk, dv,
+                                    B, Tq, S, H, KV, D, causal, window,
+                                    scale, st);
   if (dtype == repro::DTYPE_BF16)
-    return launch_nj<__nv_bfloat16>(q, k, v, dout, lse, dd, dq, dk, dv, B,
-                                    Tq, S, H, KV, D, causal, window, scale,
+    return launch_nj<__nv_bfloat16>(q, k, v, out, dout, lse, aux, dq, dk, dv,
+                                    B, Tq, S, H, KV, D, causal, window, scale,
                                     st);
   return (int)cudaErrorInvalidValue;
 }

@@ -39,10 +39,10 @@ SIGNATURES = {
     # q, k, v, valid, o, B, S, H, KV, D, dtype, scale, stream
     "decode_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _P),
-    # q, k, v, do, lse, dd, dq, dk, dv, B, T, S, H, KV, D, causal, window,
-    # dtype, scale, stream
-    "flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, o, do, lse, aux, dq, dk, dv, B, T, S, H, KV, D, causal,
+    # window, dtype, scale, stream
+    "flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # h, w, targets, logp_old, adv, mask, partials, N, D, V, dtype, sigma,
     # stream
     "policy_loss_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),

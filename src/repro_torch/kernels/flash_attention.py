@@ -5,10 +5,11 @@ plain PyTorch versions.
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_attn_kernel`` via ``flash_attention``). On this card the serving shapes
 make it memory-bound (q, k, v and o cross device memory once each). One CTA
-per (64-row q tile, head, batch row) loops over kv tiles inside the CTA;
-bf16 heads of width 16..128 run the products on the tensor cores
-(``mma.sync``), f32 and other widths as f32 FMAs. See the note at the top
-of the CUDA source for the design.
+per (64-row q tile, head, batch row) loops over 64-key tiles inside the
+CTA. bf16 heads of width 16..128 run the Hopper body: a producer warp
+streams K and V tiles by TMA through a ring of shared-memory slots while a
+consumer warpgroup runs both products on ``wgmma``; f32 and other widths
+run f32 FMAs. See the note at the top of the CUDA source for the design.
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises on any
 shape, dtype, layout or device it does not take; a CPU tensor goes to
@@ -17,12 +18,13 @@ shape, dtype, layout or device it does not take; a CPU tensor goes to
 The backward replaces the reference's ``flash_attention_bwd``
 (``_attn_bwd_dq_kernel`` and ``_attn_bwd_dkv_kernel``): dq, dk, dv from the
 saved per-row log-sum-exp, ``p = exp(s - lse)``, ``ds = p∘(dO·Vᵀ − D)``
-with ``D = rowsum(dO∘O)`` (plain torch, outside the kernel, as in the
-reference). One kernel accumulates dq over kv tiles; the other dk/dv over
-q tiles and over the GQA group of its kv head. ``flash_attention_bwd``
-routes like the forward (CPU → ``_plain_flash_bwd``);
-``flash_attention_bwd.launches`` counts its launches.
-``FlashAttentionFn`` ties the two together for autograd.
+with ``D = rowsum(dO∘O)``. One kernel accumulates dq over kv tiles and
+computes D for its rows on the way (no PyTorch arithmetic around the
+launch); the other dk/dv over q tiles and over the GQA group of its kv
+head, reading D from the first. ``flash_attention_bwd`` routes like the
+forward (CPU → ``_plain_flash_bwd``); ``flash_attention_bwd.launches``
+counts its launches. ``FlashAttentionFn`` ties the two together for
+autograd.
 """
 from __future__ import annotations
 
@@ -197,20 +199,31 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 [B,T,H] tensor "
                          f"on {q.device}")
-    dd = (do.float() * out.float()).sum(-1)            # D = rowsum(dO∘O)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    lib = build.load()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, t, s, h, kv, d, int(causal), int(window or 0),
-            _DTYPE_CODES[q.dtype], d ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err)
+    # the kernels' scratch: rowsum(dO∘O) and lse·log2(e) per (b, h, row),
+    # written by the dq kernel for the dk/dv kernel
+    aux = torch.empty((2, b, h, -(-t // 64) * 64), dtype=torch.float32,
+                      device=q.device)
+    _launch_bwd(q, k, v, out, lse, do, aux, dq, dk, dv, causal, window)
     with _count_lock:
         flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def _launch_bwd(q, k, v, out, lse, do, aux, dq, dk, dv, causal, window):
+    """The backward kernels alone, on checked inputs and allocated outputs
+    (``chip_smoke.py`` times this to part the kernels from the wrapper)."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), aux.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, t, s, h, kv, d, int(causal),
+            int(window or 0), _DTYPE_CODES[q.dtype], d ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err)
 
 
 flash_attention_bwd.launches = 0

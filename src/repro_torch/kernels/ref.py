@@ -11,26 +11,35 @@ import torch
 NEG_INF = -1e30
 KERNEL_TILE = 64          # keys per tile in csrc/flash_attention.cu and
                           # csrc/decode_attention.cu
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 def tiled_softmax_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, ok: torch.Tensor,
-                            *, tile: int = KERNEL_TILE
+                            *, tile: int = KERNEL_TILE, base2: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention in the CUDA kernels' order of arithmetic, in f32.
 
     Keys go in tiles of ``tile``; scores are ``(q . k) * scale`` in f32; the
     running max starts at NEG_INF; ``P = exp(s - m)`` is rounded to
     ``q.dtype`` before the value product while ``l`` sums the unrounded P.
-    q: [B,T,H,D]; k/v: [B,S,KV,D]; ok: bool, broadcastable to [B,H,T,S].
-    Returns the output before its final rounding [B,T,H,D] f32 and the
-    log-sum-exp [B,T,H] f32.
+    ``base2`` is the Hopper body of K1 (bf16, D % 16 == 0, D <= 128): the
+    scale is ``scale * log2(e)``, rounded once to f32 from the f32 scale,
+    and the exponentials are ``exp2``; the LSE still comes out in natural
+    log. q: [B,T,H,D]; k/v: [B,S,KV,D]; ok: bool, broadcastable to
+    [B,H,T,S]. Returns the output before its final rounding [B,T,H,D] f32
+    and the log-sum-exp [B,T,H] f32.
 
     Given inputs whose dot products are exact in f32 in any order, the
     kernels' P are bit-identical to these, so their bf16 output lies within
     half a bf16 ulp of this one plus f32 reordering error."""
     b, t, h, d = q.shape
     s, group = k.shape[1], h // k.shape[2]
+    scale = d ** -0.5
+    if base2:
+        scale = float(torch.tensor(scale, dtype=torch.float32)) * LOG2E
+    exp = torch.exp2 if base2 else torch.exp
     qf = q.float().transpose(1, 2)                            # [B,H,T,D]
     kf = k.float().repeat_interleave(group, 2).transpose(1, 2)
     vf = v.float().repeat_interleave(group, 2).transpose(1, 2)
@@ -39,17 +48,17 @@ def tiled_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     l = torch.zeros((b, h, t, 1), device=q.device)
     acc = torch.zeros((b, h, t, d), device=q.device)
     for s0 in range(0, s, tile):
-        sc = (qf @ kf[:, :, s0:s0 + tile].transpose(-1, -2)) * (d ** -0.5)
+        sc = (qf @ kf[:, :, s0:s0 + tile].transpose(-1, -2)) * scale
         sc = sc.masked_fill(~ok[..., s0:s0 + tile], float("-inf"))
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-        p = torch.exp(sc - m_new)
-        corr = torch.exp(m - m_new)
+        p = exp(sc - m_new)
+        corr = exp(m - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc * corr + p.to(q.dtype).float() @ vf[:, :, s0:s0 + tile]
         m = m_new
     l = l.clamp_min(1e-30)
-    return ((acc / l).transpose(1, 2),
-            (m + torch.log(l)).squeeze(-1).transpose(1, 2))
+    lse = (m + torch.log2(l)) * LN2 if base2 else m + torch.log(l)
+    return (acc / l).transpose(1, 2), lse.squeeze(-1).transpose(1, 2)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,9 +8,10 @@ inside the fixture, never at import). Run on the H100 with
 Tolerances: f32 max abs err 1e-4 (f32 sums in another order); bf16 outputs
 compared in f32 with atol/rtol 2e-2 (one bf16 rounding of the output, and
 of the softmax weights, on each side). Each bf16 attention-forward body
-(tensor-core K1 for D % 16 == 0 and D <= 128, FMA K1 otherwise, K2) is
-also held against ``ref.tiled_softmax_attention`` on inputs whose q.k sums
-are exact in f32: within half a bf16 ulp (2^-8 relative) plus 1e-5. The
+(the Hopper K1 for D % 16 == 0 and D <= 128, in base 2; FMA K1 otherwise,
+K2) is also held against ``ref.tiled_softmax_attention`` on inputs whose
+q.k sums are exact in f32: within half a bf16 ulp (2^-8 relative) plus
+1e-5. K1 with its LSE and K3 rerun bit for bit. The
 training kernels (K3, K4) are f32 inside in both their versions: f32
 within 1e-4 of the largest value, bf16 within one bf16 ulp (2^-7) of each
 value plus 1e-4 of the largest. So are the SSD scan kernels (K6, K7): their
@@ -66,6 +67,12 @@ def _check_order(got, exp):
     assert ((got.float() - exp).abs() - 2.0 ** -8 * exp.abs()).max() <= 1e-5
 
 
+def _hopper_body(d):
+    """Whether bf16 attention of head width d runs the Hopper bodies (base-2
+    softmax) rather than the FMA ones."""
+    return d % 16 == 0 and d <= 128
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,kv,d,window", [
     (2, 268, 8, 8, 128, None),     # ragged prefill, MHA
@@ -74,6 +81,10 @@ def _check_order(got, exp):
     (3, 13, 4, 4, 256, None),      # the service's short prompt, wide head
     (1, 40, 2, 2, 8, 5),           # narrowest head
     (2, 256, 32, 32, 64, None),    # zamba2-1.2b's shared attention
+    (8, 13, 32, 32, 128, None),    # openvla-7b's serving prompt
+    (8, 12, 32, 32, 64, None),     # zamba2-1.2b's, the env's prompt
+    (4, 275, 32, 32, 128, None),   # openvla-7b's train sequence, with LSE
+    (2, 275, 8, 2, 128, 150),      # GQA, a window over three key tiles
 ])
 def test_flash_kernel_matches_plain(dev, dtype, b, t, h, kv, d, window):
     g = torch.Generator(device=dev).manual_seed(t + h)
@@ -111,8 +122,10 @@ def test_decode_kernel_matches_plain(dev, dtype, b, s, h, kv, d):
 
 
 @pytest.mark.parametrize("b,t,h,kv,d,window", [
-    (2, 268, 8, 8, 128, None),     # tensor-core body, ragged prefill
-    (2, 100, 8, 2, 64, 16),        # tensor-core body, GQA + window
+    (2, 268, 8, 8, 128, None),     # Hopper body, ragged prefill
+    (2, 100, 8, 2, 64, 16),        # Hopper body, GQA + window
+    (8, 13, 32, 32, 128, None),    # Hopper body, the serving prompt
+    (1, 50, 2, 2, 80, None),       # Hopper body, a head padded to 128
     (3, 13, 4, 4, 256, None),      # FMA body, wide head
     (1, 40, 2, 2, 8, 5),           # FMA body, narrowest head
 ])
@@ -126,7 +139,8 @@ def test_flash_bf16_bodies_match_kernel_order(dev, b, t, h, kv, d, window):
     if window is not None:
         ok &= (pos[:, None] - pos[None, :]) < window
     out = flash_attention(q, k, v, window=window)
-    exp, _ = tiled_softmax_attention(q, k, v, ok[None, None])
+    exp, _ = tiled_softmax_attention(q, k, v, ok[None, None],
+                                     base2=_hopper_body(d))
     _check_order(out, exp)
 
 
@@ -214,6 +228,10 @@ def _check_grad(got, exp, dtype):
     (1, 40, 2, 2, 24, 5),          # D % 16 != 0: the FMA body in bf16 too
     (2, 256, 32, 32, 64, None),    # zamba2-1.2b's shared attention
     (2, 19, 32, 32, 64, None),     # ... on the env's train sequence
+    (8, 13, 32, 32, 128, None),    # openvla-7b's heads, one key tile
+    (8, 12, 32, 32, 64, None),     # zamba2-1.2b's, one key tile
+    (4, 275, 32, 32, 128, None),   # openvla-7b's train sequence
+    (2, 275, 8, 2, 128, 150),      # GQA, a window over three key tiles
 ])
 def test_flash_bwd_kernel_matches_plain(dev, dtype, b, t, h, kv, d, window):
     from repro_torch.kernels.flash_attention import (_plain_flash_bwd,
@@ -234,28 +252,54 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, b, t, h, kv, d, window):
         _check_grad(x, y, dtype)
 
 
-def _policy_inputs(dev, n, d, va, dtype, seed):
+def test_flash_kernels_rerun_bit_for_bit(dev):
+    """K1 with its LSE and K3, each called twice on the same inputs at
+    openvla-7b's train shape: identical bits (no atomics, fixed orders)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, do = (torch.randn(4, 275, 32, 128, generator=g, device=dev)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(4, 275, 32, 128, generator=g, device=dev)
+            .bfloat16() for _ in range(2))
+    o1, lse1 = flash_attention(q, k, v, return_lse=True)
+    o2, lse2 = flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    g1 = flash_attention_bwd(q, k, v, o1, lse1, do)
+    g2 = flash_attention_bwd(q, k, v, o1, lse1, do)
+    for x, y in zip(g1, g2):
+        assert torch.equal(x, y)
+
+
+def _policy_inputs(dev, n, d, va, dtype, seed, stale=False):
+    """K4's inputs. logp_old: the logits' own log-prob of the target plus
+    0.1 N(0, 1) (ω near 0.9), or, ``stale``, -5 ± 0.3 (ω near 0)."""
+    from repro_torch.kernels.gipo_loss import _logits32
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn(n, d, generator=g, device=dev).to(dtype),
-            (torch.randn(d, va, generator=g, device=dev)
-             * d ** -0.5).to(dtype),
-            torch.randint(0, va, (n,), generator=g, device=dev,
-                          dtype=torch.int32),
-            torch.randn(n, generator=g, device=dev) * 0.3 - 5.0,
-            torch.randn(n, generator=g, device=dev),
+    h = torch.randn(n, d, generator=g, device=dev).to(dtype)
+    w = (torch.randn(d, va, generator=g, device=dev) * d ** -0.5).to(dtype)
+    tg = torch.randint(0, va, (n,), generator=g, device=dev,
+                       dtype=torch.int32)
+    noise = torch.randn(n, generator=g, device=dev)
+    if stale:
+        lo = noise * 0.3 - 5.0
+    else:
+        logp = torch.log_softmax(_logits32(h, w), dim=-1)
+        lo = logp.gather(1, tg.long()[:, None])[:, 0] + 0.1 * noise
+    return [h, w, tg, lo, torch.randn(n, generator=g, device=dev),
             (torch.rand(n, generator=g, device=dev) > 0.15).float()]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d,va", [
-    (224, 4096, 256),              # the training slice's micro-batch
-    (224, 2560, 256),              # the same at mamba2-2.7b's width
-    (300, 64, 48),                 # ragged N, Va off the tensor-core body
-    (37, 128, 128),                # ragged, tensor-core body at Va 128
+@pytest.mark.parametrize("n,d,va,stale", [
+    (224, 4096, 256, False),       # the training slice's micro-batch
+    (224, 2560, 256, False),       # the same at mamba2-2.7b's width
+    (300, 64, 48, False),          # ragged N, Va off the tensor-core body
+    (37, 128, 128, False),         # ragged, tensor-core body at Va 128
+    (224, 4096, 256, True),        # stale behaviour log-probs: ω near 0
 ])
-def test_policy_loss_kernel_matches_plain(dev, dtype, n, d, va):
+def test_policy_loss_kernel_matches_plain(dev, dtype, n, d, va, stale):
     from repro_torch.kernels import gipo_loss as gl
-    args = _policy_inputs(dev, n, d, va, dtype, n + va)
+    args = _policy_inputs(dev, n, d, va, dtype, n + va, stale)
     coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / n
     n0 = (gl.policy_loss_fwd.launches, gl.policy_loss_bwd.launches)
     got = gl._finalize(gl.policy_loss_fwd(*args, 0.2).sum(0))
@@ -264,6 +308,7 @@ def test_policy_loss_kernel_matches_plain(dev, dtype, n, d, va):
     assert (gl.policy_loss_fwd.launches,
             gl.policy_loss_bwd.launches) == (n0[0] + 1, n0[1] + 1)
     exp = gl._finalize(gl._plain_policy_loss_fwd(*args, 0.2).sum(0))
+    assert stale or got[3]["omega_mean"].item() > 0.5    # live data
     for x, y in zip(list(got[:3]) + list(got[3].values()),
                     list(exp[:3]) + list(exp[3].values())):
         assert abs(x.item() - y.item()) <= 1e-4 * max(abs(y.item()), 1.0)

@@ -119,6 +119,34 @@ def test_tiled_reference_matches_pallas_flash(b, t, s, h, kv, causal,
     _close(lse, exp_lse)
 
 
+@pytest.mark.parametrize("b,t,s,h,kv,causal,window,d", [
+    (2, 100, 100, 8, 2, True, None, 64),   # GQA, ragged vs the 64 tile
+    (1, 77, 77, 4, 1, True, 8, 128),       # MQA + window, the widest head
+    (1, 40, 100, 4, 2, False, None, 64),   # cross lengths, no causal mask
+])
+def test_tiled_reference_base2_matches_pallas_flash(b, t, s, h, kv, causal,
+                                                    window, d):
+    """The Hopper K1 body's order of arithmetic (``base2``: scale·log2(e)
+    and exp2, the LSE back in natural log), in f32, against the Pallas
+    flash kernel: rtol/atol 2e-5."""
+    rng = np.random.default_rng(t + s + h + d)
+    q, k, v = _data(rng, (b, t, h, d), (b, s, kv, d), (b, s, kv, d))
+    exp_o, exp_lse = pallas_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, block_q=64, block_k=64, interpret=True,
+        return_lse=True)
+    qpos, kpos = torch.arange(t)[:, None], torch.arange(s)[None, :]
+    ok = torch.ones(t, s, dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= (qpos - kpos) < window
+    o, lse = ref.tiled_softmax_attention(
+        *map(torch.from_numpy, (q, k, v)), ok[None, None], base2=True)
+    _close(o, exp_o)
+    _close(lse, exp_lse)
+
+
 @pytest.mark.parametrize("b,s,h,kv", [(2, 200, 8, 2), (3, 33, 4, 1)])
 def test_tiled_reference_matches_pallas_decode(b, s, h, kv):
     rng = np.random.default_rng(b * s + h)

@@ -36,14 +36,16 @@ Phases, each printing one line of its numbers:
      plain route's, on the dummy batch's stale behaviour log-probs and
      again on live ones (the plain route's own plus 0.1 noise, ω mean
      above 0.5); the three steps replayed on the plain route from the
-     same seed and compared.
+     same seed and compared; the three steps once more on both routes with
+     live behaviour log-probs at every step (ω mean above 0.5 at each).
   6. mamba2-2.7b: phases 3-5 again for the ssm family: full depth (64
      layers) on 256-token prompts and on the toy env's 12-token prompts, K6
      on every layer of every prefill, the routes also compared on an f32
      copy of the model; training at full width and 16 of its 64 layers, K6/K7
      on every layer and K4 on every loss, the plain route checkpointing each
      layer, with step 1 and steps 1-3 again on an f32 copy as the witness of
-     the bf16 gaps; one more step on the env's 19-token sequences.
+     the bf16 gaps, steps 1-3 also on live behaviour log-probs; one more
+     step on the env's 19-token sequences.
   7. zamba2-1.2b: phases 3-5 again for the hybrid family, at full width and
      full depth (38 Mamba2 layers, the shared attention block applied 7
      times): serving on 256-token and the env's 12-token prompts, K1 on
@@ -52,8 +54,9 @@ Phases, each printing one line of its numbers:
      three train steps checkpointing each block (K1 and K6 again in the
      backward), K3/K7 on every application and layer, K4 on every loss,
      every gradient leaf nonzero (the shared block's too), step 1 and steps
-     1-3 held against the plain route and again on an f32 copy; one more
-     step on the env's 19-token sequences.
+     1-3 held against the plain route (stale and live behaviour log-probs)
+     and again on an f32 copy; one more step on the env's 19-token
+     sequences.
   8. the kernel-ops entry point (``repro_torch.kernels.ops``), the one path
      that runs K5: every op on CUDA tensors, its kernel launch counted and
      its result held against the plain route; the two K5 ops on zamba2's
@@ -133,11 +136,25 @@ LEAF_BOUND = 5e-2
 # gradient now adds the routes' log-prob differences.
 LIVE_ROUTE_BOUND = 3e-2
 LIVE_LEAF_BOUND = 0.1
+# Steps 1-3 again on each model with live behaviour log-probs at every step
+# (each route's own parameters scored by the plain route, plus the same 0.1
+# noise), so that ω stays near 0.9 (held above 0.5 at every step on both
+# routes) and no step runs on a blown-up k3-KL. Step 1 holds
+# LIVE_ROUTE_BOUND's reasoning; steps 2-3 add the routes' parameter gaps
+# after one and two updates, whose per-leaf gradient gaps measured up to
+# 6e-2 (zamba2, stale μ), so the step metrics may differ by a few 1e-2: 0.1
+# leaves ~2-5x room and still fails a wrong gradient, which moves them by
+# O(1). The loss is printed, not held: on live μ its terms nearly cancel
+# (mamba2-2.7b's step 1 reads 0.024), so its relative difference measures
+# the cancellation, not the kernels (0.109 there with K7's FMA body too).
+STEP_KEYS = ("loss", "kl", "entropy", "grad_norm")
+LIVE_KEYS = ("kl", "entropy", "grad_norm")
+LIVE_STEPS_BOUND = [dict.fromkeys(LIVE_KEYS, LIVE_ROUTE_BOUND)] + [
+    dict.fromkeys(LIVE_KEYS, 0.1)] * 2
 # Steps 1-3 from the same seed-0 state on both routes: the largest relative
 # difference of the loss, KL, entropy and grad norm per step. Measured
 # 6.1e-2 on the H100 (step 2's loss and KL, 6.0e7 vs 5.7e7: the step-2 jump
 # amplifies step 1's 4e-4); the bound leaves ~3x room.
-STEP_KEYS = ("loss", "kl", "entropy", "grad_norm")
 STEPS_BOUND = [dict.fromkeys(STEP_KEYS, 0.2)] * 3       # per step, per key
 # mamba2-2.7b: serving at full depth (64 layers) on prompts of SSM_OBS
 # tokens (two SSD chunks of 128); training at full width and
@@ -215,7 +232,8 @@ TRACE_GROUPS = (("K1 flash fwd", ("flash_fwd",)),
                 ("K4 policy loss", ("policy_rows", "policy_dw")),
                 ("K5 gipo head loss", ("gipo_head",)),
                 ("K6 ssd fwd", ("ssd_fwd",)),
-                ("K7 ssd bwd", ("ssd_bwd", "ssd_head_sum")),
+                ("K7 ssd bwd", ("ssd_bwd",)),
+                ("K7 head sum", ("ssd_head_sum",)),
                 ("GEMM", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
                 ("elementwise", ("elementwise",)),
                 ("reduce", ("reduce",)),
@@ -510,7 +528,8 @@ def phase_kernels(dev):
     """Each kernel against its plain version; returns the JSON entries."""
     import torch
     from repro_torch.kernels.decode_attention import (_plain_decode,
-                                                      decode_attention)
+                                                      decode_attention,
+                                                      split_layout)
     from repro_torch.kernels.flash_attention import (_plain_dense,
                                                      flash_attention)
     from repro_torch.kernels.ref import tiled_softmax_attention
@@ -601,7 +620,8 @@ def phase_kernels(dev):
                 ke = _exact_qk(gen, (b, s, kv, d), dtype, dev)
                 got = decode_attention(qe, ke, v, valid)
                 ref, _ = tiled_softmax_attention(
-                    qe, ke, v, valid[:, None, None, :])
+                    qe, ke, v, valid[:, None, None, :],
+                    split=split_layout(s)[1] * 64)
                 excess = _check_order(tag, got, ref)
                 order = (f" | kernel order: max abs err "
                          f"{(got.float() - ref).abs().max().item():.3e}, "
@@ -1393,7 +1413,7 @@ def phase_trace(dev, cfg, params, *, obs_len, frame):
           f"{top}")
 
 
-def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
+def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
                 remat=False, plain_remat=False, f32_witness=None,
                 live_bounds=None):
     """``arch`` at full width and ``n_layers`` layers, on ``dummy_batch``
@@ -1412,7 +1432,12 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
     1-3 again on an f32 copy of the model, both routes checkpointing each
     layer. ``live_bounds``: bounds as ``bounds[:2]`` for one more step-1
     comparison whose behaviour log-probs are live (``_live_behaviour``),
-    with ω's mean held above 0.5.
+    with ω's mean held above 0.5. Then steps 1-3 run once more from seed 0
+    on both routes with live behaviour log-probs at every step, ω's mean
+    held above 0.5 at each, compared within LIVE_STEPS_BOUND. A bf16 steps
+    1-3 comparison that fails is appended to ``failures``, which main raises
+    after the last phase, so that the rest of the run still reports; every
+    other check raises at once.
     Returns the launches by name over the three steps."""
     import dataclasses
     import torch
@@ -1533,8 +1558,28 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, *,
     torch.cuda.empty_cache()
     hist["torch"], _ = _run_steps(dev, cfg, rl, np_batch, "torch",
                                   remat=remat or plain_remat, p0=p0)
+    try:
+        _compare_steps(f"{arch} bf16", hist["cuda"], hist["torch"],
+                       steps_bound)
+    except AssertionError as e:
+        failures.append(str(e))
+    # steps 1-3 again from seed 0 on live behaviour log-probs, both routes
+    live = {mode: _run_steps(dev, cfg, rl, np_batch, mode, p0=p0, live=True,
+                             remat=remat or (mode == "torch" and plain_remat),
+                             counters=counters if mode == "cuda" else None)[0]
+            for mode in ("cuda", "torch")}
     del p0
-    _compare_steps(f"{arch} bf16", hist["cuda"], hist["torch"], steps_bound)
+    omegas = {mode: [m["omega_mean"] for m in h] for mode, h in live.items()}
+    print(f"[train] {arch} live behaviour log-probs at every step: omega "
+          f"mean " + " | ".join(f"{mode} " + ", ".join(f"{w:.3f}" for w in ws)
+                                for mode, ws in omegas.items()))
+    if not all(w > 0.5 for ws in omegas.values() for w in ws):
+        raise AssertionError(f"{arch} live steps: omega means {omegas}")
+    try:
+        _compare_steps(f"{arch} bf16, live behaviour log-probs",
+                       live["cuda"], live["torch"], LIVE_STEPS_BOUND)
+    except AssertionError as e:
+        failures.append(str(e))
     if f32_witness is not None:
         _train_f32_witness(dev, cfg, rl, np_batch, *f32_witness)
     return totals
@@ -1647,12 +1692,15 @@ def _worst_rel(got, exp, label):
 
 
 def _run_steps(dev, cfg, rl, np_batch, mode, *, remat=False, n=3,
-               counters=None, p0=None):
+               counters=None, p0=None, live=False):
     """``n`` train steps on one route from a fresh seed-0 state
     (``p0``: the parameters it must start from). ``counters``: name ->
-    (wrapper, launches per step), checked at every step. Returns each
-    step's metrics and the launches by name over the steps."""
+    (wrapper, launches per step), checked at every step. ``live``: each
+    step's behaviour log-probs are ``_live_behaviour`` of the state it
+    starts from. Returns each step's metrics and the launches by name over
+    the steps."""
     import torch
+    from repro_torch.bridge import batch_from_numpy
     from repro_torch.core import train_step as ts
     from repro_torch.kernels import dispatch
     from repro_torch.tree import tree_leaves_with_path
@@ -1664,11 +1712,15 @@ def _run_steps(dev, cfg, rl, np_batch, mode, *, remat=False, n=3,
         raise AssertionError("seed-0 state differs from the first one")
     step = ts.make_train_step(cfg, rl, remat=remat, device=dev)
     hist, totals = [], dict.fromkeys(counters, 0)
+    batch = batch_from_numpy(np_batch, device=dev) if live else np_batch
     for i in range(n):
+        if live:
+            batch = batch._replace(behavior_logp=_live_behaviour(
+                cfg, state.params, batch))
         for fn, _ in counters.values():
             fn.launches = 0
         with dispatch.forced(mode):
-            state, metrics = step(state, np_batch)
+            state, metrics = step(state, batch)
         got = {k: fn.launches for k, (fn, _) in counters.items()}
         if got != {k: per for k, (_, per) in counters.items()}:
             raise AssertionError(f"{mode} step {i + 1}: launches {got}")
@@ -2028,7 +2080,7 @@ def main() -> int:
 
     name, _ = phase_device()
     entries = phase_kernels(dev)
-    by_path = {}
+    by_path, failures = {}, []
 
     # openvla-7b: serving (full depth) and training (TRAIN_LAYERS layers)
     cfg = get_config("openvla-7b")
@@ -2049,7 +2101,7 @@ def main() -> int:
         counting(flash_attention=TRAIN_LAYERS * ga,
                  flash_attention_bwd=TRAIN_LAYERS * ga,
                  fused_policy_loss_fwd=ga, fused_policy_loss_bwd=ga),
-        (ROUTE_BOUND, LEAF_BOUND, STEPS_BOUND),
+        (ROUTE_BOUND, LEAF_BOUND, STEPS_BOUND), failures,
         live_bounds=(LIVE_ROUTE_BOUND, LIVE_LEAF_BOUND))
     torch.cuda.empty_cache()
 
@@ -2076,7 +2128,8 @@ def main() -> int:
     by_path["mamba2-2.7b training"] = phase_train(
         dev, "mamba2-2.7b", SSM_TRAIN_LAYERS, SSM_OBS - cfg.action_dim,
         per_step, (SSM_ROUTE_BOUND, SSM_LEAF_BOUND, SSM_STEPS_BOUND),
-        plain_remat=True, f32_witness=(SSM_F32_CHUNK, SSM_F32_BOUNDS))
+        failures, plain_remat=True,
+        f32_witness=(SSM_F32_CHUNK, SSM_F32_BOUNDS))
     by_path["mamba2-2.7b training, env sequences"] = phase_train_env(
         dev, "mamba2-2.7b", SSM_TRAIN_LAYERS, SSM_ENV_OBS, per_step,
         SSM_ROUTE_BOUND)
@@ -2110,8 +2163,8 @@ def main() -> int:
                         fused_policy_loss_fwd=ga, fused_policy_loss_bwd=ga)
     by_path["zamba2-1.2b training"] = phase_train(
         dev, "zamba2-1.2b", nl, SSM_OBS - a, per_step,
-        (HYB_ROUTE_BOUND, HYB_LEAF_BOUND, HYB_STEPS_BOUND), remat=True,
-        f32_witness=(cfg.ssm.chunk, HYB_F32_BOUNDS))
+        (HYB_ROUTE_BOUND, HYB_LEAF_BOUND, HYB_STEPS_BOUND), failures,
+        remat=True, f32_witness=(cfg.ssm.chunk, HYB_F32_BOUNDS))
     by_path["zamba2-1.2b training, env sequences"] = phase_train_env(
         dev, "zamba2-1.2b", nl, SSM_ENV_OBS, per_step, HYB_ROUTE_BOUND,
         remat=True)
@@ -2122,6 +2175,9 @@ def main() -> int:
         flash_attention=2, gipo_head_loss_fwd=2, gipo_head_loss_bwd=1,
         fused_policy_loss_fwd=1, fused_policy_loss_bwd=1, ssd_scan=1))
 
+    if failures:
+        raise AssertionError("steps 1-3 comparisons failed: "
+                             + " | ".join(failures))
     for e in entries:
         e["launches_by_path"] = {p: n[e["name"]] for p, n in by_path.items()
                                  if n[e["name"]]}

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) primitives shared by the attention kernels K1 and K3:
-// TMA tensor maps and loads, mbarrier rings, wgmma descriptors and
-// instructions, register reallocation.
+// Hopper (sm_90a) primitives shared by the kernels: TMA tensor maps and
+// loads, mbarrier rings, wgmma descriptors and instructions, register
+// reallocation (K1, K3); thread-block cluster barriers and distributed
+// shared memory (K2); cp.async (K2, K7); ldmatrix and mma.sync with f32
+// operands split into bf16 terms (K7).
 //
 // Every operand tile lives in shared memory as TMA leaves it with
 // SWIZZLE_128B: a box of 64 rows x 64 bf16 (128 bytes a row), rows grouped
@@ -352,6 +354,146 @@ __device__ __forceinline__ void a_frag_split(uint32_t (&hi)[4],
     hi[i] = *reinterpret_cast<const uint32_t*>(&h);
     lo[i] = pack_bf16(x0 - hf.x, x1 - hf.y);
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters: barrier, distributed shared memory
+// ---------------------------------------------------------------------------
+
+// every thread of every CTA of the cluster; orders shared-memory writes
+// before it against reads after it across the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the f32 at `p` (this CTA's shared memory) in the shared memory of the
+// cluster's CTA `rank`
+__device__ __forceinline__ float ld_dsmem(const float* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// cp.async (16 bytes a thread; `pred` false fills the 16 bytes with zeros)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) and its fragments. Lane l,
+// g = l / 4, t = l % 4. A (16 x 16, row-major): a0 (row g, k 2t..2t+1), a1
+// (row g + 8, k 2t..), a2 (row g, k 2t + 8..), a3 (row g + 8, k 2t + 8..).
+// B (16 x 8): b0 (k 2t..2t+1, column g), b1 (k 2t + 8.., column g). C (16 x
+// 8, f32): c0, c1 (row g, columns 2t, 2t + 1), c2, c3 (row g + 8, the same).
+// The C fragments of two neighbouring n8 tiles are the A fragment of one
+// k16 step (a0 = c[0][0..1], a1 = c[0][2..3], a2 = c[1][0..1], a3 = c[1][2..3]).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices; lanes 8m..8m+7 give the row addresses of m
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// Lane offsets (row, column) into a row-major bf16 tile for ldsm4 / ldsm4_t:
+//  frag_a:   the A fragment of the 16 x 16 block at (r0, c0), non-trans.
+//  frag_a_t: the A fragment of the TRANSPOSE of the block stored at
+//            (k0 rows, m0 columns), trans: A[m][k] = X[k][m].
+//  frag_b:   B fragments of two n8 tiles (regs 0, 1: columns n0..n0+7; 2,
+//            3: n0+8..) x k16, from a tile stored [n][k], non-trans.
+//  frag_b_t: the same from a tile stored [k][n], trans.
+struct Lane {
+  int a_r, a_c, at_k, at_m, b_n, b_k, bt_k, bt_n;
+  __device__ __forceinline__ explicit Lane(int l) {
+    a_r = (l & 7) + ((l >> 3) & 1) * 8;
+    a_c = (l >> 4) * 8;
+    at_k = (l & 7) + (l >> 4) * 8;
+    at_m = ((l >> 3) & 1) * 8;
+    b_n = (l & 7) + (l >> 4) * 8;
+    b_k = ((l >> 3) & 1) * 8;
+    bt_k = (l & 7) + ((l >> 3) & 1) * 8;
+    bt_n = (l >> 4) * 8;
+  }
+};
+
+// (x0, x1) as bf16 pairs hi = bf16(x), lo = bf16(x - hi): a product with
+// hi + lo keeps ~16 bits of x
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// (x0, x1) as three bf16 pairs, hi + mid + lo: ~24 bits of x, an f32
+// operand's precision through bf16 products
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = pack_bf16(r0 - mf.x, r1 - mf.y);
+}
+
+// the hi, mid and lo A fragments of the 16 x 16 block held as C fragments
+// of two n8 tiles
+__device__ __forceinline__ void a_split3(uint32_t (&hi)[4], uint32_t (&mid)[4],
+                                         uint32_t (&lo)[4],
+                                         const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  split3(c0[0], c0[1], hi[0], mid[0], lo[0]);
+  split3(c0[2], c0[3], hi[1], mid[1], lo[1]);
+  split3(c1[0], c1[1], hi[2], mid[2], lo[2]);
+  split3(c1[2], c1[3], hi[3], mid[3], lo[3]);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 }  // namespace hopper

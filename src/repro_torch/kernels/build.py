@@ -36,9 +36,9 @@ SIGNATURES = {
     # q, k, v, o, lse, B, T, S, H, KV, D, causal, window, dtype, scale, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _P),
-    # q, k, v, valid, o, B, S, H, KV, D, dtype, scale, stream
+    # q, k, v, valid, o, B, S, H, KV, D, dtype, scale, splits, stream
     "decode_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                             _P),
+                             _I, _P),
     # q, k, v, o, do, lse, aux, dq, dk, dv, B, T, S, H, KV, D, causal,
     # window, dtype, scale, stream
     "flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -60,10 +60,10 @@ SIGNATURES = {
     # chunk, dtype, stream
     "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P),
-    # x, dt, A, Bm, Cm, s_enter, dy, ds_final, dx, ddt, da_part, db_part,
-    # dc_part, db, dc, B, L, H, P, N, chunk, dtype, stream
+    # x, dt, A, Bm, Cm, s_enter, dy, ds_final, dx, ddt, da_part, da,
+    # db_part, dc_part, db, dc, B, L, H, P, N, chunk, dtype, stream
     "ssd_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _P, _I, _I, _I, _I, _I, _I, _I, _P),
+                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_cuda_error_string": (_I,),
 }
 

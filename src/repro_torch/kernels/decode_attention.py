@@ -4,9 +4,11 @@
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``_decode_kernel`` via ``decode_attention``). It reads the KV cache once
 (bound by device-memory bytes at long caches, by launch overhead at the
-serving path's short ones); one CTA per (kv head, batch row) serves every
-query head of that kv head. Validity goes to the kernel as the bool mask's
-bytes, not as an additive bias. See the note at the top of the CUDA source.
+serving path's short ones). The cache's 64-slot tiles are split over the
+CTAs of a thread-block cluster (``split_layout``), whose ranks combine
+their partial softmax states in rank order; a CTA serves up to 8 query
+heads of one kv head. Validity goes to the kernel as the bool mask's bytes,
+not as an additive bias. See the note at the top of the CUDA source.
 
 ``decode_attention`` launches the kernel for CUDA tensors and raises on
 what it does not take; a CPU tensor goes to ``_plain_decode``.
@@ -21,8 +23,20 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (_DTYPE_CODES, NEG_INF,
                                                  check_attention_args)
+from repro_torch.kernels.ref import KERNEL_TILE
 
 _count_lock = threading.Lock()
+MAX_SPLITS = 8            # the portable thread-block cluster size
+
+
+def split_layout(s: int):
+    """(splits, tiles per split) of a cache of ``s`` slots: as many splits
+    as 64-slot tiles up to ``MAX_SPLITS``, then whole tiles shared out
+    evenly, no split empty. The kernel's order of arithmetic is
+    ``ref.tiled_softmax_attention(..., split=tiles_per_split * 64)``."""
+    tiles = -(-s // KERNEL_TILE)
+    tps = -(-tiles // min(MAX_SPLITS, tiles))
+    return -(-tiles // tps), tps
 
 
 def _plain_decode(q, k, v, valid):
@@ -58,7 +72,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
             out.data_ptr(), b, s, h, kv, d, _DTYPE_CODES[q.dtype],
-            d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+            d ** -0.5, split_layout(s)[0],
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err)
     with _count_lock:
         decode_attention.launches += 1

@@ -17,7 +17,8 @@ LN2 = 0.6931471805599453
 
 def tiled_softmax_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, ok: torch.Tensor,
-                            *, tile: int = KERNEL_TILE, base2: bool = False
+                            *, tile: int = KERNEL_TILE, base2: bool = False,
+                            split: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention in the CUDA kernels' order of arithmetic, in f32.
 
@@ -27,9 +28,12 @@ def tiled_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     ``base2`` is the Hopper body of K1 (bf16, D % 16 == 0, D <= 128): the
     scale is ``scale * log2(e)``, rounded once to f32 from the f32 scale,
     and the exponentials are ``exp2``; the LSE still comes out in natural
-    log. q: [B,T,H,D]; k/v: [B,S,KV,D]; ok: bool, broadcastable to
-    [B,H,T,S]. Returns the output before its final rounding [B,T,H,D] f32
-    and the log-sum-exp [B,T,H] f32.
+    log. ``split`` (a multiple of ``tile``) is K2's layout: each run of
+    ``split`` keys walks its own tiles from its own running max, and the
+    runs' (m, l, acc) then combine in order, each weighted by
+    ``exp(m_run - max m)``. q: [B,T,H,D]; k/v: [B,S,KV,D]; ok: bool,
+    broadcastable to [B,H,T,S]. Returns the output before its final
+    rounding [B,T,H,D] f32 and the log-sum-exp [B,T,H] f32.
 
     Given inputs whose dot products are exact in f32 in any order, the
     kernels' P are bit-identical to these, so their bf16 output lies within
@@ -44,18 +48,29 @@ def tiled_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     kf = k.float().repeat_interleave(group, 2).transpose(1, 2)
     vf = v.float().repeat_interleave(group, 2).transpose(1, 2)
     ok = ok.expand(b, h, t, s)
-    m = torch.full((b, h, t, 1), NEG_INF, device=q.device)
-    l = torch.zeros((b, h, t, 1), device=q.device)
-    acc = torch.zeros((b, h, t, d), device=q.device)
-    for s0 in range(0, s, tile):
-        sc = (qf @ kf[:, :, s0:s0 + tile].transpose(-1, -2)) * scale
-        sc = sc.masked_fill(~ok[..., s0:s0 + tile], float("-inf"))
-        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-        p = exp(sc - m_new)
-        corr = exp(m - m_new)
-        l = l * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + p.to(q.dtype).float() @ vf[:, :, s0:s0 + tile]
-        m = m_new
+    split = s if split is None else split
+    runs = []
+    for r0 in range(0, s, split):
+        m = torch.full((b, h, t, 1), NEG_INF, device=q.device)
+        l = torch.zeros((b, h, t, 1), device=q.device)
+        acc = torch.zeros((b, h, t, d), device=q.device)
+        for s0 in range(r0, min(r0 + split, s), tile):
+            sc = (qf @ kf[:, :, s0:s0 + tile].transpose(-1, -2)) * scale
+            sc = sc.masked_fill(~ok[..., s0:s0 + tile], float("-inf"))
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            p = exp(sc - m_new)
+            corr = exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.to(q.dtype).float() @ vf[:, :, s0:s0 + tile]
+            m = m_new
+        runs.append((m, l, acc))
+    if len(runs) > 1:        # a wholly masked run keeps m = NEG_INF: weight 0
+        m = torch.stack([r[0] for r in runs]).amax(0)
+        l, acc = torch.zeros_like(l), torch.zeros_like(acc)
+        for m_r, l_r, acc_r in runs:
+            w = exp(m_r - m)
+            l = l + l_r * w
+            acc = acc + acc_r * w
     l = l.clamp_min(1e-30)
     lse = (m + torch.log2(l)) * LN2 if base2 else m + torch.log(l)
     return (acc / l).transpose(1, 2), lse.squeeze(-1).transpose(1, 2)

@@ -16,23 +16,26 @@ K6 writes y [B,T,H,P] f32, the final state [B,H,P,N] f32 and, with
 ``return_states``, every chunk's entering state [B,NC,H,P,N] f32 (NC the
 number of chunks, the last one counted if short). K7 takes
 those entering states and the cotangents dy (f32) and ds_final (f32) and
-returns (dx, ddt, dA, dBm, dCm) in the reference's dtypes; its kernel writes
-dA as per-(batch, chunk, head) partials that the wrapper sums, as the
-reference does.
+returns (dx, ddt, dA, dBm, dCm) in the reference's dtypes; its second
+kernel sums the per-(batch, chunk, head) dA partials, as the reference's
+wrapper does, so the wrapper issues no arithmetic of its own.
 
 What bounds them on the H100 (700 W) at the port's shapes: K6 at the
 serving shape (B8 T256 H80 P64 N128, bf16) moves ~86 MB, ~0.026 ms at 3.35
 TB/s; K6 with states at the training shape (B36) ~570 MB, ~0.17 ms; K7 at
-the training shape ~670 MB, ~0.20 ms. Their f32 FMA bodies (~9, ~42 and
-~91 GFLOP) keep them well above those bounds. Design: one CTA per (head,
-batch row) walks the chunks in order (K6) or in reverse (K7) carrying the
-state (or its cotangent) in shared memory; the [q,q] matrices are built 32
-rows or columns at a time. K7 writes per-head f32 dB / dC partials and a
-second kernel sums them over the heads in a fixed order: no atomics, so two
-runs agree bit for bit. K7's f32 tiles at chunk 128 (P 64, N 128) need
-~280 KB of shared memory, more than a block may have: with f32 inputs it
-runs at chunk 64, and at chunk 128 its launch raises. See the notes at the
-top of the CUDA sources.
+the training shape ~670 MB, ~0.20 ms. K6's f32 FMA body (~9 and ~42
+GFLOP) keeps it well above those bounds. K7's bf16 body (chunk <= 128, P
+<= 64, N <= 128) runs every chunk product on the tensor cores (mma.sync,
+f32 operands split into two or three bf16 terms, no TF32), one CTA of 8 warps per
+(head, batch row) keeping the [q,q] matrices in registers 16 x 16 at a
+time; its f32 body and other bf16 shapes keep the FMA sweep. Both walk
+the chunks in order (K6) or in reverse (K7) carrying the state (or its
+cotangent). K7 writes per-head f32 dB / dC partials and a second kernel
+sums them over the heads in a fixed order: no atomics, so two runs agree
+bit for bit. K7's f32 tiles at chunk 128 (P 64, N 128) need ~280 KB of
+shared memory, more than a block may have: with f32 inputs it runs at
+chunk 64, and at chunk 128 its launch raises. See the notes at the top of
+the CUDA sources.
 
 The wrappers ``ssd_scan`` and ``ssd_scan_bwd`` launch the kernels for CUDA
 tensors and raise on any shape, dtype, layout or device they do not take; a
@@ -238,6 +241,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, s_enter, dy, ds_final, *,
     dx = torch.empty_like(x)
     ddt = torch.empty((b, t, h), **f32)
     da_part = torch.empty((b, nc, h), **f32)
+    da = torch.empty((h,), **f32)
     db_part = torch.empty((b, t, h, n), **f32)
     dc_part = torch.empty((b, t, h, n), **f32)
     db = torch.empty_like(Bm)
@@ -248,15 +252,14 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, s_enter, dy, ds_final, *,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), s_enter.data_ptr(), dy.data_ptr(),
             ds_final.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            da_part.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
+            da_part.data_ptr(), da.data_ptr(), db_part.data_ptr(),
+            dc_part.data_ptr(),
             db.data_ptr(), dc.data_ptr(), b, t, h, p, n, q,
             _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err)
     _count(ssd_scan_bwd)
-    # per-(batch, chunk, head) dA partials fold to [H], as the reference's
-    # wrapper does
-    return dx, ddt, da_part.sum(dim=(0, 1)).to(A.dtype), db, dc
+    return dx, ddt, da, db, dc
 
 
 ssd_scan.launches = 0

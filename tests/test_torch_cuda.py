@@ -9,12 +9,12 @@ Tolerances: f32 max abs err 1e-4 (f32 sums in another order); bf16 outputs
 compared in f32 with atol/rtol 2e-2 (one bf16 rounding of the output, and
 of the softmax weights, on each side). Each bf16 attention-forward body
 (the Hopper K1 for D % 16 == 0 and D <= 128, in base 2; FMA K1 otherwise,
-K2) is also held against ``ref.tiled_softmax_attention`` on inputs whose
-q.k sums are exact in f32: within half a bf16 ulp (2^-8 relative) plus
-1e-5. K1 with its LSE and K3 rerun bit for bit. The
-training kernels (K3, K4) are f32 inside in both their versions: f32
-within 1e-4 of the largest value, bf16 within one bf16 ulp (2^-7) of each
-value plus 1e-4 of the largest. So are the SSD scan kernels (K6, K7): their
+K2, with the split layout it runs) is also held against
+``ref.tiled_softmax_attention`` on inputs whose q.k sums are exact in f32:
+within half a bf16 ulp (2^-8 relative) plus 1e-5. K1 with its LSE, K2
+and K3 rerun bit for bit. The training kernels (K3, K4) are f32 inside in
+both their versions: f32 within 1e-4 of the largest value, bf16 within one
+bf16 ulp (2^-7) of each value plus 1e-4 of the largest. So are the SSD scan kernels (K6, K7): their
 f32 outputs (y, states, ddt, dA) are held within 1e-4 of the largest value
 for f32 and bf16 inputs alike, their bf16 outputs (dx, dB, dC) within one
 bf16 ulp of each value plus 1e-4 of the largest. So is K5, the GIPO loss
@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import (_plain_decode,
-                                                  decode_attention)
+                                                  decode_attention,
+                                                  split_layout)
 from repro_torch.kernels.flash_attention import _plain_dense, flash_attention
 from repro_torch.kernels.ref import tiled_softmax_attention
 
@@ -144,6 +145,11 @@ def test_flash_bf16_bodies_match_kernel_order(dev, b, t, h, kv, d, window):
     _check_order(out, exp)
 
 
+def _kernel_split(s):
+    """K2's split layout over a cache of s slots, as the oracle takes it."""
+    return split_layout(s)[1] * 64
+
+
 @pytest.mark.parametrize("b,s,h,kv,d", [(8, 275, 8, 8, 128),
                                         (1, 33, 32, 4, 256)])
 def test_decode_bf16_body_matches_kernel_order(dev, b, s, h, kv, d):
@@ -153,8 +159,57 @@ def test_decode_bf16_body_matches_kernel_order(dev, b, s, h, kv, d):
     v = torch.randn(b, s, kv, d, generator=g, device=dev).bfloat16()
     valid = torch.rand(b, s, generator=g, device=dev) > 0.4
     valid[:, 0] = True
-    exp, _ = tiled_softmax_attention(q, k, v, valid[:, None, None, :])
+    exp, _ = tiled_softmax_attention(q, k, v, valid[:, None, None, :],
+                                     split=_kernel_split(s))
     _check_order(decode_attention(q, k, v, valid), exp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,d,masked", [
+    (2, 275, 8, 8, 128, (192, 275)),   # the last two splits wholly masked
+    (2, 263, 32, 32, 64, (64, 128)),   # zamba2's cache, a middle split masked
+    (3, 1, 4, 4, 64, None),            # one slot
+    (2, 64, 8, 2, 128, None),          # one tile, one split
+    (2, 65, 8, 2, 128, None),          # one slot past it: two splits
+    (1, 512, 4, 4, 64, None),          # eight splits of one tile
+    (1, 513, 4, 4, 64, (384, 513)),    # five of two tiles, the last masked
+    (2, 275, 32, 8, 128, None),        # G 4
+    (2, 200, 32, 4, 256, None),        # G 8, the widest head
+    (2, 100, 48, 4, 64, None),         # G 12: two blocks of query heads
+])
+def test_decode_kernel_split_layouts(dev, dtype, b, s, h, kv, d, masked):
+    """K2 over every split layout edge against its plain version, and in
+    bf16 against the kernel-order oracle with the split layout."""
+    g = torch.Generator(device=dev).manual_seed(s + d + h)
+    q = _exact_qk(g, (b, 1, h, d), dev).to(dtype)
+    k = _exact_qk(g, (b, s, kv, d), dev).to(dtype)
+    v = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
+    valid = torch.rand(b, s, generator=g, device=dev) > 0.3
+    valid[:, 0] = True
+    if masked is not None:
+        valid[:, masked[0]:masked[1]] = False
+    out = decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _check(out, _plain_decode(q, k, v, valid), dtype)
+    if dtype == torch.bfloat16:
+        exp, _ = tiled_softmax_attention(q, k, v, valid[:, None, None, :],
+                                         split=_kernel_split(s))
+        _check_order(out, exp)
+
+
+def test_decode_kernel_reruns_bit_for_bit(dev):
+    """K2 at openvla-7b's 275 slots (five splits in a cluster) and at its
+    served 20 slots, twice each: identical bits (no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    for s in (275, 20):
+        q = torch.randn(8, 1, 32, 128, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(8, s, 32, 128, generator=g, device=dev)
+                .bfloat16() for _ in range(2))
+        valid = torch.rand(8, s, generator=g, device=dev) > 0.3
+        valid[:, 0] = True
+        assert torch.equal(decode_attention(q, k, v, valid),
+                           decode_attention(q, k, v, valid))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -430,6 +485,11 @@ def test_ssd_scan_kernel_matches_plain(dev, dtype, b, t, h, p, n, chunk):
     (torch.float32, 2, 256, 64, 64, 64, 128),    # ... f32 fits q 128 at N 64
     (torch.bfloat16, 2, 12, 64, 64, 64, 128),    # ... the env's prompt
     (torch.bfloat16, 4, 19, 64, 64, 64, 128),    # ... the env's train seq
+    (torch.bfloat16, 2, 64, 3, 16, 16, 32),      # tensor-core body, padded
+    (torch.bfloat16, 1, 200, 2, 32, 48, 64),     # ... four chunks, short
+    (torch.bfloat16, 2, 256, 8, 64, 128, 64),    # ... chunk 64
+    (torch.bfloat16, 1, 64, 2, 128, 16, 32),     # FMA body in bf16: P 128
+    (torch.bfloat16, 1, 256, 2, 16, 16, 256),    # ... chunk 256
 ])
 def test_ssd_scan_bwd_kernel_matches_plain(dev, dtype, b, t, h, p, n, chunk):
     from repro_torch.kernels.ssd_scan import (plain_ssd_scan_bwd, ssd_scan,
@@ -452,13 +512,14 @@ def test_ssd_scan_bwd_kernel_matches_plain(dev, dtype, b, t, h, p, n, chunk):
             _check_grad(x, y, dtype)
 
 
+@pytest.mark.parametrize("n", [128, 64])
 @pytest.mark.parametrize("t", [256, 19])
-def test_ssd_scan_bwd_is_bit_repeatable(dev, t):
+def test_ssd_scan_bwd_is_bit_repeatable(dev, t, n):
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
-    args = _ssd_inputs(dev, 4, t, 8, 64, 128, torch.bfloat16, 3)
+    args = _ssd_inputs(dev, 4, t, 8, 64, n, torch.bfloat16, 3)
     _, _, enter = ssd_scan(*args, chunk=128, return_states=True)
     dy = torch.randn(4, t, 8, 64, device=dev)
-    ds = torch.randn(4, 8, 64, 128, device=dev)
+    ds = torch.randn(4, 8, 64, n, device=dev)
     one = ssd_scan_bwd(*args, enter, dy, ds, chunk=128)
     two = ssd_scan_bwd(*args, enter, dy, ds, chunk=128)
     for x, y in zip(one, two):

@@ -18,7 +18,8 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import dispatch, ref
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  split_layout)
 from repro_torch.kernels.flash_attention import (check_attention_args,
                                                  flash_attention)
 
@@ -160,6 +161,48 @@ def test_tiled_reference_matches_pallas_decode(b, s, h, kv):
         *map(torch.from_numpy, (q, k, v)),
         torch.from_numpy(valid)[:, None, None, :])
     _close(o, exp)
+
+
+@pytest.mark.parametrize("b,s,h,kv,masked", [
+    (2, 275, 8, 2, (192, 275)),    # openvla-7b's 275 slots: 5 splits, the
+                                   # last two wholly masked
+    (2, 263, 4, 4, None),          # zamba2-1.2b's served cache
+    (2, 200, 4, 1, (64, 128)),     # a middle split wholly masked
+    (1, 129, 4, 4, None),          # one slot past a split boundary
+    (3, 600, 4, 2, (512, 600)),    # two tiles a split, the last masked
+])
+def test_tiled_reference_split_matches_pallas_decode(b, s, h, kv, masked):
+    """The split layout K2 takes (each split walks its own tiles from its
+    own running max, then the splits combine in rank order) against the
+    Pallas decode kernel, at the tolerance of the unsplit walk."""
+    splits, tps = split_layout(s)
+    assert splits > 1
+    rng = np.random.default_rng(b * s + h)
+    q, k, v = _data(rng, (b, 1, h, 64), (b, s, kv, 64), (b, s, kv, 64))
+    valid = rng.random((b, s)) > 0.4
+    valid[:, 0] = True
+    if masked is not None:
+        valid[:, masked[0]:masked[1]] = False
+        assert masked[0] % (tps * ref.KERNEL_TILE) == 0
+    bias = np.where(valid, 0.0, -1e30).astype(np.float32)
+    exp = pallas_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jnp.asarray(bias), block_k=64, interpret=True)
+    o, _ = ref.tiled_softmax_attention(
+        *map(torch.from_numpy, (q, k, v)),
+        torch.from_numpy(valid)[:, None, None, :],
+        split=tps * ref.KERNEL_TILE)
+    assert torch.isfinite(o).all()
+    _close(o, exp)
+
+
+def test_split_layout_covers_every_tile_once():
+    """No split is empty, none holds more than its share, at most 8."""
+    for s in range(1, 2000, 7):
+        splits, tps = split_layout(s)
+        tiles = -(-s // ref.KERNEL_TILE)
+        assert 1 <= splits <= 8 and (splits - 1) * tps < tiles <= splits * tps
+        assert splits == min(8, tiles) or tps > 1
+    assert split_layout(20) == (1, 1) and split_layout(275) == (5, 1)
 
 
 def test_tiled_reference_rounds_p_like_the_plain_version():

@@ -19,9 +19,11 @@ Phases, each printing one line of its numbers:
      benchmarks/fused_loss.py's FULL_SHAPES; the backward twice, bit for
      bit), K1/K2/K3 again at zamba2-1.2b's attention (head_dim 64, MHA; K1
      also without the causal mask), K6 SSD scan (with and without entering
-     states) and K7 its backward (run twice, bit for bit) at mamba2-2.7b's
-     and zamba2-1.2b's SSD shapes; each timed beside the plain version and,
-     where one PyTorch call computes the same function, that call.
+     states; which body ran printed, and its bf16 tensor-core body timed
+     beside its FMA body) and K7 its backward (run twice, bit for bit) at
+     mamba2-2.7b's and zamba2-1.2b's SSD shapes; each timed beside the
+     plain version and, where one PyTorch call computes the same function,
+     that call.
   3. model: openvla-7b at full width (bf16, random weights from a seed),
      prefill + 7 decode steps on the kernel route, replayed on the plain
      route; every step's action logits compared.
@@ -1029,7 +1031,7 @@ def _ssd_kernels(gen, dev, flush, label, h, p, n, f32_chunk):
     bit for bit; each against its plain version. Returns (K6, K7) timings at
     the 256-token shapes with the env's shapes beside them."""
     import torch
-    from repro_torch.kernels.ssd_scan import (plain_ssd_scan,
+    from repro_torch.kernels.ssd_scan import (fwd_body, plain_ssd_scan,
                                               plain_ssd_scan_bwd,
                                               ssd_scan, ssd_scan_bwd)
     q = 128
@@ -1044,7 +1046,8 @@ def _ssd_kernels(gen, dev, flush, label, h, p, n, f32_chunk):
                 torch.cuda.synchronize()
                 tag = (f"{label} ssd_scan B={b} T={t} H={h} P={p} N={n} "
                        f"chunk={q} "
-                       f"{str(dtype)[6:]}" + (" +states" if states else ""))
+                       f"{str(dtype)[6:]}" + (" +states" if states else "")
+                       + f" ({fwd_body(args[0], args[3], q)} body)")
                 res = [_check_f32_out(f"{tag} {nm}", x, y) for nm, x, y in
                        zip(("y", "s_final", "s_enter"), got, exp)]
                 print(f"[kernels] {tag}: max abs err "
@@ -1110,14 +1113,18 @@ def _ssd_kernels(gen, dev, flush, label, h, p, n, f32_chunk):
 
 
 def _time_ssd(case, flush):
-    """K6 and its plain version on one bf16 case; no single PyTorch call
+    """K6 and its plain version on one bf16 case, and the FMA body (which
+    f32 inputs run) on the same bf16 inputs; no single PyTorch call
     computes a chunked SSD scan, so there is no library time."""
-    from repro_torch.kernels.ssd_scan import plain_ssd_scan, ssd_scan
+    from repro_torch.kernels.ssd_scan import (fwd_body, plain_ssd_scan,
+                                              ssd_scan)
     args, states = case["args"], case["states"]
     b, t, h, p = args[0].shape
     n, q = args[3].shape[-1], 128
     ms, host_ms = _median_ms(lambda: ssd_scan(
         *args, chunk=q, return_states=states), flush=flush)
+    fma_ms, _ = _median_ms(lambda: ssd_scan(
+        *args, chunk=q, return_states=states, body="fma"), flush=flush)
     plain_ms, _ = _median_ms(lambda: plain_ssd_scan(*args, q, states),
                              flush=flush)
     outs = 4 * (b * t * h * p + b * h * p * n
@@ -1127,11 +1134,14 @@ def _time_ssd(case, flush):
                                 "bfloat16")
     shape = (f"B={b} T={t} H={h} P={p} N={n} chunk={q} bf16"
              + (" +states" if states else ""))
-    print(f"[kernels] ssd_scan {shape}: kernel {ms:.4f} ms | plain "
-          f"{plain_ms:.4f} ms | library none | bound {bound_ms:.4f} ms "
-          f"({bound_by}) | host enqueue {host_ms:.4f} ms")
-    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    body = fwd_body(args[0], args[3], q)
+    print(f"[kernels] ssd_scan {shape}: kernel {ms:.4f} ms ({body} body) | "
+          f"FMA body {fma_ms:.4f} ms | plain {plain_ms:.4f} ms | library "
+          f"none | bound {bound_ms:.4f} ms ({bound_by}) | host enqueue "
+          f"{host_ms:.4f} ms")
+    return dict(shape=shape, body=body, ms=ms, fma_ms=fma_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def _time_ssd_bwd(case, flush):
@@ -2071,11 +2081,14 @@ def main() -> int:
                 "fused_policy_loss_bwd": gl.policy_loss_bwd,
                 "gipo_head_loss_fwd": gl.gipo_head_fwd,
                 "gipo_head_loss_bwd": gl.gipo_head_bwd,
-                "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
+                "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
+                "ssd_scan tensor-core body": ssd_scan.tc}
 
     def counting(**per):
         """Every wrapper, with the launches a path should make (0 for the
-        kernels it does not run)."""
+        kernels it does not run). Every K6 launch of a counted path is bf16
+        at a shape K6's tensor-core body takes, so it runs that body."""
+        per.setdefault("ssd_scan tensor-core body", per.get("ssd_scan", 0))
         return {k: (fn, per.get(k, 0)) for k, fn in wrappers.items()}
 
     name, _ = phase_device()
@@ -2184,6 +2197,9 @@ def main() -> int:
         e["launches"] = sum(e["launches_by_path"].values())
         if not e["launches"]:
             raise AssertionError(f"{e['name']}: no launch on any main path")
+        if e["name"] == "ssd_scan":
+            e["tensor_core_launches"] = sum(
+                n["ssd_scan tensor-core body"] for n in by_path.values())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -60,6 +60,11 @@ SIGNATURES = {
     # chunk, dtype, stream
     "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P),
+    # the same, on the FMA body whatever the dtype and shape
+    "ssd_scan_fwd_fma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _P),
+    # P, N, chunk, dtype -> 1 if ssd_scan_fwd runs the tensor-core body
+    "ssd_scan_fwd_tc_body": (_I, _I, _I, _I),
     # x, dt, A, Bm, Cm, s_enter, dy, ds_final, dx, ddt, da_part, da,
     # db_part, dc_part, db, dc, B, L, H, P, N, chunk, dtype, stream
     "ssd_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

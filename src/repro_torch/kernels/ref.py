@@ -1,10 +1,10 @@
 """Oracles for the kernels: the dense attention allclose target, the
 attention kernels' own order of arithmetic for holding their bf16 bodies
-tightly, the unfused token-level GIPO loss, and the stepwise SSD
-recurrence."""
+tightly, the unfused token-level GIPO loss, the stepwise SSD recurrence,
+and the SSD scan in the order of K6's tensor-core body."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -140,3 +140,81 @@ def reference_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = da[:, :, None, None] * state + upd
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cm[:, i].float()))
     return torch.stack(ys, dim=1), state
+
+
+def split_bf16(v: torch.Tensor, terms: int) -> List[torch.Tensor]:
+    """f32 ``v`` as ``terms`` bf16 values (returned in f32) whose sum
+    approximates it: hi = bf16(v), then each next term the bf16 of what the
+    terms before it leave. One term keeps ~8 bits of v, two ~16, three ~24
+    (f32's precision): how the tensor-core bodies feed an f32 operand to
+    bf16 products."""
+    out, rest = [], v.float()
+    for _ in range(terms):
+        out.append(rest.to(torch.bfloat16).float())
+        rest = rest - out[-1]
+    return out
+
+
+def tiled_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int, *,
+                   terms: int = 3, return_states: bool = False):
+    """The SSD scan in the order of arithmetic of K6's tensor-core body
+    (``csrc/ssd_scan.cu``, ``ssd_fwd_tc_kernel``), in f32.
+
+    Per chunk (the kernels' chunk: ``chunk``, or T rounded up to 32 when
+    shorter; missing rows are zero steps) and per 16-row block i of y:
+    C_i . S^T with S split into ``terms`` bf16 terms, scaled by exp(cum_i),
+    then for each 16-column tile j <= i in order, W = (C_i . B_j^T) o G o
+    dt_j (masked before the exponential) split into ``terms`` terms against
+    the exact x_j. The state then takes exp(ct) S + (x o din)^T . B with
+    x o din split likewise. Every product is of bf16 values, so exact in
+    f32; the sums are f32. x, B, C are used as given (bf16 on the main
+    paths, where they are exact). Returns (y [B,T,H,P], final state
+    [B,H,P,N][, entering states [B,NC,H,P,N]]), all f32."""
+    b, t, h, p = x.shape
+    n = Bm.shape[-1]
+    q = min(chunk, -(-t // 32) * 32)
+    nc = -(-t // q)
+
+    def chunks(v):
+        v = v.float()
+        if nc * q > t:
+            v = torch.cat([v, v.new_zeros((b, nc * q - t, *v.shape[2:]))], 1)
+        return v.reshape(b, nc, q, *v.shape[2:])
+    xc, dtc, bc, cc = chunks(x), chunks(dt), chunks(Bm), chunks(Cm)
+    cum = torch.cumsum(dtc * A.float(), dim=2)               # [b,nc,q,h]
+    s = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys, enter = [], []
+    for c in range(nc):
+        enter.append(s)
+        s_terms = split_bf16(s, terms)
+        cum_c, ct = cum[:, c], cum[:, c, -1]                  # [b,q,h], [b,h]
+        y = torch.zeros((b, q, h, p), dtype=torch.float32, device=x.device)
+        for i0 in range(0, q, 16):
+            ci = cc[:, c, i0:i0 + 16]
+            acc = torch.zeros((b, 16, h, p), dtype=torch.float32,
+                              device=x.device)
+            for st in s_terms:
+                acc = acc + torch.einsum("bin,bhpn->bihp", ci, st)
+            acc = acc * torch.exp(cum_c[:, i0:i0 + 16])[..., None]
+            for j0 in range(0, i0 + 16, 16):
+                cb = torch.einsum("bin,bjn->bij", ci, bc[:, c, j0:j0 + 16])
+                diff = (cum_c[:, i0:i0 + 16, None, :]
+                        - cum_c[:, None, j0:j0 + 16, :])      # [b,i,j,h]
+                ii = torch.arange(i0, i0 + 16, device=x.device)[:, None]
+                jj = torch.arange(j0, j0 + 16, device=x.device)[None, :]
+                g = torch.exp(diff.masked_fill(~(jj <= ii)[None, :, :, None],
+                                               float("-inf")))
+                w = cb[..., None] * g * dtc[:, c, None, j0:j0 + 16, :]
+                for wt in split_bf16(w, terms):
+                    acc = acc + torch.einsum("bijh,bjhp->bihp", wt,
+                                             xc[:, c, j0:j0 + 16])
+            y[:, i0:i0 + 16] = acc
+        ys.append(y)
+        din = torch.exp(ct[:, None, :] - cum_c) * dtc[:, c]   # [b,q,h]
+        upd = torch.zeros_like(s)
+        for xt in split_bf16(xc[:, c] * din[..., None], terms):
+            upd = upd + torch.einsum("bjhp,bjn->bhpn", xt, bc[:, c])
+        s = torch.exp(ct)[:, :, None, None] * s + upd
+    y = torch.cat(ys, 1)[:, :t]
+    return (y, s, torch.stack(enter, 1)) if return_states else (y, s)

@@ -23,29 +23,33 @@ wrapper does, so the wrapper issues no arithmetic of its own.
 What bounds them on the H100 (700 W) at the port's shapes: K6 at the
 serving shape (B8 T256 H80 P64 N128, bf16) moves ~86 MB, ~0.026 ms at 3.35
 TB/s; K6 with states at the training shape (B36) ~570 MB, ~0.17 ms; K7 at
-the training shape ~670 MB, ~0.20 ms. K6's f32 FMA body (~9 and ~42
-GFLOP) keeps it well above those bounds. K7's bf16 body (chunk <= 128, P
-<= 64, N <= 128) runs every chunk product on the tensor cores (mma.sync,
-f32 operands split into two or three bf16 terms, no TF32), one CTA of 8 warps per
-(head, batch row) keeping the [q,q] matrices in registers 16 x 16 at a
-time; its f32 body and other bf16 shapes keep the FMA sweep. Both walk
-the chunks in order (K6) or in reverse (K7) carrying the state (or its
-cotangent). K7 writes per-head f32 dB / dC partials and a second kernel
-sums them over the heads in a fixed order: no atomics, so two runs agree
-bit for bit. K7's f32 tiles at chunk 128 (P 64, N 128) need ~280 KB of
-shared memory, more than a block may have: with f32 inputs it runs at
+the training shape ~670 MB, ~0.20 ms. Both have a bf16 body for chunk <=
+128, P <= 64, N <= 128 (every shape of the main paths) that runs every
+chunk product on the tensor cores (mma.sync, f32 operands split into bf16
+terms, three for K6's W, S and x o din; no TF32), one CTA of 8 warps
+keeping the [q,q] tiles in registers 16 x 16 at a time and the carried
+state's f32 master in registers; K6's CTAs are persistent, walking (head,
+batch row) items, and sum each k16 step on the tensor cores from zero
+before adding it in f32. f32 inputs and other bf16 shapes keep the f32 FMA
+bodies. Both walk the chunks in order (K6) or in reverse (K7) carrying the
+state (or its cotangent). K7 writes per-head f32 dB / dC partials and a
+second kernel sums them over the heads in a fixed order: no atomics, so two
+runs agree bit for bit. K7's f32 tiles at chunk 128 (P 64, N 128) need ~280
+KB of shared memory, more than a block may have: with f32 inputs it runs at
 chunk 64, and at chunk 128 its launch raises. See the notes at the top of
 the CUDA sources.
 
 The wrappers ``ssd_scan`` and ``ssd_scan_bwd`` launch the kernels for CUDA
 tensors and raise on any shape, dtype, layout or device they do not take; a
 CPU tensor goes to ``plain_ssd_scan`` / ``plain_ssd_scan_bwd``.
-``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count kernel launches.
+``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count kernel launches,
+``ssd_scan.tc.launches`` those of K6 that ran its tensor-core body.
 ``SSDScanFn`` ties the two together for autograd.
 """
 from __future__ import annotations
 
 import threading
+import types
 from typing import Optional
 
 import torch
@@ -187,12 +191,26 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
+def fwd_body(x, Bm, chunk: int = 128) -> str:
+    """Which K6 body ``ssd_scan`` launches for these CUDA inputs, as the C
+    entry decides it: "tensor cores" (bf16, chunk <= 128, P <= 64, N <= 128)
+    or "fma"."""
+    q = _kernel_chunk(chunk, x.shape[1])
+    tc = build.load().ssd_scan_fwd_tc_body(x.shape[-1], Bm.shape[-1], q,
+                                           _DTYPE_CODES[x.dtype])
+    return "tensor cores" if tc else "fma"
+
+
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
-             return_states: bool = False):
+             return_states: bool = False, body: str = "auto"):
     """(y [B,T,H,P] f32, final state [B,H,P,N] f32[, entering states
-    [B,NC,H,P,N] f32]) from K6 (CUDA) or ``plain_ssd_scan`` (CPU)."""
+    [B,NC,H,P,N] f32]) from K6 (CUDA) or ``plain_ssd_scan`` (CPU).
+    ``body="fma"`` launches the FMA body whatever the dtype and shape, to
+    hold the tensor-core body against it; no model path passes it."""
     if x.device.type == "cpu":
         return plain_ssd_scan(x, dt, A, Bm, Cm, chunk, return_states)
+    if body not in ("auto", "fma"):
+        raise ValueError(f"body must be 'auto' or 'fma'; got {body!r}")
     check_ssd_args(x, dt, A, Bm, Cm, chunk)
     b, t, h, p = x.shape
     n = Bm.shape[-1]
@@ -203,8 +221,10 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
     s_enter = (torch.empty((b, -(-t // q), h, p, n), **f32) if return_states
                else None)
     lib = build.load()
+    tc = body == "auto" and fwd_body(x, Bm, chunk) == "tensor cores"
+    entry = lib.ssd_scan_fwd if body == "auto" else lib.ssd_scan_fwd_fma
     with torch.cuda.device(x.device):
-        err = lib.ssd_scan_fwd(
+        err = entry(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), s_final.data_ptr(),
             None if s_enter is None else s_enter.data_ptr(), b, t, h, p, n,
@@ -212,6 +232,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err)
     _count(ssd_scan)
+    if tc:
+        _count(ssd_scan.tc)
     return (y, s_final, s_enter) if return_states else (y, s_final)
 
 
@@ -263,6 +285,8 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, s_enter, dy, ds_final, *,
 
 
 ssd_scan.launches = 0
+#: K6 launches that ran the tensor-core body (also counted in .launches)
+ssd_scan.tc = types.SimpleNamespace(launches=0)
 ssd_scan_bwd.launches = 0
 
 

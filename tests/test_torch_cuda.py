@@ -19,7 +19,9 @@ f32 outputs (y, states, ddt, dA) are held within 1e-4 of the largest value
 for f32 and bf16 inputs alike, their bf16 outputs (dx, dB, dC) within one
 bf16 ulp of each value plus 1e-4 of the largest. So is K5, the GIPO loss
 over given logits: its forward's loss and metrics within 1e-4 relative
-(floored at 1), its d_logits as K3's and K4's outputs.
+(floored at 1), its d_logits as K3's and K4's outputs. K6's bf16
+tensor-core body also reruns bit for bit, counts its launches, and stays
+within twice the FMA body's error against the chunked form in f64.
 """
 import pytest
 import torch
@@ -445,9 +447,16 @@ def _check_f32_out(got, exp):
     assert (got - exp).abs().max().item() <= 1e-4 * scale
 
 
+def _tc_body(dtype, t, p, n, chunk):
+    """Whether K6 runs its tensor-core body: bf16, the kernels' chunk
+    (``chunk``, or T rounded up to 32) <= 128, P <= 64, N <= 128."""
+    q = min(chunk, -(-t // 32) * 32)
+    return dtype == torch.bfloat16 and q <= 128 and p <= 64 and n <= 128
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,p,n,chunk", [
-    (2, 64, 3, 16, 8, 32),         # small
+    (2, 64, 3, 16, 8, 32),         # small (bf16: tensor cores, padded)
     (2, 192, 2, 32, 16, 64),       # three chunks
     (1, 256, 4, 64, 128, 128),     # mamba2-2.7b's head and chunk
     (2, 200, 2, 32, 16, 64),       # a short last chunk (8 of 64)
@@ -457,18 +466,94 @@ def _check_f32_out(got, exp):
     (2, 256, 64, 64, 64, 128),     # zamba2-1.2b: H 64, P 64, N 64
     (8, 12, 64, 64, 64, 128),      # ... the env's prompt
     (4, 19, 64, 64, 64, 128),      # ... the env's train sequence
+    (1, 300, 64, 64, 64, 128),     # ... two chunks and 44 steps
+    (2, 256, 80, 64, 128, 128),    # mamba2-2.7b: H 80, P 64, N 128
+    (8, 12, 80, 64, 128, 128),     # ... the env's prompt
+    (4, 19, 80, 64, 128, 128),     # ... the env's train sequence
+    (1, 300, 80, 64, 128, 128),    # ... two chunks and 44 steps
+    (1, 256, 2, 128, 32, 128),     # FMA body in bf16: P 128
+    (1, 256, 2, 16, 16, 256),      # ... chunk 256
 ])
 def test_ssd_scan_kernel_matches_plain(dev, dtype, b, t, h, p, n, chunk):
-    from repro_torch.kernels.ssd_scan import plain_ssd_scan, ssd_scan
+    from repro_torch.kernels.ssd_scan import (fwd_body, plain_ssd_scan,
+                                              ssd_scan)
     args = _ssd_inputs(dev, b, t, h, p, n, dtype, t + p)
-    n0 = ssd_scan.launches
+    n0, tc0 = ssd_scan.launches, ssd_scan.tc.launches
     y, s, enter = ssd_scan(*args, chunk=chunk, return_states=True)
     y2, s2 = ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_scan.launches == n0 + 2
+    tc = _tc_body(dtype, t, p, n, chunk)
+    assert ssd_scan.tc.launches == tc0 + 2 * tc
+    assert fwd_body(args[0], args[3], chunk) == ("tensor cores" if tc
+                                                 else "fma")
     ey, es, eenter = plain_ssd_scan(*args, chunk, return_states=True)
     for got, exp in ((y, ey), (s, es), (enter, eenter), (y2, ey), (s2, es)):
         _check_f32_out(got, exp)
+
+
+@pytest.mark.parametrize("n", [128, 64])
+@pytest.mark.parametrize("t", [256, 19, 300])
+def test_ssd_scan_is_bit_repeatable(dev, t, n):
+    """K6's tensor-core body writes every output element from one thread,
+    with no atomics: two runs agree bit for bit."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    args = _ssd_inputs(dev, 4, t, 8, 64, n, torch.bfloat16, 7)
+    tc0 = ssd_scan.tc.launches
+    one = ssd_scan(*args, chunk=128, return_states=True)
+    two = ssd_scan(*args, chunk=128, return_states=True)
+    assert ssd_scan.tc.launches == tc0 + 2
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
+
+
+def _ssd_f64(x, dt, A, Bm, Cm, q):
+    """The chunked SSD form (``plain_ssd_scan``'s) in f64, chunk ``q``
+    dividing T: (y, final state, entering states)."""
+    b, t, h, p = x.shape
+    n, nc = Bm.shape[-1], t // q
+    xc = x.double().reshape(b, nc, q, h, p)
+    dtc = dt.double().reshape(b, nc, q, h)
+    bc = Bm.double().reshape(b, nc, q, n)
+    cc = Cm.double().reshape(b, nc, q, n)
+    cum = torch.cumsum(dtc * A.double(), dim=2)
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    g = torch.exp(diff.masked_fill(~causal[:, :, None], float("-inf")))
+    w = torch.einsum("bcin,bcjn->bcij", cc, bc)[..., None] * g \
+        * dtc[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
+    s_chunk = torch.einsum("bcjh,bcjn,bcjhp->bchpn",
+                           torch.exp(cum[:, :, -1:] - cum) * dtc, bc, xc)
+    s = torch.zeros((b, h, p, n), dtype=torch.float64, device=x.device)
+    enter = []
+    for c in range(nc):
+        enter.append(s)
+        s = torch.exp(cum[:, c, -1])[:, :, None, None] * s + s_chunk[:, c]
+    enter = torch.stack(enter, 1)
+    y = y + torch.einsum("bcin,bchpn,bcih->bcihp", cc, enter, torch.exp(cum))
+    return y.reshape(b, t, h, p), s, enter
+
+
+@pytest.mark.parametrize("b,t,h,p,n", [(2, 256, 80, 64, 128),
+                                       (2, 256, 64, 64, 64),
+                                       (1, 512, 8, 64, 128)])
+def test_ssd_tc_body_error_within_twice_the_fma_body(dev, b, t, h, p, n):
+    """Against one f64 oracle on the same bf16 inputs (exact in f64), the
+    tensor-core body's largest error in y, the final state and the entering
+    states is no more than twice the FMA body's (f32 FMAs throughout)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    args = _ssd_inputs(dev, b, t, h, p, n, torch.bfloat16, t + n)
+    exp = _ssd_f64(*args, 128)
+    tc0 = ssd_scan.tc.launches
+    tc = ssd_scan(*args, chunk=128, return_states=True)
+    assert ssd_scan.tc.launches == tc0 + 1
+    fma = ssd_scan(*args, chunk=128, return_states=True, body="fma")
+    assert ssd_scan.tc.launches == tc0 + 1
+    for name, x, y, e in zip(("y", "s_final", "s_enter"), tc, fma, exp):
+        err_tc = (x.double() - e).abs().max().item()
+        err_fma = (y.double() - e).abs().max().item()
+        assert err_tc <= 2 * err_fma, (name, err_tc, err_fma)
 
 
 @pytest.mark.parametrize("dtype,b,t,h,p,n,chunk", [

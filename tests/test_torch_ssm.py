@@ -155,6 +155,74 @@ def test_plain_ssd_backward_matches_pallas(p):
         np.testing.assert_array_equal(got.numpy(), same.numpy())
 
 
+def _bf16_ssd_data(b, t, h, p, n, seed):
+    """``_ssd_data`` with x, B and C rounded to bf16: numpy arrays for the
+    JAX side, and the same values as torch tensors (bf16 x, B, C)."""
+    import ml_dtypes
+    data = list(_ssd_data(b, t, h, p, n, seed))
+    for i in (0, 3, 4):
+        data[i] = data[i].astype(ml_dtypes.bfloat16)
+    tdata = [torch.from_numpy(d.astype(np.float32)).to(torch.bfloat16)
+             if i in (0, 3, 4) else torch.from_numpy(d)
+             for i, d in enumerate(data)]
+    return data, tdata
+
+
+def _rel_err(got, exp):
+    """Max abs error as a fraction of the largest value of ``exp``."""
+    exp = np.asarray(exp, np.float32)
+    return float(np.abs(np.asarray(got, np.float32) - exp).max()
+                 / max(np.abs(exp).max(), 1e-30))
+
+
+# K6's tensor-core body splits W, S and x o din (f32) into bf16 terms. Its
+# CPU oracle with three terms agrees with the Pallas kernel (f32 inside) to
+# 2.5e-7 - 4.4e-7 of the largest value at these shapes, as the plain chunked
+# form does (f32 reordering): held at 2e-6, ~5x. With two terms the error
+# is 2.3e-6 - 4.1e-6, past that bar: why the body takes three.
+TILED_SSD_TOL = 2e-6
+
+
+@pytest.mark.parametrize("chunk,n,terms", [
+    (32, 64, 3), (64, 128, 3), (128, 64, 3),
+    (128, 128, 3),                 # mamba2-2.7b's SSD head and chunk
+    (128, 128, 2), (32, 64, 2),    # two terms: past the bar
+])
+def test_tiled_ssd_oracle_matches_pallas(chunk, n, terms):
+    """``ref.tiled_ssd_scan``, K6's tensor-core body's order of arithmetic,
+    against the Pallas ``ssd_scan`` in interpret mode on bf16 inputs (two
+    chunks, P 64): y, the final state and every entering state."""
+    data, tdata = _bf16_ssd_data(1, 2 * chunk, 2, 64, n, seed=chunk + n)
+    exp = j_ssd_scan(*map(jnp.asarray, data), chunk=chunk, interpret=True,
+                     return_states=True)
+    got = ref.tiled_ssd_scan(*tdata, chunk, terms=terms, return_states=True)
+    errs = [_rel_err(g, e) for g, e in zip(got, exp)]
+    for g, e in zip(got, exp):
+        assert g.dtype == torch.float32 and g.shape == e.shape
+    if terms == 3:
+        assert max(errs) <= TILED_SSD_TOL, errs
+    else:
+        three = ref.tiled_ssd_scan(*tdata, chunk, return_states=True)
+        errs3 = [_rel_err(g, e) for g, e in zip(three, exp)]
+        assert max(errs) > TILED_SSD_TOL, errs
+        assert max(errs) > 4 * max(errs3), (errs, errs3)
+
+
+@pytest.mark.parametrize("t", [300, 19, 12])
+def test_tiled_ssd_oracle_takes_a_short_last_chunk(t):
+    """The oracle on the kernels' chunk for T no multiple of 128 (a short
+    last chunk of zero steps; T 19 and 12, the env's, as one chunk of 32)
+    against the plain version, which the tests above hold against
+    Pallas."""
+    _, tdata = _bf16_ssd_data(2, t, 2, 64, 128, seed=t)
+    got = ref.tiled_ssd_scan(*tdata, 128, return_states=True)
+    exp = plain_ssd_scan(*tdata, 128, return_states=True)
+    assert got[2].shape[1] == -(-t // 128)
+    for g, e in zip(got, exp):
+        assert g.shape == e.shape
+        assert _rel_err(g, e) <= TILED_SSD_TOL
+
+
 @pytest.mark.parametrize("mode", ["pallas", "jnp"])
 def test_dispatch_ssd_grads_match_the_reference(mode):
     """The port's routed scan (plain on the CPU, through autograd) against

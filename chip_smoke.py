@@ -12,8 +12,10 @@ Phases, each printing one line of its numbers:
      (the bf16 bodies also against the kernels' own order of arithmetic, to
      within the output's rounding), K3 flash backward (timed as the
      wrapper's call and as its kernels' own device time), K4 fused policy
-     loss forward and backward (ragged, GQA; d 4096 and 2560; behaviour
-     log-probs live, ω mean above 0.5, and once stale), K5 the GIPO
+     loss forward and backward (ragged; d 4096, 2560 and 2048; behaviour
+     log-probs live, ω mean above 0.5, and once stale; the body that ran
+     printed; timed beside the unfused route of cuBLAS's product and K5),
+     K5 the GIPO
      loss over given logits, forward and backward (the reference tests'
      ragged shapes, the action head's N 224 x V 256 and
      benchmarks/fused_loss.py's FULL_SHAPES; the backward twice, bit for
@@ -33,13 +35,16 @@ Phases, each printing one line of its numbers:
   5. training: openvla-7b at full width and 8 of its 32 layers (bf16, random
      weights from a seed), three GIPO train steps (fused loss, grad_accum 2)
      on the kernel route, with launch counts proving every attention
-     backward ran on K3 and every loss on K4; every gradient leaf nonzero;
+     backward ran on K3 and every loss on K4's tensor-core body; every
+     gradient leaf nonzero;
      step 1's metrics and gradients (per leaf and layer) compared with the
      plain route's, on the dummy batch's stale behaviour log-probs and
      again on live ones (the plain route's own plus 0.1 noise, ω mean
      above 0.5); the three steps replayed on the plain route from the
      same seed and compared; the three steps once more on both routes with
-     live behaviour log-probs at every step (ω mean above 0.5 at each).
+     live behaviour log-probs at every step (ω mean above 0.5 at each); step
+     1 and steps 1-3 again on an f32 copy, the witness of the bf16 gaps,
+     each bf16 route's step 1 printed against it.
   6. mamba2-2.7b: phases 3-5 again for the ssm family: full depth (64
      layers) on 256-token prompts and on the toy env's 12-token prompts, K6
      on every layer of every prefill, the routes also compared on an f32
@@ -228,10 +233,26 @@ HYB_LEAF_BOUND = 0.15
 HYB_STEPS_BOUND = [dict.fromkeys(STEP_KEYS, 2e-2)] * 2 + [
     {"entropy": 0.15, "grad_norm": 0.15}]
 HYB_F32_BOUNDS = (1e-5, 5e-5, [dict.fromkeys(STEP_KEYS, 2e-4)] * 3)
+# The witness for openvla-7b's bf16 gaps (its stale step 1 read 1.26e-3
+# against ROUTE_BOUND after the Hopper K1/K3 bodies, 4.77e-4 before): step
+# 1 and steps 1-3 again on an f32 copy of the 8-layer model, both routes
+# checkpointing each layer, where they differ only in the order of f32 sums
+# (K1, K3 and K4 run their f32 FMA bodies). Step 1 set before its first
+# run as zamba2-1.2b's (1e-5, 5e-5), from the other witnesses' readings
+# (mamba2-2.7b 1.09e-6 over the metrics and 1.07e-5 per leaf and layer,
+# zamba2-1.2b 1.56e-6 and 8.0e-6). Measured on the H100: step 1 8.36e-7,
+# 3.6e-6 per leaf and layer; steps 1-3 8.2e-6 (step 3's grad norm). With
+# K4's dh planted 1e-3 too large (scripts/witness_fault.py) steps 1-3 read
+# 8.2e-4, 5.9e-4 and 4.3e-4 at most (each the grad norm), so steps 1-3
+# are held at 5e-5: ~6x the sound reading, ~9x below the fault's smallest
+# step. Each bf16 route's step 1 is also printed against the f32 copy's, to
+# tell rounding from a fault in the bf16 gap.
+OVLA_F32_BOUNDS = (1e-5, 5e-5, [dict.fromkeys(STEP_KEYS, 5e-5)] * 3)
 # kernel-name patterns that group a traced train step's device time
 TRACE_GROUPS = (("K1 flash fwd", ("flash_fwd",)),
                 ("K3 flash bwd", ("flash_bwd",)),
-                ("K4 policy loss", ("policy_rows", "policy_dw")),
+                ("K4 policy loss", ("policy_rows", "policy_cluster",
+                                    "policy_dw")),
                 ("K5 gipo head loss", ("gipo_head",)),
                 ("K6 ssd fwd", ("ssd_fwd",)),
                 ("K7 ssd bwd", ("ssd_bwd",)),
@@ -337,14 +358,50 @@ def phase_device():
     t0 = time.perf_counter()
     build.load()
     t_build = time.perf_counter() - t0
-    regs = [ln.strip() for ln in build.build_log.splitlines()
-            if "registers" in ln]
     print(f"[device] {name} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | count {torch.cuda.device_count()} | "
           f"kernel build {t_build:.1f} s")
-    for ln in regs:
+    for ln in _ptxas_kernels(build.build_log):
         print(f"[build] {ln}")
     return name, smi
+
+
+def _ptxas_kernels(log: str):
+    """One line a kernel from ptxas -v's output: its mangled name's
+    readable part, registers, stack frame and spills."""
+    import re
+    out, fn, frame = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        if "spill stores" in ln:
+            frame = ln.strip()
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            out.append(f"{_kernel_name(fn)}: {m.group(1)} registers | "
+                       f"{frame}")
+            fn, frame = None, ""
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled function and its template
+    arguments as mangled (``policy_cluster_kernel<Lb1E>``)."""
+    import re
+    i, name = 2 + (mangled[2:3] == "N"), mangled
+    while True:
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            break
+        n = int(m.group())
+        name = mangled[i + len(m.group()):i + len(m.group()) + n]
+        i += len(m.group()) + n
+    if mangled[i:i + 1] == "I":
+        name += "<" + mangled[i + 1:mangled.find("E", i) + 1] + ">"
+    return name
 
 
 def _time_flash(case, flush, *, lse: bool = False):
@@ -447,34 +504,52 @@ def _time_flash_bwd(case, flush):
 
 
 def _time_policy(case, flush):
-    """K4 forward and backward and their plain versions on one bf16 case.
-    No single PyTorch call computes the fused head + GIPO loss, so there is
-    no library time."""
+    """K4 forward and backward, their plain versions, and the unfused route
+    a user would otherwise write (cuBLAS's product to bf16 logits, then K5;
+    backward: the product, K5's backward and the two products of dh and
+    dw) on one bf16 case. No single PyTorch call computes the fused head +
+    GIPO loss, so there is no library time; the unfused route is the
+    yardstick of fusion. The body is "one body" for a K4 that has no
+    ``policy_body`` query (an older tree, timed by
+    scripts/time_policy_loss.py)."""
+    import torch
     from repro_torch.kernels import gipo_loss as gl
     args = [case[x] for x in ("h", "w", "tg", "lo", "ad", "mk")]
     coefs = case["coefs"]
-    n, d = args[0].shape
-    va = args[1].shape[1]
+    h, w, rows = args[0], args[1], args[2:]
+    n, d = h.shape
+    va = w.shape[1]
+    query = getattr(gl, "policy_body", None)
+    body = query(h, w) if query else "one body"
+
+    def unfused_fwd():
+        return gl.gipo_head_fwd(torch.matmul(h, w), *rows, 0.2)
+
+    def unfused_bwd():
+        dl = gl.gipo_head_bwd(torch.matmul(h, w), *rows, 0.2, coefs)
+        return torch.matmul(dl, w.T), torch.matmul(h.T, dl)
+    part_rows = gl.policy_loss_fwd(*args, 0.2).shape[0]
     out = {}
-    for tag, kern, plain, extra, nflop, outs in (
+    for tag, kern, plain, extra, nflop, outs, unfused in (
             ("fwd", gl.policy_loss_fwd, gl._plain_policy_loss_fwd, (),
-             2.0 * n * d * va, -(-n // gl.BLOCK_N) * 8 * 4),
+             2.0 * n * d * va, part_rows * 8 * 4, unfused_fwd),
             ("bwd", gl.policy_loss_bwd, gl._plain_policy_loss_bwd, (coefs,),
-             6.0 * n * d * va, _nbytes(args[0], args[1]))):
+             6.0 * n * d * va, _nbytes(h, w), unfused_bwd)):
         ms, host_ms = _median_ms(lambda: kern(*args, 0.2, *extra),
                                  flush=flush)
         plain_ms, _ = _median_ms(lambda: plain(*args, 0.2, *extra),
                                  flush=flush)
+        unfused_ms, _ = _median_ms(unfused, flush=flush)
         bound_ms, bound_by = _bound(_nbytes(*args, *extra) + outs, nflop,
                                     "bfloat16")
         shape = f"N={n} d={d} Va={va} bf16"
-        print(f"[kernels] policy_loss_{tag} {shape}: kernel {ms:.4f} ms | "
-              f"plain {plain_ms:.4f} ms | library none | bound "
-              f"{bound_ms:.4f} ms ({bound_by}) | host enqueue "
-              f"{host_ms:.4f} ms")
+        print(f"[kernels] policy_loss_{tag} {shape}: kernel {ms:.4f} ms "
+              f"({body}) | plain {plain_ms:.4f} ms | unfused cuBLAS + K5 "
+              f"{unfused_ms:.4f} ms | library none | bound {bound_ms:.4f} ms "
+              f"({bound_by}) | host enqueue {host_ms:.4f} ms")
         out[tag] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=None)
+                        library_ms=None, unfused_ms=unfused_ms, body=body)
     return out
 
 
@@ -683,7 +758,8 @@ def phase_kernels(dev):
     k4 = {}
     for (n, d, va, stale) in [(224, 4096, 256, False),
                               (3584, 4096, 256, False),
-                              (224, 2560, 256, False), (300, 64, 48, False),
+                              (224, 2560, 256, False),
+                              (224, 2048, 256, False), (300, 64, 48, False),
                               (37, 128, 128, False), (224, 4096, 256, True)]:
         for dtype in (torch.float32, torch.bfloat16):
             c = _policy_case(gen, dev, n, d, va, dtype, stale=stale)
@@ -710,16 +786,18 @@ def phase_kernels(dev):
                    for nm, x, y in (("dh", dh, edh), ("dw", dw, edw))]
             if not (torch.equal(dh, dh2) and torch.equal(dw, dw2)):
                 raise AssertionError(f"{tag}: two backward runs differ")
-            print(f"[kernels] {tag}: omega mean {omega:.3f} | forward rel "
+            print(f"[kernels] {tag} ({gl.policy_body(c['h'], c['w'])}): "
+                  f"omega mean {omega:.3f} | forward rel "
                   f"err {ferr:.3e} | max abs err dh {res[0][0]:.3e} dw "
                   f"{res[1][0]:.3e} | beyond the bar's rounding term, of the "
                   f"largest value: {max(r[1] for r in res):.3e} | two runs "
                   f"equal")
-            if dtype == torch.bfloat16 and d in (4096, 2560) and not stale:
+            if dtype == torch.bfloat16 and d >= 2048 and not stale:
                 k4[n, d] = dict(c, err=max([ferr] + [r[0] for r in res]))
             del c, args, dh, dw, dh2, dw2, edh, edw
-    t224, t3584, t2560 = (_time_policy(k4[key], flush) for key in
-                          ((224, 4096), (3584, 4096), (224, 2560)))
+    t224, t3584, t2560, t2048 = (_time_policy(k4[key], flush) for key in
+                                 ((224, 4096), (3584, 4096), (224, 2560),
+                                  (224, 2048)))
     for tag in ("fwd", "bwd"):
         entries.append(dict(
             name=f"fused_policy_loss_{tag}", route="cuda",
@@ -727,7 +805,8 @@ def phase_kernels(dev):
             replaces=("src/repro/kernels/gipo_loss.py:301" if tag == "fwd"
                       else "src/repro/kernels/gipo_loss.py:312"),
             launches=None, max_abs_err=max(v["err"] for v in k4.values()),
-            **t224[tag], large_batch=t3584[tag], mamba2_width=t2560[tag]))
+            **t224[tag], large_batch=t3584[tag], mamba2_width=t2560[tag],
+            zamba2_width=t2048[tag]))
     del k4
     entries += _gipo_head_kernels(gen, dev, flush)
     z = _zamba2_attention(gen, dev, flush)
@@ -1438,10 +1517,11 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
     recomputed in the backward: the kernel route's forward kernels launch
     again there), ``plain_remat`` on the plain route only, where its saved
     activations would not fit beside the kernel route's gradients.
-    ``f32_witness``: (chunk, bounds as ``bounds``) to run step 1 and steps
-    1-3 again on an f32 copy of the model, both routes checkpointing each
-    layer. ``live_bounds``: bounds as ``bounds[:2]`` for one more step-1
-    comparison whose behaviour log-probs are live (``_live_behaviour``),
+    ``f32_witness``: (SSD chunk or None, bounds as ``bounds``) to run step
+    1 and steps 1-3 again on an f32 copy of the model, both routes
+    checkpointing each layer. ``live_bounds``: bounds as ``bounds[:2]``
+    for one more step-1 comparison whose behaviour log-probs are live
+    (``_live_behaviour``),
     with ω's mean held above 0.5. Then steps 1-3 run once more from seed 0
     on both routes with live behaviour log-probs at every step, ω's mean
     held above 0.5 at each, compared within LIVE_STEPS_BOUND. A bf16 steps
@@ -1475,14 +1555,16 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
           f" B parameters, state on the card in "
           f"{time.perf_counter() - t0:.1f} s | allocated "
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
-    m_kernel = _compare_step1(f"{arch} bf16", cfg, rl, state, batch,
-                              (remat, remat or plain_remat), bounds[:2])
+    m_kernel, m_plain = _compare_step1(f"{arch} bf16", cfg, rl, state,
+                                       batch, (remat, remat or plain_remat),
+                                       bounds[:2])
     if live_bounds is not None:
         live = batch._replace(
             behavior_logp=_live_behaviour(cfg, state.params, batch))
-        m_live = _compare_step1(f"{arch} bf16, live behaviour log-probs",
-                                cfg, rl, state, live,
-                                (remat, remat or plain_remat), live_bounds)
+        m_live, _ = _compare_step1(f"{arch} bf16, live behaviour "
+                                   f"log-probs", cfg, rl, state, live,
+                                   (remat, remat or plain_remat),
+                                   live_bounds)
         omega = m_live["omega_mean"].item()
         print(f"[train] {arch} live behaviour log-probs: omega mean "
               f"{omega:.3f}, pg {m_live['pg_loss'].item():.5f}, kl "
@@ -1591,7 +1673,8 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
     except AssertionError as e:
         failures.append(str(e))
     if f32_witness is not None:
-        _train_f32_witness(dev, cfg, rl, np_batch, *f32_witness)
+        _train_f32_witness(dev, cfg, rl, np_batch, *f32_witness,
+                           bf16_step1=(m_kernel, m_plain))
     return totals
 
 
@@ -1641,8 +1724,8 @@ def _compare_step1(label, cfg, rl, state, batch, remat, bounds):
     leaf nonzero on the kernel route; the gradients per leaf and layer
     within ``bounds[1]`` for every leaf the kernels' backward reaches, the
     value head's printed beside its input's difference; the loss, every
-    metric and the grad norm within ``bounds[0]``. Returns the kernel
-    route's metrics."""
+    metric and the grad norm within ``bounds[0]``. Returns both routes'
+    metrics (kernel, plain)."""
     import torch
     from repro_torch.tree import tree_leaves_with_path
     route_bound, leaf_bound = bounds
@@ -1684,7 +1767,7 @@ def _compare_step1(label, cfg, rl, state, batch, remat, bounds):
     if not worst <= route_bound:
         raise AssertionError(f"{label} step 1 routes differ: {worst_key} by "
                              f"{worst}")
-    return m_kernel
+    return m_kernel, m_plain
 
 
 def _worst_rel(got, exp, label):
@@ -1763,23 +1846,41 @@ def _compare_steps(label, hist_kernel, hist_plain, steps_bound):
                              f"{over}")
 
 
-def _train_f32_witness(dev, cfg, rl, np_batch, chunk, bounds):
+def _train_f32_witness(dev, cfg, rl, np_batch, chunk, bounds, *,
+                       bf16_step1=None):
     """Step 1 and steps 1-3 of ``cfg`` again on an f32 copy (the same seed,
     drawn in f32), both routes checkpointing each layer, at SSD chunk
-    ``chunk``: both routes compute the same function, so what separates
-    them in bf16 and not here is rounding. ``bounds`` as phase_train's."""
+    ``chunk`` (None: no SSM): both routes compute the same function, so
+    what separates them in bf16 and not here is rounding. ``bounds`` as
+    phase_train's. ``bf16_step1``: the bf16 routes' step-1 metrics (kernel,
+    plain), each printed against the f32 copy's kernel route."""
     import dataclasses
     import torch
     from repro_torch.bridge import batch_from_numpy
     from repro_torch.core import train_step as ts
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32",
-                                ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
-    label = f"{cfg.name} f32 copy (chunk {chunk})"
+                                compute_dtype="float32")
+    label = f"{cfg.name} f32 copy"
+    if chunk is not None:
+        cfg32 = dataclasses.replace(
+            cfg32, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+        label += f" (chunk {chunk})"
     torch.cuda.reset_peak_memory_stats(dev)
     state = ts.init_train_state(cfg32, 0, device=dev)
     batch = batch_from_numpy(np_batch, device=dev)
-    _compare_step1(label, cfg32, rl, state, batch, (True, True), bounds[:2])
+    m32, _ = _compare_step1(label, cfg32, rl, state, batch, (True, True),
+                            bounds[:2])
+    if bf16_step1 is not None:
+        rows = []
+        for route, m16 in zip(("kernel", "plain"), bf16_step1):
+            worst, key = _worst_rel(m16, m32, f"{label} vs bf16 {route}")
+            gn = abs(float(m16["grad_norm"]) - float(m32["grad_norm"])) \
+                / max(abs(float(m32["grad_norm"])), ROUTE_FLOOR)
+            rows.append(f"bf16 {route} route {worst:.3e} ({key}), grad norm "
+                        f"{gn:.3e}")
+        print(f"[train] {cfg.name} step 1, each bf16 route against the f32 "
+              f"copy's kernel route (max rel diff over loss, metrics and "
+              f"grad norm; printed): {' | '.join(rows)}")
     del state, batch
     torch.cuda.empty_cache()
     hist = {mode: _run_steps(dev, cfg32, rl, np_batch, mode, remat=True)[0]
@@ -2082,13 +2183,20 @@ def main() -> int:
                 "gipo_head_loss_fwd": gl.gipo_head_fwd,
                 "gipo_head_loss_bwd": gl.gipo_head_bwd,
                 "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
-                "ssd_scan tensor-core body": ssd_scan.tc}
+                "ssd_scan tensor-core body": ssd_scan.tc,
+                "fused_policy_loss_fwd tensor-core body":
+                    gl.policy_loss_fwd.tc,
+                "fused_policy_loss_bwd tensor-core body":
+                    gl.policy_loss_bwd.tc}
 
     def counting(**per):
         """Every wrapper, with the launches a path should make (0 for the
-        kernels it does not run). Every K6 launch of a counted path is bf16
-        at a shape K6's tensor-core body takes, so it runs that body."""
-        per.setdefault("ssd_scan tensor-core body", per.get("ssd_scan", 0))
+        kernels it does not run). Every K6 and K4 launch of a counted path
+        is bf16 at a shape the kernel's tensor-core body takes, so it runs
+        that body."""
+        for k in ("ssd_scan", "fused_policy_loss_fwd",
+                  "fused_policy_loss_bwd"):
+            per.setdefault(f"{k} tensor-core body", per.get(k, 0))
         return {k: (fn, per.get(k, 0)) for k, fn in wrappers.items()}
 
     name, _ = phase_device()
@@ -2115,7 +2223,8 @@ def main() -> int:
                  flash_attention_bwd=TRAIN_LAYERS * ga,
                  fused_policy_loss_fwd=ga, fused_policy_loss_bwd=ga),
         (ROUTE_BOUND, LEAF_BOUND, STEPS_BOUND), failures,
-        live_bounds=(LIVE_ROUTE_BOUND, LIVE_LEAF_BOUND))
+        live_bounds=(LIVE_ROUTE_BOUND, LIVE_LEAF_BOUND),
+        f32_witness=(None, OVLA_F32_BOUNDS))
     torch.cuda.empty_cache()
 
     # mamba2-2.7b: serving (full depth, T = 256) and training (16 layers)
@@ -2197,9 +2306,10 @@ def main() -> int:
         e["launches"] = sum(e["launches_by_path"].values())
         if not e["launches"]:
             raise AssertionError(f"{e['name']}: no launch on any main path")
-        if e["name"] == "ssd_scan":
+        if e["name"] in ("ssd_scan", "fused_policy_loss_fwd",
+                         "fused_policy_loss_bwd"):
             e["tensor_core_launches"] = sum(
-                n["ssd_scan tensor-core body"] for n in by_path.values())
+                n[f"{e['name']} tensor-core body"] for n in by_path.values())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,41 +9,64 @@
 // `_policy_fwd_kernel` and `_policy_bwd_kernel` behind `fused_policy_loss`.
 // hidden [N,d] (f32 or bf16), w [d,Va] (same dtype), targets i32 [N],
 // logp_old / adv / mask f32 [N].
-//   forward:  per block of BN token rows, logits = hidden . w in f32, row
-//             log-softmax, target gather, trust weight w (eq. 5, constant),
-//             surrogate (eq. 6), entropy, k3-KL, stale flag -> one row of the
-//             8 partial-sum columns (N_COLS in kernels/gipo_loss.py).
-//   backward: the block's logits again, then d = _block_dlogits(...) with the
+//   forward:  logits = hidden . w in f32, row log-softmax, target gather,
+//             trust weight w (eq. 5, constant), surrogate (eq. 6), entropy,
+//             k3-KL, stale flag -> rows of the 8 partial-sum columns (N_COLS
+//             in kernels/gipo_loss.py), each a sum over a few token rows.
+//   backward: the logits again, then d = _block_dlogits(...) with the
 //             coefficient row (c_pg, c_kl, c_ent); dh = d . w^T in hidden's
-//             dtype; dw = sum_n h^T . d in f32.
+//             dtype; dw = sum_n h^T . d in w's dtype (summed in f32 and
+//             rounded once, as the reference).
 // Rows >= N take mask 0 and are never stored (the reference's
 // `_zero_mask_pad`); nothing is padded on the host.
 //
-// What bounds it on the H100, at the training slice's shapes (d = 4096,
-// Va = 256, bf16): the forward reads hidden and w once (N = 224: 3.9 MB,
+// What bounds it on the H100, at the training slice's shapes (N = 224 rows,
+// d = 4096, Va = 256, bf16): the forward reads hidden and w once (3.9 MB,
 // ~1.2 us at 3.35 TB/s, against 0.47 GFLOP, ~0.5 us at 989 TFLOP/s), so it
 // is memory-bound; the backward does three products of that size and reads
 // hidden, w and writes dh, so it too is memory-bound at N = 224 and close to
-// balanced at N = 3584.
+// balanced at N = 3584. At N = 224 that is too little work for one CTA per
+// block of rows (14 CTAs on 132 SMs): the work has to be split over d.
 //
-// Design. One CTA of 256 threads per BN = 16 token rows; a row's Va <= 256
-// logits stay in shared memory, so no [N, Va] tensor is written by the
-// forward. bf16 with d % 32 == 0 and Va % 64 == 0 (the main path) forms the
-// logits on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate;
-// each of the 8 warps owns Va / 8 columns of the 16-row tile, w's fragments
-// come transposed through ldmatrix as V's do in flash_attention.cu, and the
-// next k step's tiles are loaded into registers while this one's products
-// run); f32,
-// and other bf16 widths, use f32 FMAs. The row math is one warp per row.
-// In the backward, d stays f32 and both products run as f32 FMAs (d is not
-// rounded to bf16 for the tensor cores, as the reference keeps it f32).
-// The TPU accumulated dw across its sequential grid; CUDA CTAs run in
-// parallel, so the backward is two kernels: the row kernel writes dh and d
-// (f32 [N, Va], 1/8 of hidden's bytes at d = 4096), then a column kernel
-// tiles dw 64 x 64 and loops over all N inside the CTA. No atomics: every
-// output element is summed by one thread in a fixed order, so two runs
-// agree bit for bit. Tensor-core dh / dw, and a split over d so that small
-// N fills the card, are later work.
+// Tensor-core body (bf16, any d). A cluster of CS CTAs (16 at d >= 256;
+// non-portable above 8) takes a tile of TM = 32 token rows, rank r a slice
+// of `slice` (d / CS rounded up to 16) rows of d: grid (CS, ceil(N / 32)),
+// 112 CTAs at N = 224. TMA brings the rank's slice of w (Va <= 256 columns,
+// 128 KB at d = 4096) and of the tile's hidden rows in groups of 64 rows of
+// d (boxes with 128-byte swizzle, zeros past N, d and Va) into four slots,
+// one mbarrier a slot, each group's products starting as it lands (past d
+// 4096 the later groups stream through the slots as they free); the
+// rank forms its partial f32 logits tile [32, Va] on the tensor cores
+// (mma.sync m16n8k16, bf16 x bf16 products exact, chained through the
+// accumulators over the slice). Each rank sends row m of its tile to rank
+// m / (32 / CS) through distributed shared memory; after a cluster barrier
+// rank r sums the rows it received in rank order, and runs the row math
+// (one warp a row); the forward writes one partial row per CTA. The
+// backward keeps going in the same launch: each rank writes d for its rows
+// (f32, to shared memory and to an [N, Va] scratch), sends them to every
+// rank, and after a second barrier forms dh[rows, its slice] = d .
+// w[slice]^T from the w slice still in shared memory (past d 4096, four
+// groups at a time, reloading those the slots no longer hold), d in three
+// bf16 terms (hi, mid, lo: ~24 bits, so every product is exact), the three
+// products of a k16 step summed from zero and added in f32 (a chain through
+// the accumulators would round toward zero at every step). A split over d
+// needs no reduction for dh. Then dw = sum_n h^T . d is a second kernel,
+// launched as the first one's dependent (programmatic dependent launch): a
+// CTA takes 64 rows of dw x 64 columns of Va and walks all N rows in order,
+// 64 at a time, through a TMA ring of three stages, hidden's rows
+// transposed by ldmatrix.trans and d in three bf16 terms on the tensor
+// cores (each k16 step from zero, added in f32), and writes dw in w's
+// dtype. No atomics: every output element is summed by one thread in a
+// fixed order, so two runs agree bit for bit. The order of arithmetic is
+// kernels/ref.py::tiled_policy_loss with the rank's slice. What holds it back
+// (PERF.md section 6): at N = 224 the launch, the two cluster barriers and
+// the row math cost as much as the loads, and the three-term products of
+// dh and dw run at about half of mma.sync's rate.
+//
+// FMA body (f32: the f32 witnesses). One CTA of 256 threads per BN = 16
+// token rows; a row's Va <= 256 logits stay in shared memory. Logits, dh
+// and dw as f32 FMAs; the row kernel writes dh and d (f32 [N, Va]), then a
+// column kernel tiles dw 64 x 64 and loops over all N inside the CTA.
 //
 // ---- K5 -------------------------------------------------------------------
 // Replaces `_gipo_fwd_kernel` and `_gipo_bwd_kernel` behind the reference's
@@ -70,14 +93,17 @@
 // its own rows of d_logits, and reruns agree bit for bit.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BN = 16;          // token rows per CTA
+namespace hp = repro::hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int BN = 16;          // token rows per CTA of the FMA body
 constexpr int NT = 256;         // threads per CTA (8 warps)
 constexpr int MAX_V = 256;      // a row's logits fit the CTA
 constexpr int LSTR = MAX_V + 4; // shared row stride of the logits tile
-constexpr int MMA_KT = 32;      // k step of the tensor-core body
 constexpr int FMA_KT = 16;      // k step of the FMA body
 
 // ---- per-row GIPO terms shared by K4 and K5 --------------------------------
@@ -128,112 +154,55 @@ __device__ __forceinline__ float dlogit(float sh, float lse, float ent,
   return g * ((is_tgt ? 1.f : 0.f) - p) + ce * (-(p * ((sh - lse) + ent)));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-
-// logits of rows [n0, n0 + BN) into Ls[BN][LSTR], tensor-core body.
-// NT8 = n8 tiles per warp = Va / 64.
-template <int NT8>
-__device__ void block_logits_mma(const __nv_bfloat16* __restrict__ h,
-                                 const __nv_bfloat16* __restrict__ w,
-                                 float* Ls, int n0, int N, int D, int V) {
-  constexpr int HS = MMA_KT + 8;     // padded rows: conflict-free fragments
-  const int WS = V + 8;
-  __shared__ __align__(16) __nv_bfloat16 Hs[BN * HS];
-  __shared__ __align__(16) __nv_bfloat16 Ws[MMA_KT * (MAX_V + 8)];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int col0 = warp * NT8 * 8;
-  float acc[NT8][4];
-#pragma unroll
-  for (int n = 0; n < NT8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  // the next k step's tiles are loaded into registers while this one's
-  // products run
-  constexpr int W_LOADS = MMA_KT * (MAX_V / 8) / NT;
-  const int hr = tid / (MMA_KT / 8), hc = (tid % (MMA_KT / 8)) * 8;
-  uint4 hreg = make_uint4(0u, 0u, 0u, 0u);
-  uint4 wreg[W_LOADS];
-  auto fetch = [&](int k0) {
-    if (tid < BN * MMA_KT / 8 && n0 + hr < N)
-      hreg = *reinterpret_cast<const uint4*>(h + (long)(n0 + hr) * D + k0 +
-                                             hc);
-#pragma unroll
-    for (int i = 0; i < W_LOADS; ++i) {
-      const int idx = tid + i * NT;
-      if (idx < MMA_KT * (V / 8))
-        wreg[i] = *reinterpret_cast<const uint4*>(
-            w + (long)(k0 + idx / (V / 8)) * V + (idx % (V / 8)) * 8);
-    }
-  };
-  fetch(0);
-  for (int k0 = 0; k0 < D; k0 += MMA_KT) {
-    if (tid < BN * MMA_KT / 8)
-      *reinterpret_cast<uint4*>(&Hs[hr * HS + hc]) = hreg;
-#pragma unroll
-    for (int i = 0; i < W_LOADS; ++i) {
-      const int idx = tid + i * NT;
-      if (idx < MMA_KT * (V / 8))
-        *reinterpret_cast<uint4*>(
-            &Ws[(idx / (V / 8)) * WS + (idx % (V / 8)) * 8]) = wreg[i];
-    }
-    __syncthreads();
-    if (k0 + MMA_KT < D) fetch(k0 + MMA_KT);
-#pragma unroll
-    for (int kk = 0; kk < MMA_KT / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      uint32_t a[4];
-      a[0] = ld32(&Hs[g * HS + c]);
-      a[1] = ld32(&Hs[(g + 8) * HS + c]);
-      a[2] = ld32(&Hs[g * HS + c + 8]);
-      a[3] = ld32(&Hs[(g + 8) * HS + c + 8]);
-#pragma unroll
-      for (int n = 0; n < NT8; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1,
-                          &Ws[(kk * 16 + lane % 16) * WS + col0 + n * 8]);
-        mma_bf16(acc[n], a, b0, b1);
-      }
-    }
-    __syncthreads();
+// K4's row math, one warp on token row n, whose logits L[0, V) (f32) are in
+// shared memory: log-softmax, the target's log-prob and the row terms, with
+// the row's operands (target, logp_old, advantage, mask; -1, 0, 0, 0 past
+// N). Forward: lane 0 writes the row's 8 partial columns to `out`.
+// Backward: d over L in place, and into dlogits [N, V] if the row is valid.
+template <bool BWD>
+__device__ __forceinline__ void row_loss(float* L, int V, int n, int N,
+                                         int tgt, float lo, float ad,
+                                         float m, const float* coefs,
+                                         float sigma, float* out,
+                                         float* __restrict__ dlogits) {
+  const int lane = threadIdx.x % 32;
+  float mx = -INFINITY;
+  for (int c = lane; c < V; c += 32) mx = fmaxf(mx, L[c]);
+  mx = repro::warp_max(mx);
+  float se = 0.f;
+  for (int c = lane; c < V; c += 32) se += expf(L[c] - mx);
+  se = repro::warp_sum(se);
+  const float lse = logf(se);
+  float ts = 0.f, plp = 0.f;
+  for (int c = lane; c < V; c += 32) {
+    const float sh = L[c] - mx;
+    if (c == tgt) ts = sh;
+    const float p = expf(sh) / se;
+    plp += p * (sh - lse);
   }
-#pragma unroll
-  for (int n = 0; n < NT8; ++n) {
-    const int c = col0 + n * 8 + 2 * t;
-    Ls[g * LSTR + c] = acc[n][0];
-    Ls[g * LSTR + c + 1] = acc[n][1];
-    Ls[(g + 8) * LSTR + c] = acc[n][2];
-    Ls[(g + 8) * LSTR + c + 1] = acc[n][3];
+  ts = repro::warp_sum(ts);
+  const float ent = -repro::warp_sum(plp);
+  const RowTerms t = row_terms(ts - lse, lo, ad, sigma);
+  if constexpr (!BWD) {
+    if (lane == 0) row_partials(out, t, ent, m, sigma);
+  } else {
+    const float g = row_g(t, coefs, m);
+    const float ce = coefs[2] * m;
+    for (int c = lane; c < V; c += 32) {
+      const float d = dlogit(L[c] - mx, lse, ent, se, c == tgt, g, ce);
+      L[c] = d;
+      if (n < N) dlogits[(long)n * V + c] = d;
+    }
   }
 }
+
+// ---- K4, FMA body -----------------------------------------------------------
 
 // logits of rows [n0, n0 + BN) into Ls, f32 FMA body (any d, Va <= 256).
 // Warp w owns rows 2w and 2w + 1; lane owns columns lane + 32 j.
-template <typename T>
-__device__ void block_logits_fma(const T* __restrict__ h,
-                                 const T* __restrict__ w, float* Ls, int n0,
-                                 int N, int D, int V) {
+__device__ void block_logits_fma(const float* __restrict__ h,
+                                 const float* __restrict__ w, float* Ls,
+                                 int n0, int N, int D, int V) {
   __shared__ float Hs[BN][FMA_KT];
   __shared__ float Ws[FMA_KT][MAX_V];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -247,12 +216,12 @@ __device__ void block_logits_fma(const T* __restrict__ h,
     {
       const int r = tid / FMA_KT, c = tid % FMA_KT;   // BN * FMA_KT == NT
       Hs[r][c] = (n0 + r < N && k0 + c < D)
-                     ? repro::to_f(h[(long)(n0 + r) * D + k0 + c])
+                     ? h[(long)(n0 + r) * D + k0 + c]
                      : 0.f;
     }
     for (int idx = tid; idx < FMA_KT * V; idx += NT) {
       const int r = idx / V, c = idx % V;
-      Ws[r][c] = k0 + r < D ? repro::to_f(w[(long)(k0 + r) * V + c]) : 0.f;
+      Ws[r][c] = k0 + r < D ? w[(long)(k0 + r) * V + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -279,68 +248,33 @@ __device__ void block_logits_fma(const T* __restrict__ h,
 }
 
 // Forward (BWD = false): per-block partial sums. Backward (BWD = true): d
-// into Ls and dlogits, then dh. NT8 = 0 selects the FMA logits body.
-template <typename T, int NT8, bool BWD>
+// into Ls and dlogits, then dh.
+template <bool BWD>
 __global__ void __launch_bounds__(NT)
-policy_rows_kernel(const T* __restrict__ h, const T* __restrict__ w,
+policy_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
                    const int* __restrict__ targets,
                    const float* __restrict__ logp_old,
                    const float* __restrict__ adv,
                    const float* __restrict__ mask,
                    const float* __restrict__ coefs,
-                   float* __restrict__ partials, T* __restrict__ dh,
+                   float* __restrict__ partials, float* __restrict__ dh,
                    float* __restrict__ dlogits, int N, int D, int V,
                    float sigma) {
   __shared__ __align__(16) float Ls[BN * LSTR];
   __shared__ float rowv[BN][8];
   const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32;
 
-  if constexpr (NT8 > 0) {
-    block_logits_mma<NT8>(h, w, Ls, n0, N, D, V);
-  } else {
-    block_logits_fma<T>(h, w, Ls, n0, N, D, V);
-  }
+  block_logits_fma(h, w, Ls, n0, N, D, V);
   __syncthreads();
-
   // row math: warp w owns rows 2w and 2w + 1
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    const int r = 2 * warp + rr;
-    const int n = n0 + r;
-    const bool valid = n < N;
-    float* L = Ls + r * LSTR;
-    float mx = -INFINITY;
-    for (int c = lane; c < V; c += 32) mx = fmaxf(mx, L[c]);
-    mx = repro::warp_max(mx);
-    float se = 0.f;
-    for (int c = lane; c < V; c += 32) se += expf(L[c] - mx);
-    se = repro::warp_sum(se);
-    const float lse = logf(se);
-    const int tgt = valid ? targets[n] : -1;
-    float ts = 0.f, plp = 0.f;
-    for (int c = lane; c < V; c += 32) {
-      const float sh = L[c] - mx;
-      if (c == tgt) ts = sh;
-      const float p = expf(sh) / se;
-      plp += p * (sh - lse);
-    }
-    ts = repro::warp_sum(ts);
-    const float ent = -repro::warp_sum(plp);
-    const float m = valid ? mask[n] : 0.f;
-    const RowTerms t = row_terms(ts - lse, valid ? logp_old[n] : 0.f,
-                                 valid ? adv[n] : 0.f, sigma);
-    if constexpr (!BWD) {
-      if (lane == 0) row_partials(rowv[r], t, ent, m, sigma);
-    } else {
-      const float g = row_g(t, coefs, m);
-      const float ce = coefs[2] * m;
-      for (int c = lane; c < V; c += 32) {
-        const float d = dlogit(L[c] - mx, lse, ent, se, c == tgt, g, ce);
-        L[c] = d;
-        if (valid) dlogits[(long)n * V + c] = d;
-      }
-    }
+    const int r = 2 * warp + rr, n = n0 + r;
+    const bool ok = n < N;
+    row_loss<BWD>(Ls + r * LSTR, V, n, N, ok ? targets[n] : -1,
+                  ok ? logp_old[n] : 0.f, ok ? adv[n] : 0.f,
+                  ok ? mask[n] : 0.f, coefs, sigma, rowv[r], dlogits);
   }
   __syncthreads();
 
@@ -357,7 +291,7 @@ policy_rows_kernel(const T* __restrict__ h, const T* __restrict__ w,
       float acc[BN];
 #pragma unroll
       for (int r = 0; r < BN; ++r) acc[r] = 0.f;
-      const T* wr = w + (long)j * V;
+      const float* wr = w + (long)j * V;
       for (int v0 = 0; v0 < V; v0 += 8) {
         float wv[8];
         repro::load8(wr + v0, wv);
@@ -380,20 +314,20 @@ policy_rows_kernel(const T* __restrict__ h, const T* __restrict__ w,
       }
 #pragma unroll
       for (int r = 0; r < BN; ++r)
-        if (r < rows) dh[(long)(n0 + r) * D + j] = repro::from_f<T>(acc[r]);
+        if (r < rows) dh[(long)(n0 + r) * D + j] = acc[r];
     }
   }
 }
 
-// dw [D, V] f32 = sum_n h[n]^T d[n]: one CTA per 64 x 64 tile of dw, looping
-// over all N rows in a fixed order (no atomics).
+// dw [D, V] f32 = sum_n h[n]^T d[n], f32 inputs: one CTA per 64 x 64 tile
+// of dw, looping over all N rows in a fixed order (no atomics).
 constexpr int DW_T = 64;
 constexpr int DW_K = 32;
 
-template <typename T>
 __global__ void __launch_bounds__(NT)
-policy_dw_kernel(const T* __restrict__ h, const float* __restrict__ dlogits,
-                 float* __restrict__ dw, int N, int D, int V) {
+policy_dw_kernel(const float* __restrict__ h,
+                 const float* __restrict__ dlogits, float* __restrict__ dw,
+                 int N, int D, int V) {
   __shared__ __align__(16) float Hs[DW_K][DW_T + 4];
   __shared__ __align__(16) float Ds[DW_K][DW_T + 4];
   const int j0 = blockIdx.x * DW_T, v0 = blockIdx.y * DW_T;
@@ -447,18 +381,513 @@ policy_dw_kernel(const T* __restrict__ h, const float* __restrict__ dlogits,
   }
 }
 
-template <typename T, int NT8, bool BWD>
-int launch_rows(const void* h, const void* w, const void* targets,
-                const void* logp_old, const void* adv, const void* mask,
-                const void* coefs, void* partials, void* dh, void* dlogits,
-                int N, int D, int V, float sigma, cudaStream_t st) {
-  const int nb = (N + BN - 1) / BN;
-  policy_rows_kernel<T, NT8, BWD><<<nb, NT, 0, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w),
-      static_cast<const int*>(targets), static_cast<const float*>(logp_old),
-      static_cast<const float*>(adv), static_cast<const float*>(mask),
-      static_cast<const float*>(coefs), static_cast<float*>(partials),
-      static_cast<T*>(dh), static_cast<float*>(dlogits), N, D, V, sigma);
+// ---- K4, tensor-core body ---------------------------------------------------
+
+constexpr int TM = 32;            // token rows of a cluster's tile
+constexpr int MAX_CLUSTER = 16;   // ranks along d
+constexpr int KG = 64;            // d rows of one TMA box, and of a group
+constexpr int SLOTS = 4;          // groups of w a rank holds at once
+constexpr int WIN = SLOTS * KG;   // 256 d rows: the slice whole to d 4096
+
+// How a (D, V) problem splits over a cluster, and a rank's shared memory
+// (from a 1024-byte boundary). Rank r takes rows [r slice, (r + 1) slice)
+// of d, `sp` = slice rounded up to ng groups of 64; group g lives in slot
+// g % SLOTS, so a slice of up to 4 groups stays whole and a longer one
+// streams through the slots. Per slot: w's rows x Va in column chunks of 64
+// (chunk c at c * wr * 128; boxes of 64 x 64, 128-byte swizzle), and the
+// tile's hidden columns [TM][64] (rows of d past the slice belong to the
+// next rank and are never read); then the partial logits rows every rank
+// sends this one [cs][rpr][PS] f32, this rank's rows of logits and then d
+// [rpr][PS] f32, (backward) the tile's d gathered from every rank [TM][PS]
+// f32, the rows' operands and partial columns, one mbarrier a slot.
+struct ClusterPlan {
+  int cs, slice, sp, ng, wr, vp, vc, rpr, ps;
+  size_t o_h, o_r, o_l, o_d, o_op, o_bar, bytes;
+};
+
+__host__ __device__ inline ClusterPlan cluster_plan(int D, int V, bool bwd) {
+  ClusterPlan p;
+  p.cs = MAX_CLUSTER;
+  while (p.cs > 1 && p.cs * 16 > D) p.cs /= 2;
+  p.slice = ((D + p.cs - 1) / p.cs + 15) / 16 * 16;
+  p.sp = (p.slice + KG - 1) / KG * KG;
+  p.ng = p.sp / KG;
+  p.wr = min(p.sp, WIN);
+  p.vp = (V + 15) / 16 * 16;
+  p.vc = (V + 63) / 64;
+  p.rpr = TM / p.cs;
+  p.ps = p.vp + 8;      // +32 bytes a row: float2 rows on distinct banks
+  p.o_h = (size_t)p.vc * p.wr * 128;
+  p.o_r = p.o_h + (size_t)p.wr / 64 * TM * 128;
+  p.o_l = p.o_r + (size_t)TM * p.ps * 4;
+  p.o_d = p.o_l + (size_t)p.rpr * p.ps * 4;
+  p.o_op = p.o_d + (bwd ? (size_t)TM * p.ps * 4 : 0);
+  p.o_bar = p.o_op + (size_t)p.rpr * 12 * 4;   // operands, partial columns
+  p.bytes = p.o_bar + SLOTS * 8 + 1024;        // + alignment slack
+  return p;
+}
+
+// Forward (BWD = false): one partial row per CTA. Backward (BWD = true): d
+// into dlogits, then dh[tile rows, the rank's slice]. hmap: hidden [N, D],
+// boxes of 32 x 64; wmap: w [D, V], boxes of 64 x 64.
+template <bool BWD>
+__global__ void __launch_bounds__(NT, 1)
+policy_cluster_kernel(const __grid_constant__ CUtensorMap hmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const int* __restrict__ targets,
+                      const float* __restrict__ logp_old,
+                      const float* __restrict__ adv,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ coefs,
+                      float* __restrict__ partials, bf16* __restrict__ dh,
+                      float* __restrict__ dlogits, int N, int D, int V,
+                      float sigma) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = hp::align1024(smem_raw);
+  const ClusterPlan pl = cluster_plan(D, V, BWD);
+  uint8_t* Ws = smem;
+  uint8_t* Hs = smem + pl.o_h;
+  float* Rv = reinterpret_cast<float*>(smem + pl.o_r);
+  float* Lr = reinterpret_cast<float*>(smem + pl.o_l);
+  float* Dt = reinterpret_cast<float*>(smem + pl.o_d);
+  float* rowop = reinterpret_cast<float*>(smem + pl.o_op);
+  float* rowv = rowop + pl.rpr * 4;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + pl.o_bar);
+  const int cs = pl.cs, slice = pl.slice, vp = pl.vp;
+  const int rpr = pl.rpr, PS = pl.ps;
+  const int rank = blockIdx.x, tile = blockIdx.y;
+  const int n0 = tile * TM, k0 = rank * slice, rb = rank * rpr;
+  const int kn = max(0, min(slice, D - k0));   // the slice's rows inside d
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int mh = warp & 1, q = warp >> 1;     // 16-row half, column quarter
+  const int ng = pl.ng, wr = pl.wr;
+  const hp::Lane ln(lane);
+  hp::cluster_arrive_relaxed();
+
+  // group gr of w's slice (Va / 64 boxes) and, `with_h`, of the tile's
+  // hidden columns (one box) into slot gr % SLOTS (thread 0)
+  auto issue = [&](int gr, bool with_h) {
+    const int sl = gr % SLOTS;
+    hp::bar_expect(&bars[sl], pl.vc * KG * 128 + (with_h ? TM * 128 : 0));
+    for (int c = 0; c < pl.vc; ++c)
+      hp::tma_load_2d(Ws + (size_t)c * wr * 128 + sl * KG * 128, &wmap,
+                      &bars[sl], c * 64, k0 + gr * KG);
+    if (with_h)
+      hp::tma_load_2d(Hs + sl * TM * 128, &hmap, &bars[sl], k0 + gr * KG,
+                      n0);
+  };
+  if (tid == 0) {
+    for (int sl = 0; sl < SLOTS; ++sl) hp::bar_init(&bars[sl], 1);
+    hp::bar_init_fence();
+    for (int gr = 0; gr < min(ng, SLOTS); ++gr) issue(gr, true);
+  }
+  // the operands of this rank's rows, loaded while the tiles arrive
+  if (tid < rpr) {
+    const int n = n0 + rb + tid;
+    const bool ok = n < N;
+    rowop[4 * tid] = __int_as_float(ok ? targets[n] : -1);
+    rowop[4 * tid + 1] = ok ? logp_old[n] : 0.f;
+    rowop[4 * tid + 2] = ok ? adv[n] : 0.f;
+    rowop[4 * tid + 3] = ok ? mask[n] : 0.f;
+  }
+  __syncthreads();                    // the barriers are initialised
+  if constexpr (BWD) hp::griddep_launch_dependents();
+
+  // the partial logits tile: warp (mh, q) takes rows 16 mh.. and the column
+  // pairs (16 columns) q, q + 4, q + 8, q + 12. The products are exact, and
+  // the rank's k16 steps chain through the accumulators on the tensor cores
+  // (PERF.md section 6 holds this order against per-step and per-group
+  // sums added in f32). Lane addresses: a row's 16-byte unit u sits at
+  // u ^ (row % 8), and every k step starts on a multiple of 16 rows, so the
+  // XOR is the lane's own. A group past the first SLOTS takes the slot of
+  // group gi - SLOTS once every warp is done with it.
+  const int np = vp / 16;
+  const int ar = 16 * mh + ln.a_r, ax = ar & 7, bx = ln.bt_k & 7;
+  const uint8_t* wb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int col = 16 * (q + 4 * i) + ln.bt_n;
+    wb[i] = Ws + (col >> 6) * wr * 128 + ((((col >> 3) & 7) ^ bx) << 4) +
+            ln.bt_k * 128;
+  }
+  float acc[4][2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][f][e] = 0.f;
+  for (int gi = 0; gi < ng; ++gi) {
+    const int sl = gi % SLOTS;
+    hp::bar_wait(&bars[sl], (gi / SLOTS) & 1);
+    const uint8_t* hrow = Hs + sl * TM * 128 + ar * 128;
+#pragma unroll
+    for (int st = 0; st < KG / 16; ++st) {
+      if (gi * KG + 16 * st < slice) {
+        const int ko = (sl * KG + 16 * st) * 128;
+        uint32_t a[4], b[4][4];
+        hp::ldsm4(a, hrow + (((2 * st + (ln.a_c >> 3)) ^ ax) << 4));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (q + 4 * i < np) hp::ldsm4_t(b[i], wb[i] + ko);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (q + 4 * i < np)
+#pragma unroll
+            for (int f = 0; f < 2; ++f)
+              hp::mma16816(acc[i][f], a, b[i][2 * f], b[i][2 * f + 1]);
+      }
+    }
+    if (gi + SLOTS < ng) {
+      __syncthreads();                // slot sl is read
+      if (tid == 0) issue(gi + SLOTS, true);
+    }
+  }
+
+  // send each row of the partial tile to the rank that finishes it: row m
+  // to rank m / rpr, as its row (this rank, m % rpr)
+  hp::cluster_wait();                 // every rank has started
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (q + 4 * i < np)
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int m = 16 * mh + g + 8 * hf;
+          hp::st_dsmem2(Rv + (rank * rpr + m % rpr) * PS + 16 * (q + 4 * i) +
+                            8 * f + 2 * t4,
+                        m / rpr,
+                        make_float2(acc[i][f][2 * hf],
+                                    acc[i][f][2 * hf + 1]));
+        }
+  hp::cluster_sync();                 // every partial row has arrived
+
+  // the logits of this rank's rows: the partial rows in rank order
+  const int vq = vp / 4;
+  for (int idx = tid; idx < rpr * vq; idx += NT) {
+    const int r = idx / vq, c = (idx % vq) * 4;
+    float4 sum = *reinterpret_cast<const float4*>(Rv + r * PS + c);
+    for (int s = 1; s < cs; ++s) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(Rv + (s * rpr + r) * PS + c);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    *reinterpret_cast<float4*>(Lr + r * PS + c) = sum;
+  }
+  __syncthreads();
+  for (int r = warp; r < rpr; r += NT / 32) {
+    const float* op = rowop + 4 * r;
+    row_loss<BWD>(Lr + r * PS, V, n0 + rb + r, N, __float_as_int(op[0]),
+                  op[1], op[2], op[3], coefs, sigma, rowv + r * 8, dlogits);
+  }
+  __syncthreads();
+
+  if constexpr (!BWD) {
+    if (tid < 8) {
+      float s = 0.f;
+      for (int r = 0; r < rpr; ++r) s += rowv[r * 8 + tid];
+      partials[((long)tile * cs + rank) * 8 + tid] = s;
+    }
+  } else {
+    // send this rank's rows of d (columns past Va hold the zero logits
+    // there) to every rank, as rows rb.. of its gathered tile
+    for (int idx = tid; idx < cs * rpr * vq; idx += NT) {
+      const int s = idx / (rpr * vq), r = idx / vq % rpr;
+      const int c = (idx % vq) * 4;
+      hp::st_dsmem4(Dt + (rb + r) * PS + c, s,
+                    *reinterpret_cast<const float4*>(Lr + r * PS + c));
+    }
+    hp::cluster_sync();               // the tile's d has arrived
+
+    // dh[tile rows, slice] = d . w[slice]^T, a window of SLOTS groups of the
+    // slice at a time, from the last (the forward left its groups in the
+    // slots) to the first, reloading the groups a window lacks: warp (mh, q)
+    // takes rows 16 mh.. and the window's column pairs q, q + 4, q + 8,
+    // q + 12; d in three terms
+    const int jx = ln.b_n & 7;
+    const uint8_t* wp[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wp[i] = Ws + (16 * (q + 4 * i) + ln.b_n) * 128;
+    int held[SLOTS], uses[SLOTS];     // a slot's group, and its loads so far
+#pragma unroll
+    for (int sl = 0; sl < SLOTS; ++sl) {
+      uses[sl] = sl < ng ? (ng - 1 - sl) / SLOTS + 1 : 0;
+      held[sl] = sl + (uses[sl] - 1) * SLOTS;
+    }
+    for (int g0 = (ng - 1) / SLOTS * SLOTS; g0 >= 0; g0 -= SLOTS) {
+      bool lacks[SLOTS], any = false;
+#pragma unroll
+      for (int sl = 0; sl < SLOTS; ++sl) {
+        lacks[sl] = g0 + sl < ng && held[sl] != g0 + sl;
+        any |= lacks[sl];
+      }
+      if (any) {
+        __syncthreads();              // the slots are read
+        if (tid == 0)
+#pragma unroll
+          for (int sl = 0; sl < SLOTS; ++sl)
+            if (lacks[sl]) issue(g0 + sl, false);
+#pragma unroll
+        for (int sl = 0; sl < SLOTS; ++sl)
+          if (lacks[sl]) {
+            hp::bar_wait(&bars[sl], uses[sl]++ & 1);
+            held[sl] = g0 + sl;
+          }
+      }
+      const int spn = min(WIN, slice - g0 * KG) / 16;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][f][e] = 0.f;
+      for (int kk = 0; kk < vp; kk += 16) {
+        const int wo = (kk >> 6) * wr * 128 +
+                       (((((kk >> 3) & 7) + (ln.b_k >> 3)) ^ jx) << 4);
+        const float* d0 = Dt + (16 * mh + g) * PS + kk + 2 * t4;
+        const float2 x00 = *reinterpret_cast<const float2*>(d0);
+        const float2 x10 = *reinterpret_cast<const float2*>(d0 + 8 * PS);
+        const float2 x01 = *reinterpret_cast<const float2*>(d0 + 8);
+        const float2 x11 = *reinterpret_cast<const float2*>(d0 + 8 * PS + 8);
+        uint32_t ta[3][4], b[4][4];
+        hp::split3(x00.x, x00.y, ta[0][0], ta[1][0], ta[2][0]);
+        hp::split3(x10.x, x10.y, ta[0][1], ta[1][1], ta[2][1]);
+        hp::split3(x01.x, x01.y, ta[0][2], ta[1][2], ta[2][2]);
+        hp::split3(x11.x, x11.y, ta[0][3], ta[1][3], ta[2][3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (q + 4 * i < spn) hp::ldsm4(b[i], wp[i] + wo);
+        // the three terms' products of each of the 8 tiles summed from zero
+        // (hi, mid, lo), issued term by term so that the 8 sums interleave
+        float t[4][2][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) t[i][f][e] = 0.f;
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (q + 4 * i < spn)
+#pragma unroll
+              for (int f = 0; f < 2; ++f)
+                hp::mma16816(t[i][f], ta[u], b[i][2 * f], b[i][2 * f + 1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (q + 4 * i < spn)
+#pragma unroll
+            for (int f = 0; f < 2; ++f)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[i][f][e] += t[i][f][e];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = q + 4 * i;
+        if (p < spn)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            const int k = g0 * KG + 16 * p + 8 * f + 2 * t4;
+            if (k >= kn) continue;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int n = n0 + 16 * mh + g + 8 * hf;
+              if (n < N)
+                *reinterpret_cast<uint32_t*>(dh + (long)n * D + k0 + k) =
+                    hp::pack_bf16(acc[i][f][2 * hf], acc[i][f][2 * hf + 1]);
+            }
+          }
+      }
+    }
+  }
+}
+
+// dw [D, V] = sum_n h[n]^T d[n], bf16 h, in bf16: a CTA takes DW_TJ = 64
+// rows of dw x DW_TV columns and walks all N rows in order, DW_KC at a
+// time, through a ring of DW_STAGES stages that TMA fills (hidden: boxes of
+// 64 x 64, 128-byte swizzle; d: boxes of 64 x 64 f32); d is split into
+// three bf16 terms in shared memory. Warp (mq, nh): rows 16 mq.., columns
+// 32 nh.. of the tile. 100 KB of shared memory, two CTAs an SM: at d 4096
+// and Va 256 the grid is 256 CTAs. Launched as the row kernel's dependent:
+// hidden's first boxes are requested before it waits for that grid's d.
+constexpr int DW_TJ = 64, DW_TV = 64, DW_KC = 64, DW_STAGES = 3;
+constexpr int DW_TS = DW_TV + 8;
+constexpr int DW_H_BYTES = DW_KC * DW_TJ * 2;
+constexpr int DW_D_BYTES = DW_KC * DW_TV * 4;
+constexpr int DW_STAGE = DW_H_BYTES + DW_D_BYTES;
+constexpr size_t DW_SMEM = (size_t)DW_STAGES * DW_STAGE +
+                           3 * DW_KC * DW_TS * 2 + DW_STAGES * 8 + 1024;
+
+__global__ void __launch_bounds__(NT, 2)
+policy_dw_tc_kernel(const __grid_constant__ CUtensorMap hmap,
+                    const __grid_constant__ CUtensorMap dmap,
+                    bf16* __restrict__ dw, int N, int D, int V) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = hp::align1024(smem_raw);
+  bf16* Tt = reinterpret_cast<bf16*>(smem + DW_STAGES * DW_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + DW_STAGES * DW_STAGE + 3 * DW_KC * DW_TS * 2);
+  const int j0 = blockIdx.x * DW_TJ, v0 = blockIdx.y * DW_TV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int mq = warp & 3, nh = warp >> 2;
+  const hp::Lane ln(lane);
+  const int nch = (N + DW_KC - 1) / DW_KC;
+
+  // chunk c's boxes into stage c % DW_STAGES (thread 0)
+  auto load_h = [&](int c) {
+    uint64_t* bar = &full[c % DW_STAGES];
+    hp::bar_expect(bar, DW_STAGE);
+    hp::tma_load_2d(smem + (c % DW_STAGES) * DW_STAGE, &hmap, bar, j0,
+                    c * DW_KC);
+  };
+  auto load_d = [&](int c) {
+    hp::tma_load_2d(smem + (c % DW_STAGES) * DW_STAGE + DW_H_BYTES, &dmap,
+                    &full[c % DW_STAGES], v0, c * DW_KC);
+  };
+  if (tid == 0) {
+    hp::prefetch_map(&hmap);
+    hp::prefetch_map(&dmap);
+    for (int s = 0; s < DW_STAGES; ++s) hp::bar_init(&full[s], 1);
+    hp::bar_init_fence();
+    for (int c = 0; c < min(nch, DW_STAGES - 1); ++c) load_h(c);
+    hp::griddep_wait();               // the row kernel's d
+    for (int c = 0; c < min(nch, DW_STAGES - 1); ++c) load_d(c);
+  }
+  __syncthreads();                    // the barriers are initialised
+
+  // hidden^T's A fragments: rows (of N) kk + at_k, columns 16 mq + at_m of
+  // the swizzled box; every k step starts on a multiple of 16 rows
+  const int ha = ln.at_k * 128 +
+                 ((((16 * mq + ln.at_m) >> 3) ^ (ln.at_k & 7)) << 4);
+  const bf16* tb = Tt + ln.bt_k * DW_TS + 32 * nh + ln.bt_n;
+  float acc[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][f][e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    // the stage of chunk c - 1 is free again (the loop's last barrier)
+    if (tid == 0 && c + DW_STAGES - 1 < nch) {
+      load_h(c + DW_STAGES - 1);
+      load_d(c + DW_STAGES - 1);
+    }
+    hp::bar_wait(&full[c % DW_STAGES], (c / DW_STAGES) & 1);
+    const uint8_t* hs = smem + (c % DW_STAGES) * DW_STAGE;
+    const float* ds = reinterpret_cast<const float*>(hs + DW_H_BYTES);
+    // d's rows of this chunk in three bf16 terms
+    for (int idx = tid; idx < DW_KC * (DW_TV / 4); idx += NT) {
+      const int r = idx / (DW_TV / 4), cc = (idx % (DW_TV / 4)) * 4;
+      const float4 x = *reinterpret_cast<const float4*>(ds + r * DW_TV + cc);
+      uint2 th, tm, tl;
+      hp::split3(x.x, x.y, th.x, tm.x, tl.x);
+      hp::split3(x.z, x.w, th.y, tm.y, tl.y);
+      *reinterpret_cast<uint2*>(Tt + r * DW_TS + cc) = th;
+      *reinterpret_cast<uint2*>(Tt + (DW_KC + r) * DW_TS + cc) = tm;
+      *reinterpret_cast<uint2*>(Tt + (2 * DW_KC + r) * DW_TS + cc) = tl;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < DW_KC; kk += 16) {
+      uint32_t a[4], b[3][2][4];
+      hp::ldsm4_t(a, hs + ha + kk * 128);
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          hp::ldsm4_t(b[u][i], tb + (u * DW_KC + kk) * DW_TS + 16 * i);
+      // each tile's three products summed from zero (hi, mid, lo), term by
+      // term across the 4 tiles, then added in f32
+      float t[2][2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[i][f][e] = 0.f;
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+            hp::mma16816(t[i][f], a, b[u][i][2 * f], b[u][i][2 * f + 1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][f][e] += t[i][f][e];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const int v = v0 + 32 * nh + 16 * i + 8 * f + 2 * t4;
+      if (v >= V) continue;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = j0 + 16 * mq + g + 8 * hf;
+        if (j < D)
+          *reinterpret_cast<uint32_t*>(dw + (long)j * V + v) =
+              hp::pack_bf16(acc[i][f][2 * hf], acc[i][f][2 * hf + 1]);
+      }
+    }
+}
+
+bool bad_shape(int N, int D, int V) {
+  return N <= 0 || D <= 0 || D % 8 != 0 || V % 8 != 0 || V < 8 || V > MAX_V;
+}
+
+template <bool BWD>
+int launch_cluster(const void* h, const void* w, const void* targets,
+                   const void* logp_old, const void* adv, const void* mask,
+                   const void* coefs, void* partials, void* dh,
+                   void* dlogits, int N, int D, int V, float sigma,
+                   cudaStream_t st) {
+  const ClusterPlan pl = cluster_plan(D, V, BWD);
+  const int tiles = (N + TM - 1) / TM;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap hmap, wmap;
+  int err = hp::make_map_2d(&hmap, h, false, N, D, TM, 64);
+  if (err == 0) err = hp::make_map_2d(&wmap, w, false, D, V, KG, 64);
+  if (err != 0) return err;
+  auto kern = policy_cluster_kernel<BWD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
+  if (e == cudaSuccess && pl.cs > 8)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return repro::refused(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.cs, tiles);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = pl.bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(
+      &cfg, kern, hmap, wmap, static_cast<const int*>(targets),
+      static_cast<const float*>(logp_old), static_cast<const float*>(adv),
+      static_cast<const float*>(mask), static_cast<const float*>(coefs),
+      static_cast<float*>(partials), static_cast<bf16*>(dh),
+      static_cast<float*>(dlogits), N, D, V, sigma);
+  if (e != cudaSuccess) return repro::refused(e);
   return (int)cudaGetLastError();
 }
 
@@ -468,25 +897,17 @@ int dispatch_rows(const void* h, const void* w, const void* targets,
                   const void* coefs, void* partials, void* dh, void* dlogits,
                   int N, int D, int V, int dtype, float sigma,
                   cudaStream_t st) {
-#define REPRO_ROWS(T, n)                                                    \
-  launch_rows<T, n, BWD>(h, w, targets, logp_old, adv, mask, coefs,         \
-                         partials, dh, dlogits, N, D, V, sigma, st)
-  if (dtype == repro::DTYPE_F32) return REPRO_ROWS(float, 0);
-  if (dtype != repro::DTYPE_BF16) return (int)cudaErrorInvalidValue;
-  if (D % MMA_KT == 0 && V % 64 == 0) {
-    switch (V / 64) {
-      case 1: return REPRO_ROWS(__nv_bfloat16, 1);
-      case 2: return REPRO_ROWS(__nv_bfloat16, 2);
-      case 3: return REPRO_ROWS(__nv_bfloat16, 3);
-      case 4: return REPRO_ROWS(__nv_bfloat16, 4);
-    }
-  }
-  return REPRO_ROWS(__nv_bfloat16, 0);
-#undef REPRO_ROWS
-}
-
-bool bad_shape(int N, int D, int V) {
-  return N <= 0 || D <= 0 || D % 8 != 0 || V % 8 != 0 || V < 8 || V > MAX_V;
+  if (dtype == repro::DTYPE_BF16)
+    return launch_cluster<BWD>(h, w, targets, logp_old, adv, mask, coefs,
+                               partials, dh, dlogits, N, D, V, sigma, st);
+  if (dtype != repro::DTYPE_F32) return (int)cudaErrorInvalidValue;
+  policy_rows_kernel<BWD><<<(N + BN - 1) / BN, NT, 0, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w),
+      static_cast<const int*>(targets), static_cast<const float*>(logp_old),
+      static_cast<const float*>(adv), static_cast<const float*>(mask),
+      static_cast<const float*>(coefs), static_cast<float*>(partials),
+      static_cast<float*>(dh), static_cast<float*>(dlogits), N, D, V, sigma);
+  return (int)cudaGetLastError();
 }
 
 
@@ -697,6 +1118,22 @@ extern "C" int gipo_head_bwd(const void* logits, const void* targets,
                            static_cast<cudaStream_t>(stream));
 }
 
+// rows of d a rank of K4's tensor-core body takes (bf16), 0 where the shape
+// runs the FMA body (f32) or is refused
+extern "C" int policy_loss_slice(int N, int D, int V, int dtype) {
+  return bad_shape(N, D, V) || dtype != repro::DTYPE_BF16
+             ? 0
+             : cluster_plan(D, V, false).slice;
+}
+
+// rows of the partial sums policy_loss_fwd writes (0 for a shape it refuses)
+extern "C" int policy_loss_partial_rows(int N, int D, int V, int dtype) {
+  if (bad_shape(N, D, V)) return 0;
+  if (dtype == repro::DTYPE_BF16)
+    return (N + TM - 1) / TM * cluster_plan(D, V, false).cs;
+  return (N + BN - 1) / BN;
+}
+
 extern "C" int policy_loss_fwd(const void* h, const void* w,
                                const void* targets, const void* logp_old,
                                const void* adv, const void* mask,
@@ -708,6 +1145,7 @@ extern "C" int policy_loss_fwd(const void* h, const void* w,
                               sigma, static_cast<cudaStream_t>(stream));
 }
 
+// dw is written in the inputs' dtype; dlogits is an f32 [N, V] scratch
 extern "C" int policy_loss_bwd(const void* h, const void* w,
                                const void* targets, const void* logp_old,
                                const void* adv, const void* mask,
@@ -720,14 +1158,34 @@ extern "C" int policy_loss_bwd(const void* h, const void* w,
                                 nullptr, dh, dlogits, N, D, V, dtype, sigma,
                                 st);
   if (err != 0) return err;
-  const dim3 grid((D + DW_T - 1) / DW_T, (V + DW_T - 1) / DW_T);
-  if (dtype == repro::DTYPE_F32)
-    policy_dw_kernel<float><<<grid, NT, 0, st>>>(
+  if (dtype == repro::DTYPE_F32) {
+    const dim3 grid((D + DW_T - 1) / DW_T, (V + DW_T - 1) / DW_T);
+    policy_dw_kernel<<<grid, NT, 0, st>>>(
         static_cast<const float*>(h), static_cast<const float*>(dlogits),
         static_cast<float*>(dw), N, D, V);
-  else
-    policy_dw_kernel<__nv_bfloat16><<<grid, NT, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(h),
-        static_cast<const float*>(dlogits), static_cast<float*>(dw), N, D, V);
+    return (int)cudaGetLastError();
+  }
+  CUtensorMap hmap, dmap;
+  err = hp::make_map_2d(&hmap, h, false, N, D, DW_KC, DW_TJ);
+  if (err == 0) err = hp::make_map_2d(&dmap, dlogits, true, N, V, DW_KC,
+                                      DW_TV);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      policy_dw_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DW_SMEM);
+  if (e != cudaSuccess) return repro::refused(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + DW_TJ - 1) / DW_TJ, (V + DW_TV - 1) / DW_TV);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = DW_SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, policy_dw_tc_kernel, hmap, dmap,
+                         static_cast<bf16*>(dw), N, D, V);
+  if (e != cudaSuccess) return repro::refused(e);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the kernels: TMA tensor maps and
 // loads, mbarrier rings, wgmma descriptors and instructions, register
 // reallocation (K1, K3); thread-block cluster barriers and distributed
-// shared memory (K2); cp.async (K2, K7); ldmatrix and mma.sync with f32
-// operands split into bf16 terms (K7).
+// shared memory (K2, K4); 2-D TMA boxes and programmatic dependent launch
+// (K4); cp.async (K2, K7); ldmatrix and mma.sync with f32 operands split
+// into bf16 terms (K4, K7).
 //
 // Every operand tile lives in shared memory as TMA leaves it with
 // SWIZZLE_128B: a box of 64 rows x 64 bf16 (128 bytes a row), rows grouped
@@ -77,6 +78,30 @@ inline int make_map(CUtensorMap* map, const void* base, int Bsz, int L,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A 2-D map over a [rows, cols] tensor (contiguous rows, 16-byte aligned)
+// of bf16 or f32, with a box of [box_rows, box_cols]: 128-byte swizzle for
+// a box row of 128 bytes (bf16, 64 columns), none otherwise. Rows and
+// columns past the tensor come in as zeros.
+inline int make_map_2d(CUtensorMap* map, const void* base, bool f32,
+                       long rows, long cols, int box_rows, int box_cols) {
+  EncodeTiledFn enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int esize = f32 ? 4 : 2;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult r = enc(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, estride,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_cols * esize == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------------
 // Device: shared-memory addresses, mbarriers, TMA
 // ---------------------------------------------------------------------------
@@ -133,6 +158,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(h), "r"(r0), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of a 2-D map: columns c0.., rows r0..
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
       "r"(smem_u32(bar))
       : "memory");
 }
@@ -380,6 +416,52 @@ __device__ __forceinline__ float ld_dsmem(const float* p, uint32_t rank) {
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
                : "memory");
   return v;
+}
+
+// the cluster barrier in halves: arrive (no ordering) as a CTA starts, and
+// wait before its first access to another rank's shared memory, which is
+// then known to have started
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// store f32 values at `p` (this CTA's shared memory, 8- or 16-byte
+// aligned) into the shared memory of the cluster's CTA `rank`; visible
+// there after the next cluster_sync
+__device__ __forceinline__ void st_dsmem2(float* p, uint32_t rank,
+                                          float2 v) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(a),
+               "f"(v.x), "f"(v.y)
+               : "memory");
+}
+__device__ __forceinline__ void st_dsmem4(float* p, uint32_t rank,
+                                          float4 v) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   a),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// programmatic dependent launch: a primary grid lets its dependent grid be
+// launched (every CTA, once its own work no longer needs the SMs to
+// itself), and the dependent waits for the primary's completion and memory
+// before reading what it wrote
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

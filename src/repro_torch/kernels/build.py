@@ -46,10 +46,15 @@ SIGNATURES = {
     # h, w, targets, logp_old, adv, mask, partials, N, D, V, dtype, sigma,
     # stream
     "policy_loss_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # h, w, targets, logp_old, adv, mask, coefs, dh, dlogits, dw, N, D, V,
-    # dtype, sigma, stream
+    # h, w, targets, logp_old, adv, mask, coefs, dh, dlogits (f32 scratch),
+    # dw (w's dtype), N, D, V, dtype, sigma, stream
     "policy_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _F, _P),
+    # N, D, V, dtype -> rows of d a rank of K4's tensor-core body takes (0:
+    # the FMA body)
+    "policy_loss_slice": (_I, _I, _I, _I),
+    # N, D, V, dtype -> rows of the partial sums policy_loss_fwd writes
+    "policy_loss_partial_rows": (_I, _I, _I, _I),
     # logits, targets, logp_old, adv, mask, partials, N, V, dtype, sigma,
     # stream
     "gipo_head_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),

@@ -4,14 +4,20 @@ and their plain PyTorch versions, at two fusion levels.
 **K4, hidden level** (``fused_policy_loss``). Replaces the Pallas TPU
 kernels of ``repro/kernels/gipo_loss.py`` (``_policy_fwd_kernel`` /
 ``_policy_bwd_kernel`` behind the custom VJP of ``fused_policy_loss``).
-Forward: per block of token rows, ``hidden @ w`` in f32 → log-softmax →
-target gather → Gaussian trust weight ω (eq. 5, constant) → surrogate
-(eq. 6), entropy, k3-KL and a stale flag, summed into one row of the 8
-partial-sum columns of ``N_COLS``; the sum over blocks and ``_finalize``
-are plain torch on the ``[nb, 8]`` partials. Backward: the block's logits
-are recomputed, ``_block_dlogits`` gives ``d`` with the coefficient row of
-``_loss_coefs``, then ``dh = d·wᵀ`` in hidden's dtype and
-``dw = Σ hᵀ·d`` in f32. Gradients flow to ``hidden`` and ``w`` only.
+Forward: ``hidden @ w`` in f32 → log-softmax → target gather → Gaussian
+trust weight ω (eq. 5, constant) → surrogate (eq. 6), entropy, k3-KL and a
+stale flag, summed over a few token rows into rows of the 8 partial-sum
+columns of ``N_COLS``; the sum over those rows and ``_finalize`` are plain
+torch. Backward: the logits are recomputed, ``_block_dlogits`` gives ``d``
+with the coefficient row of ``_loss_coefs``, then ``dh = d·wᵀ`` in hidden's
+dtype and ``dw = Σ hᵀ·d`` in w's dtype. Gradients flow to ``hidden`` and
+``w`` only. bf16 runs the tensor-core body: a thread-block cluster of up
+to 16 CTAs splits d into slices (``policy_slice``), each rank forms its
+slice's partial logits of 32 token rows on the tensor cores, the ranks
+sum them through distributed shared memory, and the backward forms dh and
+dw on the tensor cores with d in three bf16 terms; its order of
+arithmetic is ``ref.tiled_policy_loss``. f32 runs the FMA body (16 rows a
+CTA). ``policy_body`` says which a shape takes.
 
 **K5, logits level** (``gipo_head_loss``). Replaces ``_gipo_fwd_kernel`` /
 ``_gipo_bwd_kernel`` behind the custom VJP of the reference's
@@ -28,13 +34,16 @@ kernels share theirs, and the CUDA kernels share their per-row terms.
 CUDA tensors launch the kernels (raising on anything they do not take), CPU
 tensors take the plain versions. ``policy_loss_fwd.launches``,
 ``policy_loss_bwd.launches``, ``gipo_head_fwd.launches`` and
-``gipo_head_bwd.launches`` count kernel launches. ``plain_policy_loss`` and
-``plain_gipo_head_loss`` are the autodiffed plain routes (the reference's
-jnp twins), which ``dispatch.forced("torch")`` selects.
+``gipo_head_bwd.launches`` count kernel launches, ``policy_loss_fwd.tc``
+and ``policy_loss_bwd.tc`` those of K4 on its tensor-core body.
+``plain_policy_loss`` and ``plain_gipo_head_loss`` are the autodiffed
+plain routes (the reference's jnp twins), which ``dispatch.forced("torch")``
+selects.
 """
 from __future__ import annotations
 
 import threading
+import types
 from typing import Dict, Tuple
 
 import torch
@@ -46,7 +55,6 @@ from repro_torch.kernels.flash_attention import _capability
 #   0: Σ pg        1: Σ ratio   2: Σ omega   3: Σ mask (token count)
 #   4: Σ entropy   5: Σ k3-KL   6: Σ stale   7: unused
 N_COLS = 8
-BLOCK_N = 16          # token rows per CTA of K4 in csrc/gipo_loss.cu
 MAX_VA = 256          # a row's logits live in the CTA's shared memory (K4)
 HEAD_ROWS = 8         # token rows per CTA of K5 (one warp a row)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -271,35 +279,57 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
+def policy_slice(hidden, w) -> int:
+    """Rows of d that a rank of K4's tensor-core body takes for these CUDA
+    inputs (``csrc/gipo_loss.cu::cluster_plan``), or 0 where they run the
+    FMA body."""
+    n, d = hidden.shape
+    return build.load().policy_loss_slice(n, d, w.shape[1],
+                                          _DTYPE_CODES[hidden.dtype])
+
+
+def policy_body(hidden, w) -> str:
+    """Which K4 body ``policy_loss_fwd`` / ``policy_loss_bwd`` launch for
+    these CUDA inputs: "tensor cores" (bf16) or "fma" (f32)."""
+    return "tensor cores" if policy_slice(hidden, w) else "fma"
+
+
 def policy_loss_fwd(hidden, w, targets, logp_old, advantages, mask,
                     sigma: float) -> torch.Tensor:
-    """Per-block partial sums [ceil(N / BLOCK_N), 8] f32 (CUDA), or one
-    block's [1, 8] from the plain version (CPU)."""
+    """Partial sums [R, 8] f32, each row a sum over a few token rows (CUDA:
+    R = ceil(N / 32) x the cluster's ranks on the tensor-core body,
+    ceil(N / 16) on the FMA body), or one block's [1, 8] from the plain
+    version (CPU)."""
     if hidden.device.type == "cpu":
         return _plain_policy_loss_fwd(hidden, w, targets, logp_old,
                                       advantages, mask, sigma)
     check_policy_loss_args(hidden, w, targets, logp_old, advantages, mask)
     n, d = hidden.shape
-    nb = -(-n // BLOCK_N)
-    partials = torch.empty((nb, N_COLS), dtype=torch.float32,
-                           device=hidden.device)
+    va, code = w.shape[1], _DTYPE_CODES[hidden.dtype]
     lib = build.load()
+    partials = torch.empty((lib.policy_loss_partial_rows(n, d, va, code),
+                            N_COLS), dtype=torch.float32,
+                           device=hidden.device)
+    tc = policy_body(hidden, w) == "tensor cores"
     with torch.cuda.device(hidden.device):
         err = lib.policy_loss_fwd(
             hidden.data_ptr(), w.data_ptr(), targets.data_ptr(),
             logp_old.data_ptr(), advantages.data_ptr(), mask.data_ptr(),
-            partials.data_ptr(), n, d, w.shape[1],
-            _DTYPE_CODES[hidden.dtype], float(sigma),
+            partials.data_ptr(), n, d, va, code, float(sigma),
             torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err)
     _count(policy_loss_fwd)
+    if tc:
+        _count(policy_loss_fwd.tc)
     return partials
 
 
 def policy_loss_bwd(hidden, w, targets, logp_old, advantages, mask,
                     sigma: float, coefs: torch.Tensor):
     """(dh [N,d] in hidden's dtype, dw [d,Va] in w's dtype) for the f32
-    coefficient row ``coefs`` = (c_pg, c_kl, c_ent)."""
+    coefficient row ``coefs`` = (c_pg, c_kl, c_ent). On the card the row
+    kernel leaves d in an f32 [N, Va] scratch for the dw kernel, which
+    writes dw in w's dtype."""
     if hidden.device.type == "cpu":
         return _plain_policy_loss_bwd(hidden, w, targets, logp_old,
                                       advantages, mask, sigma, coefs)
@@ -312,7 +342,8 @@ def policy_loss_bwd(hidden, w, targets, logp_old, advantages, mask,
     va = w.shape[1]
     dh = torch.empty_like(hidden)
     dlogits = torch.empty((n, va), dtype=torch.float32, device=hidden.device)
-    dw = torch.empty((d, va), dtype=torch.float32, device=hidden.device)
+    dw = torch.empty_like(w)
+    tc = policy_body(hidden, w) == "tensor cores"
     lib = build.load()
     with torch.cuda.device(hidden.device):
         err = lib.policy_loss_bwd(
@@ -324,11 +355,16 @@ def policy_loss_bwd(hidden, w, targets, logp_old, advantages, mask,
             torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err)
     _count(policy_loss_bwd)
-    return dh, dw.to(w.dtype)
+    if tc:
+        _count(policy_loss_bwd.tc)
+    return dh, dw
 
 
 policy_loss_fwd.launches = 0
 policy_loss_bwd.launches = 0
+#: K4 launches that ran the tensor-core body (also counted in .launches)
+policy_loss_fwd.tc = types.SimpleNamespace(launches=0)
+policy_loss_bwd.tc = types.SimpleNamespace(launches=0)
 
 
 class _FusedPolicyLoss(torch.autograd.Function):

@@ -1,7 +1,8 @@
 """Oracles for the kernels: the dense attention allclose target, the
 attention kernels' own order of arithmetic for holding their bf16 bodies
-tightly, the unfused token-level GIPO loss, the stepwise SSD recurrence,
-and the SSD scan in the order of K6's tensor-core body."""
+tightly, the unfused token-level GIPO loss, K4 in the order of its
+tensor-core body, the stepwise SSD recurrence, and the SSD scan in the
+order of K6's tensor-core body."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -116,6 +117,40 @@ def reference_gipo_loss(logits: torch.Tensor, targets: torch.Tensor,
     metrics = {"ratio_mean": (ratio * mask).sum() / denom,
                "omega_mean": (omega * mask).sum() / denom}
     return (per_token * mask).sum() / denom, metrics
+
+
+def tiled_policy_loss(hidden: torch.Tensor, w: torch.Tensor,
+                      targets: torch.Tensor, logp_old: torch.Tensor,
+                      advantages: torch.Tensor, mask: torch.Tensor,
+                      sigma: float, coefs: torch.Tensor, *, d_slice: int,
+                      terms: int = 3
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 (the fused action head + GIPO loss) in the order of arithmetic of
+    its tensor-core body (``csrc/gipo_loss.cu``: ``policy_cluster_kernel``
+    and ``policy_dw_tc_kernel``), in f32.
+
+    The logits are partial products over consecutive slices of ``d_slice``
+    rows of d (a cluster rank's, ``gipo_loss.policy_slice``), summed in
+    rank order; each partial sums exact products of the inputs in f32. The
+    row terms follow as ``_fwd_partials`` and ``_block_dlogits``. d (f32)
+    enters dh = d . w^T and dw = h^T . d as ``terms`` bf16 terms
+    (``split_bf16``), each term's product summed in f32 and the terms added
+    largest first. ``coefs`` is the (c_pg, c_kl, c_ent) row. Returns (the 8
+    partial sums over all rows, dh [N, d], dw [d, Va]), f32, before any
+    rounding to the inputs' dtype."""
+    from repro_torch.kernels.gipo_loss import _block_dlogits, _fwd_partials
+    h32, w32 = hidden.float(), w.float()
+    logits = h32[:, :d_slice] @ w32[:d_slice]
+    for k0 in range(d_slice, hidden.shape[1], d_slice):
+        logits = logits + h32[:, k0:k0 + d_slice] @ w32[k0:k0 + d_slice]
+    rows = (targets, logp_old, advantages, mask, sigma)
+    sums = _fwd_partials(logits, *rows)
+    dl = _block_dlogits(logits, *rows, coefs[0], coefs[1], coefs[2])
+    dh = dw = None
+    for t in split_bf16(dl, terms):
+        dh = t @ w32.T if dh is None else dh + t @ w32.T
+        dw = h32.T @ t if dw is None else dw + h32.T @ t
+    return sums, dh, dw
 
 
 def reference_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -14,7 +14,11 @@ K2, with the split layout it runs) is also held against
 within half a bf16 ulp (2^-8 relative) plus 1e-5. K1 with its LSE, K2
 and K3 rerun bit for bit. The training kernels (K3, K4) are f32 inside in
 both their versions: f32 within 1e-4 of the largest value, bf16 within one
-bf16 ulp (2^-7) of each value plus 1e-4 of the largest. So are the SSD scan kernels (K6, K7): their
+bf16 ulp (2^-7) of each value plus 1e-4 of the largest; K4's bf16
+tensor-core body also against ``ref.tiled_policy_loss`` (its order of
+arithmetic) on inputs with exact logits, its dh and dw within half a bf16
+ulp plus 1e-5 of the largest, and reruns bit for bit. So are the SSD scan
+kernels (K6, K7): their
 f32 outputs (y, states, ddt, dA) are held within 1e-4 of the largest value
 for f32 and bf16 inputs alike, their bf16 outputs (dx, dB, dC) within one
 bf16 ulp of each value plus 1e-4 of the largest. So is K5, the GIPO loss
@@ -346,24 +350,51 @@ def _policy_inputs(dev, n, d, va, dtype, seed, stale=False):
             (torch.rand(n, generator=g, device=dev) > 0.15).float()]
 
 
+def _policy_body_expected(dtype):
+    """K4 runs its tensor-core body on bf16, its FMA body on f32."""
+    return "tensor cores" if dtype == torch.bfloat16 else "fma"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,va,stale", [
     (224, 4096, 256, False),       # the training slice's micro-batch
     (224, 2560, 256, False),       # the same at mamba2-2.7b's width
-    (300, 64, 48, False),          # ragged N, Va off the tensor-core body
-    (37, 128, 128, False),         # ragged, tensor-core body at Va 128
+    (224, 2048, 256, False),       # ... and at zamba2-1.2b's
+    (300, 64, 48, False),          # ragged N, Va off the 16-grid, 4 ranks
+    (37, 128, 128, False),         # ragged, 8 ranks of 16 rows of d
     (224, 4096, 256, True),        # stale behaviour log-probs: ω near 0
+    (225, 4096, 256, False),       # one row into a new tile
+    (17, 2560, 256, False),        # fewer rows than a tile
+    (224, 2056, 192, False),       # d off the 16-grid: a slice past d
+    (224, 4096, 64, False),        # Va 64
+    (40, 6144, 64, False),         # d > 4096: w's slice streams (bf16)
 ])
 def test_policy_loss_kernel_matches_plain(dev, dtype, n, d, va, stale):
+    from repro_torch.kernels import build
     from repro_torch.kernels import gipo_loss as gl
     args = _policy_inputs(dev, n, d, va, dtype, n + va, stale)
     coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / n
-    n0 = (gl.policy_loss_fwd.launches, gl.policy_loss_bwd.launches)
-    got = gl._finalize(gl.policy_loss_fwd(*args, 0.2).sum(0))
+    body = gl.policy_body(args[0], args[1])
+    assert body == _policy_body_expected(dtype)
+    tc = body == "tensor cores"
+    rows = build.load().policy_loss_partial_rows(n, d, va,
+                                                 int(dtype != torch.float32))
+    if tc:      # 1-16 ranks a tile of 32 rows, slices of 16-row multiples
+        sl, ranks = gl.policy_slice(args[0], args[1]), rows // -(-n // 32)
+        assert rows % -(-n // 32) == 0 and ranks in (1, 2, 4, 8, 16)
+        assert sl % 16 == 0 and ranks * (sl - 16) < d <= ranks * sl
+    else:
+        assert rows == -(-n // 16)
+    n0 = (gl.policy_loss_fwd.launches, gl.policy_loss_bwd.launches,
+          gl.policy_loss_fwd.tc.launches, gl.policy_loss_bwd.tc.launches)
+    partials = gl.policy_loss_fwd(*args, 0.2)
+    got = gl._finalize(partials.sum(0))
     dh, dw = gl.policy_loss_bwd(*args, 0.2, coefs)
     torch.cuda.synchronize()
-    assert (gl.policy_loss_fwd.launches,
-            gl.policy_loss_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    assert tuple(partials.shape) == (rows, 8)
+    assert (gl.policy_loss_fwd.launches, gl.policy_loss_bwd.launches,
+            gl.policy_loss_fwd.tc.launches, gl.policy_loss_bwd.tc.launches) \
+        == (n0[0] + 1, n0[1] + 1, n0[2] + tc, n0[3] + tc)
     exp = gl._finalize(gl._plain_policy_loss_fwd(*args, 0.2).sum(0))
     assert stale or got[3]["omega_mean"].item() > 0.5    # live data
     for x, y in zip(list(got[:3]) + list(got[3].values()),
@@ -375,10 +406,109 @@ def test_policy_loss_kernel_matches_plain(dev, dtype, n, d, va, stale):
     _check_grad(dw, edw, dtype)
 
 
-def test_policy_loss_backward_is_deterministic(dev):
+def _exact_policy_inputs(dev, n, d, va, seed):
+    """bf16 inputs whose logits are exact in f32 in any order (h = k / 8,
+    w = k / 4096, |k| <= 16), with live behaviour log-probs."""
+    from repro_torch.kernels.gipo_loss import _logits32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = (torch.randint(-16, 17, (n, d), generator=g, device=dev) / 8) \
+        .bfloat16()
+    w = (torch.randint(-16, 17, (d, va), generator=g, device=dev) / 4096) \
+        .bfloat16()
+    tg = torch.randint(0, va, (n,), generator=g, device=dev,
+                       dtype=torch.int32)
+    logp = torch.log_softmax(_logits32(h, w), dim=-1)
+    lo = logp.gather(1, tg.long()[:, None])[:, 0] \
+        + 0.1 * torch.randn(n, generator=g, device=dev)
+    return [h, w, tg, lo, torch.randn(n, generator=g, device=dev),
+            (torch.rand(n, generator=g, device=dev) > 0.15).float()]
+
+
+@pytest.mark.parametrize("n,d,va", [
+    (224, 4096, 256), (224, 2560, 256), (224, 2048, 256),   # main paths
+    (3584, 4096, 256),             # the large batch
+    (225, 2056, 192), (17, 4096, 64), (300, 64, 48),
+    (224, 6144, 256), (40, 8192, 64),   # slices past 256 rows stream
+])
+def test_policy_loss_tc_body_matches_kernel_order(dev, n, d, va):
+    """K4's tensor-core body against ref.tiled_policy_loss (its order of
+    arithmetic) on inputs whose logits are exact: the loss and metrics
+    within 1e-5 relative (floored at 1), dh and dw (bf16) within half a
+    bf16 ulp of the oracle's f32 values plus 1e-5 of the largest (f32 sums
+    in other orders)."""
     from repro_torch.kernels import gipo_loss as gl
-    args = _policy_inputs(dev, 3584, 4096, 256, torch.bfloat16, 1)
-    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / 3584
+    from repro_torch.kernels.ref import tiled_policy_loss
+    args = _exact_policy_inputs(dev, n, d, va, n + d)
+    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / n
+    assert gl.policy_body(args[0], args[1]) == "tensor cores"
+    got = gl._finalize(gl.policy_loss_fwd(*args, 0.2).sum(0))
+    dh, dw = gl.policy_loss_bwd(*args, 0.2, coefs)
+    sums, edh, edw = tiled_policy_loss(
+        *args, 0.2, coefs, d_slice=gl.policy_slice(args[0], args[1]))
+    exp = gl._finalize(sums)
+    for x, y in zip(list(got[:3]) + list(got[3].values()),
+                    list(exp[:3]) + list(exp[3].values())):
+        assert abs(x.item() - y.item()) <= 1e-5 * max(abs(y.item()), 1.0)
+    for x, y in ((dh, edh), (dw, edw)):
+        excess = ((x.float() - y).abs() - 2.0 ** -8 * y.abs()).max().item()
+        assert excess <= 1e-5 * y.abs().max().item()
+
+
+def test_policy_loss_sums_ranks_in_order(dev):
+    """K4's tensor-core body sums the ranks' partial logits in rank order.
+    Each rank's partial is one exact product (the other products are 0):
+    rank 0's b (|b| <= 8, multiples of 1/32), and in the first half of the
+    columns rank 2's 2^24 and rank 3's -2^24. In rank order b + 2^24 rounds
+    b to an integer (to a multiple of 2 above 0) and -2^24 leaves that; in
+    reverse or as a tree the large terms cancel first and b stays exact.
+    The body is held within the kernel-order bars against the oracle, whose
+    slices sum in rank order, and its forward is shown 100x past those bars
+    against the exact logits b."""
+    from repro_torch.kernels import gipo_loss as gl
+    from repro_torch.kernels.ref import tiled_policy_loss
+    n, d, va = 224, 4096, 256
+    g = torch.Generator(device=dev).manual_seed(3)
+    h = torch.zeros(n, d, device=dev)
+    w = torch.zeros(d, va, device=dev)
+    sl = gl.policy_slice(h.bfloat16(), w.bfloat16())
+    h[:, 5] = torch.randint(1, 17, (n,), generator=g, device=dev) / 4
+    w[5] = torch.randint(-64, 65, (va,), generator=g, device=dev) / 8
+    big = (2 * sl + 7, 3 * sl + 9)     # rows of d in ranks 2 and 3
+    h[:, big[0]], h[:, big[1]] = 2.0 ** 12, -2.0 ** 12
+    w[big[0], :va // 2] = w[big[1], :va // 2] = 2.0 ** 12
+    h, w = h.bfloat16(), w.bfloat16()
+    tg = torch.randint(0, va, (n,), generator=g, device=dev,
+                       dtype=torch.int32)
+    b = h[:, 5:6].float() * w[5:6].float()
+    lo = torch.log_softmax(b, -1).gather(1, tg.long()[:, None])[:, 0] \
+        + 0.1 * torch.randn(n, generator=g, device=dev)
+    rows = [tg, lo, torch.randn(n, generator=g, device=dev),
+            (torch.rand(n, generator=g, device=dev) > 0.15).float()]
+    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / n
+    got = gl._finalize(gl.policy_loss_fwd(h, w, *rows, 0.2).sum(0))
+    dh, dw = gl.policy_loss_bwd(h, w, *rows, 0.2, coefs)
+
+    def fwd_excess(sums):
+        exp = gl._finalize(sums)
+        return max(abs(x.item() - y.item()) / (1e-5 * max(abs(y.item()), 1))
+                   for x, y in zip(list(got[:3]) + list(got[3].values()),
+                                   list(exp[:3]) + list(exp[3].values())))
+    sums, edh, edw = tiled_policy_loss(h, w, *rows, 0.2, coefs, d_slice=sl)
+    assert fwd_excess(sums) <= 1.0
+    for x, y in ((dh, edh), (dw, edw)):
+        excess = ((x.float() - y).abs() - 2.0 ** -8 * y.abs()).max().item()
+        assert excess <= 1e-5 * y.abs().max().item()
+    h0 = h.clone()
+    h0[:, list(big)] = 0               # the logits are b, exactly
+    assert fwd_excess(tiled_policy_loss(h0, w, *rows, 0.2, coefs,
+                                        d_slice=sl)[0]) > 100.0
+
+
+@pytest.mark.parametrize("n,d", [(224, 4096), (3584, 4096), (224, 6144)])
+def test_policy_loss_backward_is_deterministic(dev, n, d):
+    from repro_torch.kernels import gipo_loss as gl
+    args = _policy_inputs(dev, n, d, 256, torch.bfloat16, 1)
+    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / n
     dh1, dw1 = gl.policy_loss_bwd(*args, 0.2, coefs)
     dh2, dw2 = gl.policy_loss_bwd(*args, 0.2, coefs)
     assert torch.equal(dh1, dh2) and torch.equal(dw1, dw2)

@@ -18,8 +18,9 @@ Phases, each printing one line of its numbers:
      K5 the GIPO
      loss over given logits, forward and backward (the reference tests'
      ragged shapes, the action head's N 224 x V 256 and
-     benchmarks/fused_loss.py's FULL_SHAPES; the backward twice, bit for
-     bit), K1/K2/K3 again at zamba2-1.2b's attention (head_dim 64, MHA; K1
+     benchmarks/fused_loss.py's FULL_SHAPES, all on its register body and
+     also against its order of arithmetic; the backward twice, bit for
+     bit; timed with the share of its bound), K1/K2/K3 again at zamba2-1.2b's attention (head_dim 64, MHA; K1
      also without the causal mask), K6 SSD scan (with and without entering
      states; which body ran printed, and its bf16 tensor-core body timed
      beside its FMA body) and K7 its backward (run twice, bit for bit) at
@@ -98,6 +99,14 @@ BF16_TOL = 2e-2
 # relative) plus f32 reordering error, held at 1e-5.
 ORDER_RTOL = 2.0 ** -8
 ORDER_ATOL = 1e-5
+# K5's register body against its order of arithmetic
+# (kernels/ref.py::tiled_gipo_head_loss, computed on the card): the same
+# exponentials and sums in the same order, so the partial rows and f32
+# d_logits differ only where the compiler fuses a multiply and an add,
+# ~1e-7 of the largest value; held at 2e-6 of each partial column's largest
+# value and of d's largest value (bf16 d: plus ORDER_RTOL of each value,
+# the kernel rounding its f32 d once).
+K5_ORDER_ATOL = 2e-6
 # Kernel route vs plain route, max |Δ action logit| over prefill + 7 decode
 # steps of openvla-7b in bf16. Measured 0.031 on the H100 with logits of
 # magnitude ~3: the two routes round the attention output to bf16 at
@@ -955,13 +964,15 @@ def _time_head(args, coefs, flush):
     their bounds: bytes (each input read once, each output written once)
     against operations on the f32 units (the row math is f32 whatever the
     logits' type: ~5 an element forward, ~15 backward). No single PyTorch
-    call computes the loss with its analytic backward: no library time."""
+    call computes the loss with its analytic backward: no library time.
+    The forward's output is the function's: its N_COLS f32 sums, whatever
+    the partial rows a body writes on the way."""
     from repro_torch.kernels import gipo_loss as gl
     n, v = args[0].shape
     out = {}
     for tag, kern, plain, extra, nflop, outs in (
             ("fwd", gl.gipo_head_fwd, gl._plain_gipo_head_fwd, (),
-             5.0 * n * v, -(-n // gl.HEAD_ROWS) * 8 * 4),
+             5.0 * n * v, gl.N_COLS * 4),
             ("bwd", gl.gipo_head_bwd, gl._plain_gipo_head_bwd, (coefs,),
              15.0 * n * v, _nbytes(args[0]))):
         ms, host_ms = _median_ms(lambda: kern(*args, 0.2, *extra),
@@ -973,12 +984,44 @@ def _time_head(args, coefs, flush):
         shape = f"N={n} V={v} {str(args[0].dtype)[6:]}"
         print(f"[kernels] gipo_head_{tag} {shape}: kernel {ms:.4f} ms | "
               f"plain {plain_ms:.4f} ms | library none | bound "
-              f"{bound_ms:.4f} ms ({bound_by}) | host enqueue "
-              f"{host_ms:.4f} ms")
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.0%} of it "
+              f"reached | host enqueue {host_ms:.4f} ms")
         out[tag] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=None)
     return out
+
+
+def _head_fwd_err(tag, args, parts):
+    """K5's forward, its partial rows ``parts`` summed, against the plain
+    version on ``args``: the loss, entropy, KL and metrics within
+    F32_MAX_ERR relative (floored at 1). Returns the error and the plain
+    version's terms."""
+    from repro_torch.kernels import gipo_loss as gl
+    got = gl._finalize(parts.sum(0))
+    exp = gl._finalize(gl._plain_gipo_head_fwd(*args, 0.2).sum(0))
+    vals = list(got[:3]) + [got[3][x] for x in sorted(got[3])]
+    evals = list(exp[:3]) + [exp[3][x] for x in sorted(exp[3])]
+    ferr = max(abs(x.item() - y.item()) / max(abs(y.item()), 1.0)
+               for x, y in zip(vals, evals))
+    if not ferr <= F32_MAX_ERR:
+        raise AssertionError(f"{tag}: forward rel err {ferr}")
+    return ferr, exp
+
+
+def _head_bwd_err(tag, args, coefs, d):
+    """K5's d_logits ``d`` under ``coefs`` against the plain version: in
+    the logits' dtype and shape, f32 within F32_MAX_ERR of the largest
+    value (as the card tests hold it), bf16 as K4's outputs. Returns (max
+    abs err, err beyond the bar's rounding term of the largest value)."""
+    import torch
+    from repro_torch.kernels import gipo_loss as gl
+    ed = gl._plain_gipo_head_bwd(*args, 0.2, coefs)
+    if d.dtype != args[0].dtype or d.shape != args[0].shape:
+        raise AssertionError(f"{tag}: d_logits {d.dtype} {d.shape}")
+    if d.dtype == torch.float32:
+        return _check_f32_out(f"{tag} d_logits", d, ed)
+    return _check_grad(f"{tag} d_logits", d, ed, d.dtype)
 
 
 def _gipo_head_kernels(gen, dev, flush):
@@ -989,27 +1032,34 @@ def _gipo_head_kernels(gen, dev, flush):
     backward under each row of K5_COEFS (live data; the stale data under
     the last), f32 d_logits within F32_MAX_ERR of the largest value, bf16
     as K4's outputs, the masked row's d_logits zero, each run twice and
-    compared bit for bit. Each live case timed. Returns the two JSON
-    entries, timed at N 224 V 256 f32 (what the kernel-ops phase runs),
-    every case beside it."""
+    compared bit for bit. Every case runs the register body, its partial
+    rows as many as the C query ``gipo_head_partial_rows`` says, and is
+    held against ``ref.tiled_gipo_head_loss`` at the layout it reports
+    (K5_ORDER_ATOL). Each live case timed. Returns the two JSON entries,
+    timed at N 224 V 256 f32 (what the kernel-ops phase runs), every case
+    beside it."""
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import gipo_loss as gl
+    from repro_torch.kernels.ref import tiled_gipo_head_loss
     cases, errs = [], {"fwd": 0.0, "bwd": 0.0}
+    order_err = 0.0
     for n, v in K5_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for stale in (False, True):
                 args = _head_case(gen, dev, n, v, dtype, stale)
                 tag = (f"gipo_head N={n} V={v} {str(dtype)[6:]} "
                        + ("stale" if stale else "live"))
-                got = gl._finalize(gl.gipo_head_fwd(*args, 0.2).sum(0))
-                exp = gl._finalize(gl._plain_gipo_head_fwd(*args, 0.2)
-                                   .sum(0))
-                vals = list(got[:3]) + [got[3][x] for x in sorted(got[3])]
-                evals = list(exp[:3]) + [exp[3][x] for x in sorted(exp[3])]
-                ferr = max(abs(x.item() - y.item()) / max(abs(y.item()), 1.0)
-                           for x, y in zip(vals, evals))
-                if not ferr <= F32_MAX_ERR:
-                    raise AssertionError(f"{tag}: forward rel err {ferr}")
+                lanes, block_rows = gl.head_layout(args[0])
+                if gl.head_body(args[0]) != "registers":
+                    raise AssertionError(f"{tag}: the streaming body")
+                parts = gl.gipo_head_fwd(*args, 0.2)
+                want = build.load().gipo_head_partial_rows(
+                    n, v, 0 if dtype == torch.float32 else 1)
+                if parts.shape != (want, 8):
+                    raise AssertionError(f"{tag}: partials {parts.shape}, "
+                                         f"the C query {want} rows")
+                ferr, exp = _head_fwd_err(tag, args, parts)
                 omega = exp[3]["omega_mean"].item()
                 if not (stale or omega > 0.5):
                     raise AssertionError(f"{tag}: ω mean {omega}")
@@ -1018,39 +1068,49 @@ def _gipo_head_kernels(gen, dev, flush):
                     coefs = torch.tensor(row, device=dev) / n
                     d = gl.gipo_head_bwd(*args, 0.2, coefs)
                     again = gl.gipo_head_bwd(*args, 0.2, coefs)
-                    ed = gl._plain_gipo_head_bwd(*args, 0.2, coefs)
                     torch.cuda.synchronize()
                     ctag = f"{tag} coefs {row}"
-                    if d.dtype != dtype or d.shape != args[0].shape:
-                        raise AssertionError(f"{ctag}: d_logits {d.dtype} "
-                                             f"{d.shape}")
-                    # f32: within F32_MAX_ERR of the largest value, as the
-                    # card tests hold it
-                    derrs.append(
-                        _check_f32_out(f"{ctag} d_logits", d, ed)
-                        if dtype == torch.float32
-                        else _check_grad(f"{ctag} d_logits", d, ed, dtype))
+                    derrs.append(_head_bwd_err(ctag, args, coefs, d))
                     if not torch.equal(d, again):
                         raise AssertionError(f"{ctag}: two backward runs "
                                              f"differ")
                     if d[1].any():
                         raise AssertionError(f"{ctag}: the masked row's "
                                              f"d_logits")
-                    del d, again, ed
+                    # the register body's order of arithmetic
+                    op, od = tiled_gipo_head_loss(
+                        *args, 0.2, coefs, lanes=lanes,
+                        block_rows=block_rows)
+                    oerr = max(
+                        ((parts - op).abs()
+                         / op.abs().amax(0).clamp_min(1e-30)).max().item(),
+                        (((d.float() - od).abs()
+                          - (0.0 if dtype == torch.float32 else ORDER_RTOL)
+                          * od.abs()).max() / od.abs().max()).item())
+                    if not oerr <= K5_ORDER_ATOL:
+                        raise AssertionError(
+                            f"{ctag}: {oerr} of the largest value from "
+                            f"ref.tiled_gipo_head_loss > {K5_ORDER_ATOL}")
+                    order_err = max(order_err, oerr)
+                    del d, again, op, od
                 errs["fwd"] = max(errs["fwd"], ferr)
                 errs["bwd"] = max(errs["bwd"], *(e[0] for e in derrs))
-                print(f"[kernels] {tag}: ω mean {omega:.3f} | forward rel "
+                print(f"[kernels] {tag}: register body, {lanes} lanes a "
+                      f"row, {block_rows} rows a partial row, "
+                      f"{parts.shape[0]} of them "
+                      f"| ω mean {omega:.3f} | forward rel "
                       f"err {ferr:.3e} | d_logits max abs err under coefs "
                       + ", ".join(f"{r} {e[0]:.3e}"
                                   for r, e in zip(rows, derrs))
                       + " | beyond the bar's rounding term, of the largest "
                       f"value: {max(e[1] for e in derrs):.3e} | two runs "
-                      f"equal | the masked row zero")
+                      f"equal | the masked row zero | from the kernel "
+                      f"order, of the largest value: {order_err:.3e} so far")
                 if not stale:
                     cases.append(_time_head(
                         args, torch.tensor(K5_COEFS[-1], device=dev) / n,
                         flush))
-                del args, got, exp
+                del args, exp
     main = K5_SHAPES.index((224, 256)) * 2           # its f32 case
     return [dict(name=f"gipo_head_loss_{tag}", route="cuda",
                  source="src/repro_torch/csrc/gipo_loss.cu",

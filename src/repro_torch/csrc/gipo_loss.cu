@@ -72,25 +72,70 @@
 // Replaces `_gipo_fwd_kernel` and `_gipo_bwd_kernel` behind the reference's
 // `gipo_head_loss` (src/repro/kernels/gipo_loss.py). logits [N,V] (f32 or
 // bf16, any N, V >= 1), the row operands as K4's.
-//   forward:  per row, one walk over the logits keeping a running max m,
-//             S = sum e^{s-m} and U = sum e^{s-m} (s-m) (both rescaled, U
-//             with its own shift term, when m grows), merged across the
-//             warp; then lse = log S, entropy H = lse - U / S, the target's
-//             shifted logit (0 when the target is outside [0, V): the
-//             reference's one-hot matches nothing) and the row terms -> the
-//             8 columns, summed over the CTA's rows in a fixed order.
-//   backward: the same walk, then a second one writing
-//             d = g (onehot - p) + c_ent m (-p (log p + H)) in the logits'
-//             dtype; rows with mask 0 write zeros.
-// What bounds it: bytes. The forward reads the logits once; the backward
-// reads them and writes d_logits (its second walk reads the row again, from
-// L1/L2). At N = 16384, V = 256 f32 that is 16.8 MB, ~5 us forward.
-// Design: one warp a row, 8 rows a CTA, 16-byte loads and stores; a row's
-// unaligned head and its tail past the last whole vector take one element a
-// lane, so any V and any row offset work (the wrapper gives d_logits the
-// logits' offset within 16 bytes, so a row's head is the same for both).
-// Nothing is accumulated across CTAs: each writes its own partial row or
-// its own rows of d_logits, and reruns agree bit for bit.
+//   forward:  per row the max m, then S = sum e and U = sum e (s - m) with
+//             e = e^{s-m}; lse = log S, entropy H = lse - U / S, the
+//             target's shifted logit (0 when the target is outside [0, V):
+//             the reference's one-hot matches nothing) and the row terms ->
+//             the 8 columns, summed over a block of rows in a fixed order.
+//   backward: d = g (onehot - p) + c_ent m (-p (log p + H)), p = e / S, in
+//             the logits' dtype; rows with mask 0 write zeros.
+// What bounds it: bytes. The forward reads the logits once (33.5 MB at
+// N 65536, V 256 in bf16: 10 us at 3.35 TB/s); the backward reads them and
+// writes d_logits (20 us). Next come the exponentials: the H100 SXM's MUFU
+// does 16 a clock an SM (~3.7 T/s), 4.5 us for one an element at that
+// shape, and the old backward's second expf and IEEE divide an element cost
+// about as much again. So each element's exponential is taken once (base
+// 2, as K1's softmax: ex2.approx of (s - m) log2 e, 5 instructions an
+// element with the sums), and loads and math have to overlap.
+// Register body (V <= HEAD_MAX_V = 1024, both dtypes): a row is split over
+// `lanes` lanes (4 to 32; a warp takes 32 / lanes rows at once), lane j
+// holding the row's 16-byte vectors j, j + lanes, ... (up to HEAD_VECS = 8
+// of them: 32 f32 or 64 bf16 elements) and elements j, j + lanes, ... of
+// the row's unaligned head (its elements before a 16-byte boundary, up to
+// 7 in bf16) and of its tail past the last whole vector, so any V and any
+// row offset work. The CTAs (4 warps) are persistent: thread 0
+// bulk-copies (`hp::bulk_load`, one mbarrier a stage) each step's logits,
+// the 16-byte chunks covering its rows, into a ring of HEAD_STAGES = 2
+// stages, a step ahead of the warps (the next step's copy in flight while
+// a step is computed, at most 33 KB of shared memory a CTA, so 6 CTAs fit
+// an SM); the row operands come in a step ahead by plain loads; so every
+// load is issued before the math that needs it, and no load waits on
+// another (the target's logit is read from the stage). The copies read up
+// to 15 bytes before and after the rows, within the 16-byte chunks that
+// hold the first and last of them. A warp reads its rows from the stage
+// into registers (a warp-wide test takes a path without predicates where
+// every row is aligned and fills the lanes' vectors), then the max (a
+// butterfly over the row's lanes), one pass forming e, S and U with e kept
+// in registers, one butterfly for both sums, and the row terms. The forward writes one
+// partial row a warp's rows, summed in row order through shuffles; the
+// backward forms d from the kept e with one reciprocal a row (no second
+// exponential, no divide an element), writes it with 16-byte streaming
+// stores without the one-hot term, and the lane holding the target's
+// element stores that element again with it (d_logits shares the logits'
+// offset within 16 bytes, so a row's head is the same for both). The plan
+// (`head_plan`) takes the fewest lanes whose vectors hold the row, or 32
+// where that leaves fewer rows than 4 warps an SM, and 4 warps a CTA unless
+// fewer cover the SMs: on the H100 SXM's 132, at N 224, V 256 one row a
+// warp and one warp a CTA, 224 CTAs. The SM count and each plan's CTAs an
+// SM are asked of the runtime once and kept. The order of arithmetic is
+// kernels/ref.py::tiled_gipo_head_loss.
+// What still holds it back (PERF.md section 6, scripts/time_gipo_head.py):
+// the bf16 forward stays above twice its byte bound. The repo's L2 flush
+// leaves the cache full of dirty lines, which the forward's reads must
+// write back first (it runs ~17% faster after a flush that leaves the
+// cache clean), and the math (5 instructions an element, and the row
+// terms) no longer hides under the loads at half the bytes of f32.
+// Streaming body (V > 1024): one warp a row, 8 rows a CTA, one walk over
+// the logits keeping a running max and both sums (rescaled when the max
+// grows), merged across the warp, then the target's logit, and in the
+// backward a second walk; 16-byte loads and stores between a scalar head
+// and tail.
+// Nothing is accumulated across CTAs: each writes its own partial rows or
+// its own rows of d_logits, and reruns agree bit for bit. The C entries
+// choose the body; `gipo_head_lanes`, `gipo_head_block_rows` and
+// `gipo_head_partial_rows` report the plan.
+
+#include <atomic>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -911,7 +956,7 @@ int dispatch_rows(const void* h, const void* w, const void* targets,
 }
 
 
-// ---- K5: the loss over given logits ----------------------------------------
+// ---- K5: the loss over given logits, streaming body (V > HEAD_MAX_V) ------
 
 constexpr int HEAD_ROWS = 8;   // token rows per CTA, one warp a row
 
@@ -1070,12 +1115,533 @@ gipo_head_kernel(const T* __restrict__ logits,
   }
 }
 
+// ---- K5: the register body (V <= HEAD_MAX_V) -------------------------------
+
+constexpr int HEAD_MAX_V = 1024;   // the register body's limit on V
+constexpr int HEAD_MAX_WARPS = 4;  // warps a CTA
+constexpr int HEAD_VECS = 8;       // 16-byte vectors a lane, at most
+constexpr int HEAD_STAGES = 2;     // steps of rows in flight a CTA
+// a stage's bytes at most: a step's rows fill at most HEAD_VECS vectors a
+// lane, plus 32 bytes of rounding, to 128 bytes
+constexpr int HEAD_STAGE_MAX = HEAD_MAX_WARPS * 32 * HEAD_VECS * 16 + 128;
+static_assert(HEAD_STAGES * (HEAD_STAGE_MAX + 8) <= 48 * 1024,
+              "the ring fits a CTA's default shared memory");
+
+// The card's SMs, asked of the runtime once (the cards of a process are
+// alike); 0 if it cannot say. The plan and the grid both size from it.
+inline int head_sms() {
+  static std::atomic<int> sms{0};
+  int n = sms.load(std::memory_order_relaxed);
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    sms.store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
+
+// Lanes a row (0: the streaming body), 16-byte vectors a lane, warps a CTA.
+struct HeadPlan {
+  int lanes, vecs, warps;
+};
+
+inline HeadPlan head_plan(int N, int V, int dtype) {
+  HeadPlan p{0, 0, 0};
+  if (N <= 0 || V <= 0 || V > HEAD_MAX_V ||
+      (dtype != repro::DTYPE_F32 && dtype != repro::DTYPE_BF16))
+    return p;
+  const long sms = head_sms();
+  const int w = dtype == repro::DTYPE_BF16 ? 8 : 4;     // elements a vector
+  const int chunks = (V + w - 1) / w;
+  // the fewest lanes (4 to 32) whose HEAD_VECS vectors hold the row; 32
+  // where that leaves fewer rows than 4 warps an SM
+  p.lanes = 4;
+  while (p.lanes * HEAD_VECS < chunks) p.lanes *= 2;
+  if ((long)N * p.lanes < 4L * sms * 32) p.lanes = 32;
+  p.vecs = 1;
+  while (p.vecs * p.lanes < chunks) p.vecs *= 2;
+  const long warps = ((long)N * p.lanes + 31) / 32;
+  p.warps = HEAD_MAX_WARPS;
+  while (p.warps > 1 && (warps + p.warps - 1) / p.warps < sms)
+    p.warps /= 2;
+  return p;
+}
+
+// token rows a partial row of the forward sums: a warp's (register body) or
+// a CTA's (streaming body)
+inline int head_block_rows(const HeadPlan& p) {
+  return p.lanes ? 32 / p.lanes : HEAD_ROWS;
+}
+
+// One 16-byte vector of a row, read from the stage: its elements as f32,
+// and a 16-byte streaming store of d_logits.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  float4 raw;
+  __device__ __forceinline__ void load(const float* p) {
+    raw = *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ void fill(float v) {
+    raw = make_float4(v, v, v, v);
+  }
+  __device__ __forceinline__ void get(float (&f)[4]) const {
+    f[0] = raw.x; f[1] = raw.y; f[2] = raw.z; f[3] = raw.w;
+  }
+  static __device__ __forceinline__ void store(float* p,
+                                               const float (&f)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(f[0], f[1], f[2], f[3]));
+  }
+};
+template <>
+struct Vec<bf16> {
+  uint4 raw;
+  __device__ __forceinline__ void load(const bf16* p) {
+    raw = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void fill(float v) {
+    const uint32_t u = hp::pack_bf16(v, v);
+    raw = make_uint4(u, u, u, u);
+  }
+  __device__ __forceinline__ void get(float (&f)[8]) const {
+    const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = hp::unpack_bf16(u[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+  static __device__ __forceinline__ void store(bf16* p,
+                                               const float (&f)[8]) {
+    __stcs(reinterpret_cast<uint4*>(p),
+           make_uint4(hp::pack_bf16(f[0], f[1]), hp::pack_bf16(f[2], f[3]),
+                      hp::pack_bf16(f[4], f[5]), hp::pack_bf16(f[6], f[7])));
+  }
+};
+
+// The largest element of a lane's NV vectors
+template <int NV>
+__device__ __forceinline__ float vec_max(const Vec<float> (&v)[NV]) {
+  float m = v[0].raw.x;
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    m = fmaxf(fmaxf(fmaxf(m, v[k].raw.x), fmaxf(v[k].raw.y, v[k].raw.z)),
+              v[k].raw.w);
+  return m;
+}
+template <int NV>
+__device__ __forceinline__ float vec_max(const Vec<bf16> (&v)[NV]) {
+  auto h2 = [](uint32_t u) {
+    return *reinterpret_cast<const __nv_bfloat162*>(&u);
+  };
+  __nv_bfloat162 m = __hmax2(h2(v[0].raw.x), h2(v[0].raw.y));
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    m = __hmax2(__hmax2(m, __hmax2(h2(v[k].raw.x), h2(v[k].raw.y))),
+                __hmax2(h2(v[k].raw.z), h2(v[k].raw.w)));
+  const float2 f = __bfloat1622float2(m);
+  return fmaxf(f.x, f.y);
+}
+
+constexpr float HEAD_LOG2E = 1.4426950408889634f;
+
+// e^sh as 2^(sh log2 e), in base 2 as K1's softmax (ex2.approx, flushing
+// results below 2^-126 to zero; the max's e is exactly 1)
+__device__ __forceinline__ float head_exp(float sh) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(sh * HEAD_LOG2E));
+  return e;
+}
+
+// K5's element of d, from p = e / S (one reciprocal a row): the arithmetic
+// of `dlogit` after its exponential and divide
+__device__ __forceinline__ float head_dlogit(float p, float sh, float lse,
+                                             float ent, bool is_tgt, float g,
+                                             float ce) {
+  return g * ((is_tgt ? 1.f : 0.f) - p) + ce * (-(p * ((sh - lse) + ent)));
+}
+
+// One element of the pass after the max: sh = s - m, e = e^sh, and the
+// lane's running sums in the lane's element order (S from 0, U = sum e sh
+// by fused multiply-add).
+__device__ __forceinline__ float head_push(float x, float mx, float& S,
+                                           float& U) {
+  const float sh = x - mx;
+  const float e = head_exp(sh);
+  S += e;
+  U = fmaf(e, sh, U);
+  return e;
+}
+
+// The operands of a token row (-1, 0, 0, 0 past N)
+struct HeadOps {
+  int tgt;
+  float lo, ad, m;
+  __device__ __forceinline__ void load(const int* __restrict__ targets,
+                                       const float* __restrict__ logp_old,
+                                       const float* __restrict__ adv,
+                                       const float* __restrict__ mask,
+                                       long n, int N) {
+    const bool ok = n < N;
+    tgt = ok ? targets[n] : -1;
+    lo = ok ? logp_old[n] : 0.f;
+    ad = ok ? adv[n] : 0.f;
+    m = ok ? mask[n] : 0.f;
+  }
+};
+
+// The byte range a block of rows [n0, n0 + rows) covers, rounded out to 16
+// bytes (the bulk copy's unit), from the logits' 16-byte aligned base.
+struct HeadSpan {
+  long a0, a1;
+};
+__device__ __forceinline__ HeadSpan head_span(long n0, int rows, int N,
+                                              int V, int esize, int mis) {
+  const long end = min((long)N, n0 + rows);
+  return {(n0 * V * esize + mis) & ~15L, (end * V * esize + mis + 15) & ~15L};
+}
+
+// Forward (BWD = false): one partial row a block of rows. Backward (BWD =
+// true): d_logits, whose rows share the logits' offset within 16 bytes.
+// A block is one warp's rows (R = 32 / lanes, row r on lanes
+// [r lanes, (r + 1) lanes)); a CTA of `warps` warps takes warps
+// consecutive blocks a step. The CTAs are persistent and take steps
+// blockIdx.x, blockIdx.x + gridDim.x, ...; thread 0 bulk-copies each step's
+// logits (the 16-byte chunks covering its rows) into a ring of HEAD_STAGES
+// stages in shared memory, HEAD_STAGES - 1 steps ahead of the warps, and
+// the warps read their rows from the stage into registers. A row's
+// operands come in one step ahead, by plain loads.
+template <typename T, int LANES, int NV, bool BWD>
+__global__ void __launch_bounds__(HEAD_MAX_WARPS * 32)
+gipo_rows_kernel(const T* __restrict__ logits,
+                 const int* __restrict__ targets,
+                 const float* __restrict__ logp_old,
+                 const float* __restrict__ adv,
+                 const float* __restrict__ mask,
+                 const float* __restrict__ coefs,
+                 float* __restrict__ partials, T* __restrict__ dlogits,
+                 int N, int V, int stage_bytes, float sigma) {
+  constexpr int W = 16 / sizeof(T);
+  constexpr int lanes = LANES, rows = 32 / LANES;
+  // a row's head and tail hold up to W - 1 elements each: HT a lane
+  constexpr int HT = (W - 1 + LANES - 1) / LANES;
+  extern __shared__ __align__(128) uint8_t head_smem[];
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(head_smem + HEAD_STAGES * stage_bytes);
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int j = lane % lanes, r = lane / lanes;
+  const int step_rows = warps * rows;
+  const long nsteps = ((long)N + step_rows - 1) / step_rows;
+  const long nblocks = ((long)N + rows - 1) / rows;
+  const int mis = (int)(reinterpret_cast<uintptr_t>(logits) & 15);
+  const uint8_t* base = reinterpret_cast<const uint8_t*>(logits) - mis;
+  float cf[3] = {0.f, 0.f, 0.f};
+  if constexpr (BWD) {
+    cf[0] = coefs[0];
+    cf[1] = coefs[1];
+    cf[2] = coefs[2];
+  }
+
+  // step q of this CTA into its stage (thread 0)
+  auto issue = [&](int q) {
+    const long st = blockIdx.x + (long)q * gridDim.x;
+    if (st >= nsteps) return;
+    const HeadSpan sp = head_span(st * step_rows, step_rows, N, V, sizeof(T),
+                                  mis);
+    uint64_t* bar = &full[q % HEAD_STAGES];
+    hp::bar_expect(bar, (uint32_t)(sp.a1 - sp.a0));
+    hp::bulk_load(head_smem + (q % HEAD_STAGES) * stage_bytes, base + sp.a0,
+                  (uint32_t)(sp.a1 - sp.a0), bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < HEAD_STAGES; ++q) hp::bar_init(&full[q], 1);
+    hp::bar_init_fence();
+    for (int q = 0; q < HEAD_STAGES; ++q) issue(q);
+  }
+  const int rin = warp * rows + r;           // the row's place in a step
+  HeadOps cur, nxt;
+  cur.load(targets, logp_old, adv, mask, blockIdx.x * (long)step_rows + rin,
+           N);
+  __syncthreads();                           // the barriers are initialised
+
+  int q = 0;
+  for (long st = blockIdx.x; st < nsteps; st += gridDim.x, ++q) {
+    const long n0 = st * step_rows, n = n0 + rin;
+    nxt.load(targets, logp_old, adv, mask, n + (long)gridDim.x * step_rows,
+             N);
+    const bool live = n < N;
+    const uint8_t* stage = head_smem + (q % HEAD_STAGES) * stage_bytes;
+    hp::bar_wait(&full[q % HEAD_STAGES], (q / HEAD_STAGES) & 1);
+
+    // the row in the stage (its offset within 16 bytes as in global
+    // memory), split into head, vectors and tail
+    const HeadSpan sp = head_span(n0, step_rows, N, V, sizeof(T), mis);
+    const T* row = reinterpret_cast<const T*>(
+        stage + ((live ? n : n0) * V * (long)sizeof(T) + mis - sp.a0));
+    const int head = min(
+        V, (int)(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15)
+                 / sizeof(T)));
+    const int nvec = (V - head) / W;
+    const int tail0 = head + nvec * W, ntail = V - tail0;
+    // every row of the warp 16-byte aligned and whole in the lanes'
+    // vectors: no head, no tail, no position outside the row
+    const bool whole = __all_sync(
+        0xffffffffu, live && head == 0 && ntail == 0 && nvec == lanes * NV);
+    float xh[HT], xt[HT];
+#pragma unroll
+    for (int h = 0; h < HT; ++h) xh[h] = xt[h] = repro::NEG_INF;
+    Vec<T> v[NV];
+    if (whole) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) v[k].load(row + (j + k * lanes) * W);
+    } else {
+#pragma unroll
+      for (int h = 0; h < HT; ++h) {
+        const int c = j + h * lanes;
+        if (live && c < head) xh[h] = repro::to_f(row[c]);
+        if (live && c < ntail) xt[h] = repro::to_f(row[tail0 + c]);
+      }
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        if (live && j + k * lanes < nvec)
+          v[k].load(row + head + (j + k * lanes) * W);
+        else
+          v[k].fill(repro::NEG_INF);
+      }
+    }
+    const bool hit = live && cur.tgt >= 0 && cur.tgt < V;
+    const float tx = hit ? repro::to_f(row[cur.tgt]) : 0.f;
+
+    // the row max
+    float mx = vec_max(v);
+#pragma unroll
+    for (int h = 0; h < HT; ++h) mx = fmaxf(mx, fmaxf(xh[h], xt[h]));
+#pragma unroll
+    for (int off = lanes / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+
+    // one pass: e (kept), S and U, in the lane's order: head, vectors, tail
+    // (a whole row has neither: its lanes add the vectors alone)
+    float S = 0.f, U = 0.f;
+    float e[NV][W];
+    float eh[HT] = {}, et[HT] = {};
+    if (!whole) {
+#pragma unroll
+      for (int h = 0; h < HT; ++h) eh[h] = head_push(xh[h], mx, S, U);
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      float x[W];
+      v[k].get(x);
+#pragma unroll
+      for (int i = 0; i < W; ++i) e[k][i] = head_push(x[i], mx, S, U);
+    }
+    if (!whole) {
+#pragma unroll
+      for (int h = 0; h < HT; ++h) et[h] = head_push(xt[h], mx, S, U);
+    }
+#pragma unroll
+    for (int off = lanes / 2; off > 0; off >>= 1) {
+      S += __shfl_xor_sync(0xffffffffu, S, off);
+      U += __shfl_xor_sync(0xffffffffu, U, off);
+    }
+    const float lse = logf(S);
+    const float ent = lse - U / S;
+    const float ts = hit ? tx - mx : 0.f;
+    const RowTerms t = row_terms(ts - lse, cur.lo, cur.ad, sigma);
+
+    if constexpr (!BWD) {
+      // the block's rows' 8 columns, summed in row order from 0: lane j of
+      // each row takes columns j, j + lanes, ... (below 8), lane j of the
+      // first row sums them
+      float pv[8];
+      row_partials(pv, t, ent, cur.m, sigma);
+      const long blk = st * warps + warp;
+#pragma unroll
+      for (int c0 = 0; c0 < 8; c0 += lanes) {
+        float col = 0.f;
+#pragma unroll
+        for (int c = c0; c < c0 + lanes && c < 8; ++c)
+          col = j == c - c0 ? pv[c] : col;
+        col = live ? col : 0.f;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < rows; ++i)
+          sum += __shfl_sync(0xffffffffu, col, i * lanes + j);
+        if (lane < 8 - c0 && lane < lanes && blk < nblocks)
+          partials[blk * 8 + c0 + lane] = sum;
+      }
+    } else if (live) {
+      // d without its one-hot term, then the target's element again with
+      // it, from the lane that holds it (a later store from the same
+      // thread): every element as head_dlogit
+      T* drow = dlogits + n * V;
+      const float m = cur.m;
+      const float g = row_g(t, cf, m);
+      const float ce = cf[2] * m;
+      const float inv = 1.f / S;
+      const bool zero = m == 0.f;
+#pragma unroll
+      for (int h = 0; h < HT; ++h) {
+        const int c = j + h * lanes;
+        if (!whole && c < head)
+          drow[c] = repro::from_f<T>(
+              zero ? 0.f : head_dlogit(eh[h] * inv, xh[h] - mx, lse, ent,
+                                       c == cur.tgt, g, ce));
+      }
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int c = j + k * lanes;
+        if (whole || c < nvec) {
+          float x[W], d[W];
+          v[k].get(x);
+#pragma unroll
+          for (int i = 0; i < W; ++i)
+            d[i] = zero ? 0.f
+                        : head_dlogit(e[k][i] * inv, x[i] - mx, lse, ent,
+                                      false, g, ce);
+          Vec<T>::store(drow + head + c * W, d);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < HT; ++h) {
+        const int c = j + h * lanes;
+        if (!whole && c < ntail)
+          drow[tail0 + c] = repro::from_f<T>(
+              zero ? 0.f : head_dlogit(et[h] * inv, xt[h] - mx, lse, ent,
+                                       tail0 + c == cur.tgt, g, ce));
+      }
+      // the lane holding the target's vector element fixes it
+      const int off = cur.tgt - head;
+      if (hit && !zero && off >= 0 && off < nvec * W &&
+          (off / W) % lanes == j) {
+        const float sh = tx - mx;
+        drow[cur.tgt] = repro::from_f<T>(
+            head_dlogit(head_exp(sh) * inv, sh, lse, ent, true, g, ce));
+      }
+    }
+    cur = nxt;
+    __syncthreads();                         // every warp is done with it
+    if (threadIdx.x == 0) issue(q + HEAD_STAGES);
+  }
+}
+
+// the ring's stage: a step's rows and 32 bytes of rounding, to 128 bytes
+inline int head_stage_bytes(const HeadPlan& p, int V, int esize) {
+  return ((p.warps * 32 / p.lanes) * V * esize + 32 + 127) / 128 * 128;
+}
+
+template <typename T, int LANES, int NV, bool BWD>
+int launch_ring(const HeadPlan& p, const void* logits, const void* targets,
+                const void* logp_old, const void* adv, const void* mask,
+                const void* coefs, void* partials, void* dlogits, int N,
+                int V, float sigma, cudaStream_t st) {
+  auto kern = gipo_rows_kernel<T, LANES, NV, BWD>;
+  const int threads = p.warps * 32;
+  const int stage = head_stage_bytes(p, V, sizeof(T));
+  if (stage > HEAD_STAGE_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)HEAD_STAGES * stage + HEAD_STAGES * 8;
+  // CTAs an SM at these threads and this shared memory, asked of the
+  // runtime once a (warps, stage size) and kernel
+  static std::atomic<int> occ_of[3][HEAD_STAGE_MAX / 128 + 1];
+  std::atomic<int>& slot = occ_of[p.warps / 2][stage / 128];
+  int occ = slot.load(std::memory_order_relaxed);
+  if (occ == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, kern, threads, smem);
+    if (e != cudaSuccess) return repro::refused(e);
+    slot.store(occ, std::memory_order_relaxed);
+  }
+  const int step_rows = p.warps * 32 / p.lanes;
+  const long steps = ((long)N + step_rows - 1) / step_rows;
+  const long grid = min(steps, (long)max(1, head_sms() * occ));
+  kern<<<(unsigned)grid, threads, smem, st>>>(
+      static_cast<const T*>(logits), static_cast<const int*>(targets),
+      static_cast<const float*>(logp_old), static_cast<const float*>(adv),
+      static_cast<const float*>(mask), static_cast<const float*>(coefs),
+      static_cast<float*>(partials), static_cast<T*>(dlogits), N, V, stage,
+      sigma);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int LANES, bool BWD>
+int launch_lanes(const HeadPlan& p, const void* logits, const void* targets,
+                 const void* logp_old, const void* adv, const void* mask,
+                 const void* coefs, void* partials, void* dlogits, int N,
+                 int V, float sigma, cudaStream_t st) {
+#define REPRO_ROWS(NV)                                                       \
+  return launch_ring<T, LANES, NV, BWD>(p, logits, targets, logp_old, adv,   \
+                                        mask, coefs, partials, dlogits, N, V, \
+                                        sigma, st)
+  // head_plan gives 8 and 16 lanes a row only with HEAD_VECS vectors, and
+  // bf16 rows at 32 lanes fewer (V <= HEAD_MAX_V)
+  constexpr bool any = LANES == 4 || LANES == 32;
+  switch (p.vecs) {
+    case 1: if constexpr (any) REPRO_ROWS(1); break;
+    case 2: if constexpr (any) REPRO_ROWS(2); break;
+    case 4: if constexpr (any) REPRO_ROWS(4); break;
+    case 8:
+      if constexpr (LANES < 32 || sizeof(T) == 4) REPRO_ROWS(8);
+      break;
+    default: break;
+  }
+#undef REPRO_ROWS
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool BWD>
+int launch_rows(const HeadPlan& p, const void* logits, const void* targets,
+                const void* logp_old, const void* adv, const void* mask,
+                const void* coefs, void* partials, void* dlogits, int N,
+                int V, float sigma, cudaStream_t st) {
+  switch (p.lanes) {
+    case 4:
+      return launch_lanes<T, 4, BWD>(p, logits, targets, logp_old, adv, mask,
+                                     coefs, partials, dlogits, N, V, sigma,
+                                     st);
+    case 8:
+      return launch_lanes<T, 8, BWD>(p, logits, targets, logp_old, adv, mask,
+                                     coefs, partials, dlogits, N, V, sigma,
+                                     st);
+    case 16:
+      return launch_lanes<T, 16, BWD>(p, logits, targets, logp_old, adv,
+                                      mask, coefs, partials, dlogits, N, V,
+                                      sigma, st);
+    case 32:
+      return launch_lanes<T, 32, BWD>(p, logits, targets, logp_old, adv,
+                                      mask, coefs, partials, dlogits, N, V,
+                                      sigma, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool BWD>
 int launch_head(const void* logits, const void* targets, const void* logp_old,
                 const void* adv, const void* mask, const void* coefs,
                 void* partials, void* dlogits, int N, int V, int dtype,
                 float sigma, cudaStream_t st) {
   if (N <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype != repro::DTYPE_F32 && dtype != repro::DTYPE_BF16)
+    return (int)cudaErrorInvalidValue;
+  if (head_sms() == 0) return repro::refused(cudaErrorNoDevice);
+  const HeadPlan p = head_plan(N, V, dtype);
+  if (p.lanes) {
+    return dtype == repro::DTYPE_F32
+               ? launch_rows<float, BWD>(p, logits, targets, logp_old, adv,
+                                         mask, coefs, partials, dlogits, N, V,
+                                         sigma, st)
+               : launch_rows<bf16, BWD>(p, logits, targets, logp_old, adv,
+                                        mask, coefs, partials, dlogits, N, V,
+                                        sigma, st);
+  }
   const int nb = (N + HEAD_ROWS - 1) / HEAD_ROWS;
 #define REPRO_HEAD(T)                                                       \
   gipo_head_kernel<T, BWD><<<nb, HEAD_ROWS * 32, 0, st>>>(                  \
@@ -1085,10 +1651,8 @@ int launch_head(const void* logits, const void* targets, const void* logp_old,
       static_cast<float*>(partials), static_cast<T*>(dlogits), N, V, sigma)
   if (dtype == repro::DTYPE_F32) {
     REPRO_HEAD(float);
-  } else if (dtype == repro::DTYPE_BF16) {
-    REPRO_HEAD(__nv_bfloat16);
   } else {
-    return (int)cudaErrorInvalidValue;
+    REPRO_HEAD(__nv_bfloat16);
   }
 #undef REPRO_HEAD
   return (int)cudaGetLastError();
@@ -1116,6 +1680,27 @@ extern "C" int gipo_head_bwd(const void* logits, const void* targets,
   return launch_head<true>(logits, targets, logp_old, adv, mask, coefs,
                            nullptr, dlogits, N, V, dtype, sigma,
                            static_cast<cudaStream_t>(stream));
+}
+
+// lanes a row of K5's register body, 0 where the shape runs the streaming
+// body (V > HEAD_MAX_V) or is refused
+extern "C" int gipo_head_lanes(int N, int V, int dtype) {
+  return head_plan(N, V, dtype).lanes;
+}
+
+// token rows each partial row of gipo_head_fwd sums (0 for a shape it
+// refuses)
+extern "C" int gipo_head_block_rows(int N, int V, int dtype) {
+  if (N <= 0 || V <= 0 ||
+      (dtype != repro::DTYPE_F32 && dtype != repro::DTYPE_BF16))
+    return 0;
+  return head_block_rows(head_plan(N, V, dtype));
+}
+
+// rows of the partial sums gipo_head_fwd writes (0 for a shape it refuses)
+extern "C" int gipo_head_partial_rows(int N, int V, int dtype) {
+  const int rows = gipo_head_block_rows(N, V, dtype);
+  return rows ? (int)(((long)N + rows - 1) / rows) : 0;
 }
 
 // rows of d a rank of K4's tensor-core body takes (bf16), 0 where the shape

@@ -61,6 +61,12 @@ SIGNATURES = {
     # logits, targets, logp_old, adv, mask, coefs, dlogits, N, V, dtype,
     # sigma, stream
     "gipo_head_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # N, V, dtype -> lanes a row of K5's register body (0: the streaming
+    # body), token rows a partial row sums, rows of the partial sums
+    # gipo_head_fwd writes
+    "gipo_head_lanes": (_I, _I, _I),
+    "gipo_head_block_rows": (_I, _I, _I),
+    "gipo_head_partial_rows": (_I, _I, _I),
     # x, dt, A, Bm, Cm, y, s_final, s_enter (may be null), B, L, H, P, N,
     # chunk, dtype, stream
     "ssd_scan_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

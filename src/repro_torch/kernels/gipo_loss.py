@@ -22,8 +22,14 @@ CTA). ``policy_body`` says which a shape takes.
 **K5, logits level** (``gipo_head_loss``). Replaces ``_gipo_fwd_kernel`` /
 ``_gipo_bwd_kernel`` behind the custom VJP of the reference's
 ``gipo_head_loss``: the same per-row terms over given ``[N, V]`` logits
-(f32 or bf16, any V), one warp a row; the backward writes ``d_logits`` in
-the logits' dtype. Gradients flow to ``logits`` only.
+(f32 or bf16, any V); the backward writes ``d_logits`` in the logits'
+dtype. Gradients flow to ``logits`` only. Up to V 1024 the register body
+runs: persistent CTAs bulk-copy blocks of rows into a shared-memory ring a
+step ahead, a row is split over 4 to 32 lanes and held in registers, each
+element's exponential taken once (base 2); its order of arithmetic is
+``ref.tiled_gipo_head_loss`` with the layout ``head_layout`` reports. Past
+V 1024 the streaming body (one warp a row) walks the row. ``head_body``
+says which a shape takes.
 
 Targets, μ, advantages and mask are constants at both levels. Both share
 the block math below (``_softmax_rows``, ``_fwd_partials``,
@@ -56,7 +62,6 @@ from repro_torch.kernels.flash_attention import _capability
 #   4: Σ entropy   5: Σ k3-KL   6: Σ stale   7: unused
 N_COLS = 8
 MAX_VA = 256          # a row's logits live in the CTA's shared memory (K4)
-HEAD_ROWS = 8         # token rows per CTA of K5 (one warp a row)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
@@ -408,18 +413,38 @@ def fused_policy_loss(hidden, w, targets, logp_old, advantages, mask,
                          "stale_frac": stale}
 
 
+def head_layout(logits) -> Tuple[int, int]:
+    """(lanes a row, token rows a block) of K5 for these CUDA logits
+    (``csrc/gipo_loss.cu::head_plan``): the forward writes one partial row
+    a block, a warp's rows on the register body; lanes is 0 where the
+    shape runs the streaming body (one warp a row, 8 rows a block)."""
+    n, v = logits.shape
+    lib, code = build.load(), _DTYPE_CODES[logits.dtype]
+    return (lib.gipo_head_lanes(n, v, code),
+            lib.gipo_head_block_rows(n, v, code))
+
+
+def head_body(logits) -> str:
+    """Which K5 body ``gipo_head_fwd`` / ``gipo_head_bwd`` launch for these
+    CUDA logits: "registers" (V <= 1024) or "streaming"."""
+    return "registers" if head_layout(logits)[0] else "streaming"
+
+
 def gipo_head_fwd(logits, targets, logp_old, advantages, mask,
                   sigma: float) -> torch.Tensor:
-    """K5 forward: per-CTA partial sums [ceil(N / HEAD_ROWS), 8] f32
-    (CUDA), or one block's [1, 8] from the plain version (CPU)."""
+    """K5 forward: partial sums [R, 8] f32, each a sum over a block of
+    token rows (``head_layout``; CUDA: R from the C query
+    ``gipo_head_partial_rows``), or one block's [1, 8] from the plain
+    version (CPU)."""
     if logits.device.type == "cpu":
         return _plain_gipo_head_fwd(logits, targets, logp_old, advantages,
                                     mask, sigma)
     check_gipo_head_args(logits, targets, logp_old, advantages, mask)
     n, v = logits.shape
-    partials = torch.empty((-(-n // HEAD_ROWS), N_COLS),
-                           dtype=torch.float32, device=logits.device)
     lib = build.load()
+    partials = torch.empty((lib.gipo_head_partial_rows(
+        n, v, _DTYPE_CODES[logits.dtype]), N_COLS), dtype=torch.float32,
+        device=logits.device)
     with torch.cuda.device(logits.device):
         err = lib.gipo_head_fwd(
             logits.data_ptr(), targets.data_ptr(), logp_old.data_ptr(),

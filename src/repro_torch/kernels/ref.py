@@ -1,8 +1,8 @@
 """Oracles for the kernels: the dense attention allclose target, the
 attention kernels' own order of arithmetic for holding their bf16 bodies
 tightly, the unfused token-level GIPO loss, K4 in the order of its
-tensor-core body, the stepwise SSD recurrence, and the SSD scan in the
-order of K6's tensor-core body."""
+tensor-core body, K5 in the order of its register body, the stepwise SSD
+recurrence, and the SSD scan in the order of K6's tensor-core body."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -151,6 +151,112 @@ def tiled_policy_loss(hidden: torch.Tensor, w: torch.Tensor,
         dh = t @ w32.T if dh is None else dh + t @ w32.T
         dw = h32.T @ t if dw is None else dw + h32.T @ t
     return sums, dh, dw
+
+
+def tiled_gipo_head_loss(logits: torch.Tensor, targets: torch.Tensor,
+                         logp_old: torch.Tensor, advantages: torch.Tensor,
+                         mask: torch.Tensor, sigma: float,
+                         coefs: torch.Tensor, *, lanes: int, block_rows: int,
+                         offset: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 (the GIPO loss over given logits) in the order of arithmetic of
+    its register body (``csrc/gipo_loss.cu``, ``gipo_rows_kernel``), in
+    f32.
+
+    The layout is the body's (``gipo_loss.head_layout``): a row over
+    ``lanes`` lanes, ``block_rows`` consecutive rows a block (a warp's, one
+    partial row each). ``offset`` is the logits' first element's place
+    within 16 bytes, in elements: of row n's head (its elements before a
+    16-byte boundary) and of the tail past its last whole 16-byte vector,
+    lane j takes elements j, j + lanes, ..., and of the vectors in between
+    vectors j, j + lanes, ... Every element of a row is in one lane's list
+    (asserted). The exponentials are base 2, as K1's: sh = s - max, e =
+    2^(sh log2 e) with log2 e and the product in f32. Each lane sums e over
+    its elements in its order (head, vectors, tail) from 0, and e sh into
+    U by fused multiply-add; the lanes' sums combine in a butterfly
+    (offsets lanes / 2 down to 1, each lane adding its partner's). Then lse
+    = log S, H = lse - U / S, the row terms as ``_fwd_partials``, and each
+    block's 8 columns summed over its rows in order from 0. d = g (onehot
+    - p) + c_ent m (-p ((s - max - lse) + H)) with p = e (1 / S), 0 on rows
+    with mask 0; ``coefs`` is the (c_pg, c_kl, c_ent) row. Returns (the
+    partial rows [ceil(N / block_rows), 8], d_logits [N, V]), f32, d before
+    any rounding to the logits' dtype."""
+    n, v = logits.shape
+    width = 16 // logits.element_size()
+    dev = logits.device
+    x = logits.float()
+    start = offset + torch.arange(n, device=dev) * v
+    head = torch.clamp((width - start % width) % width, max=v)
+    nvec = (v - head) // width
+    tail0 = head + nvec * width
+    j = torch.arange(lanes, device=dev)
+    k = torch.arange(max(1, -(-int(nvec.max()) // lanes)), device=dev)
+    chunk = j[:, None] + k[None, :] * lanes                   # [lanes, nv]
+    vcols = (head[:, None, None, None] + chunk[None, :, :, None] * width
+             + torch.arange(width, device=dev))
+    vcols = torch.where(chunk[None, :, :, None] < nvec[:, None, None, None],
+                        vcols, -1).flatten(2)
+    # a head or tail holds up to width - 1 elements: ht a lane
+    ht = torch.arange(-(-(width - 1) // lanes), device=dev)
+    jh = j[:, None] + ht[None, :] * lanes                     # [lanes, ht]
+    hcols = torch.where(jh < head[:, None, None], jh, -1)
+    tcols = torch.where(jh < (v - tail0)[:, None, None],
+                        tail0[:, None, None] + jh, -1)
+    cols = torch.cat([hcols, vcols, tcols], 2)
+    ok = cols >= 0                                            # [n, lanes, E]
+    flat = cols.flatten(1) % (v + 1)                          # -1 -> v
+    seen = torch.zeros((n, v + 1), dtype=torch.int32, device=dev)
+    seen.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
+    assert bool((seen[:, :v] == 1).all()), "a row's elements not one a lane"
+    mx = x.amax(1)
+    l2e = torch.tensor(LOG2E, device=dev)                 # log2 e in f32
+    sh = x.gather(1, cols.clamp_min(0).flatten(1)).view(cols.shape) \
+        - mx[:, None, None]
+    e = torch.where(ok, torch.exp2(sh * l2e), 0.0)
+    sh = torch.where(ok, sh, 0.0)
+    s_lane = torch.zeros((n, lanes), device=dev)
+    u_lane = torch.zeros((n, lanes), device=dev)
+    for i in range(cols.shape[2]):
+        s_lane = s_lane + e[:, :, i]
+        u_lane = (u_lane.double() + e[:, :, i].double()
+                  * sh[:, :, i].double()).float()
+    off = lanes // 2
+    while off:
+        s_lane = s_lane + s_lane[:, j ^ off]
+        u_lane = u_lane + u_lane[:, j ^ off]
+        off //= 2
+    s_row, u_row = s_lane[:, 0], u_lane[:, 0]
+    lse = torch.log(s_row)
+    ent = lse - u_row / s_row
+    hit = (targets >= 0) & (targets < v)
+    ts = torch.where(hit, x.gather(1, targets.long().clamp(0, v - 1)[:, None])
+                     [:, 0] - mx, 0.0)
+    # sigma as an f32 tensor: a division by a Python scalar multiplies by
+    # its reciprocal, one ulp off the kernel's divide
+    sig = torch.tensor(sigma, dtype=torch.float32, device=dev)
+    lr = (ts - lse) - logp_old
+    ratio = torch.exp(lr)
+    z = lr / sig
+    omega = torch.exp(-0.5 * (z * z))
+    pg = -(omega * ratio * advantages)
+    m = mask
+    cols8 = torch.stack([pg * m, ratio * m, omega * m, m, ent * m,
+                         (torch.expm1(-lr) + lr) * m,
+                         (lr.abs() > 2.0 * sig).float() * m,
+                         torch.zeros_like(m)], 1)
+    nblk = -(-n // block_rows)
+    cols8 = torch.cat([cols8, cols8.new_zeros((nblk * block_rows - n, 8))])
+    cols8 = cols8.view(nblk, block_rows, 8)
+    partials = torch.zeros((nblk, 8), device=dev)
+    for r in range(block_rows):
+        partials = partials + cols8[:, r]
+    g = (coefs[0] * pg + coefs[1] * (1.0 - torch.exp(-lr))) * m
+    ce = coefs[2] * m
+    p = torch.exp2((x - mx[:, None]) * l2e) * (1.0 / s_row)[:, None]
+    onehot = (torch.arange(v, device=dev) == targets.long()[:, None]).float()
+    d = g[:, None] * (onehot - p) + ce[:, None] * (
+        -(p * (((x - mx[:, None]) - lse[:, None]) + ent[:, None])))
+    return partials, torch.where(m[:, None] == 0, 0.0, d)
 
 
 def reference_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -23,7 +23,11 @@ f32 outputs (y, states, ddt, dA) are held within 1e-4 of the largest value
 for f32 and bf16 inputs alike, their bf16 outputs (dx, dB, dC) within one
 bf16 ulp of each value plus 1e-4 of the largest. So is K5, the GIPO loss
 over given logits: its forward's loss and metrics within 1e-4 relative
-(floored at 1), its d_logits as K3's and K4's outputs. K6's bf16
+(floored at 1), its d_logits as K3's and K4's outputs; its register body
+also against ``ref.tiled_gipo_head_loss`` at the layout it reports (the
+partial rows within 2e-6 of each column's largest value, d_logits within
+2e-6 of its largest, bf16 plus half an ulp), with its layout, partial-row
+count and body asserted, and both bodies rerun bit for bit. K6's bf16
 tensor-core body also reruns bit for bit, counts its launches, and stays
 within twice the FMA body's error against the chunked form in f64.
 """
@@ -866,6 +870,16 @@ def _check_head(args, dtype, stale=False):
     (1000, 1024),       # benchmarks/fused_loss.py's wide vocabulary
     (77, 37),           # V off the vector width: scalar heads and tails
     (9, 1),             # V = 1
+    (600, 1024),        # the register body's limit on V
+    (600, 1025),        # one past it: the streaming body
+    (4224, 250),        # 4 lanes a row in bf16, heads and tails of 2 to 6
+    (4224, 37),         # 4 lanes a row, heads and tails of 1 to 7 in bf16
+    # N whose last block of rows lacks one, is full, or holds one row (f32
+    # 16 lanes a row, 2 rows a block; f32 8 and bf16 4 lanes, 4 and 8 rows
+    # at V 256; bf16 8 lanes, 4 rows at V 512)
+    (1057, 512), (1058, 512), (1059, 512), (2119, 256), (2120, 256),
+    (2121, 256), (2119, 512), (2120, 512), (2121, 512), (4231, 256),
+    (4232, 256), (4233, 256),
 ])
 def test_gipo_head_kernel_matches_plain(dev, dtype, n, v):
     _check_head(_head_inputs(dev, n, v, dtype, n + v), dtype)
@@ -881,28 +895,106 @@ def test_gipo_head_kernel_matches_plain_on_stale_logp(dev, dtype, n, v):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gipo_head_kernel_takes_rows_off_16_bytes(dev, dtype):
+@pytest.mark.parametrize("n,v", [(65, 64), (2112, 61), (4224, 256),
+                                 (4224, 250)])
+def test_gipo_head_kernel_takes_rows_off_16_bytes(dev, dtype, n, v):
     """A logits view starting one element into its storage: loads and
-    stores start with a scalar head, d_logits at the logits' offset."""
-    n, v = 65, 64
+    stores start with a scalar head, d_logits at the logits' offset; the
+    register body also against its order of arithmetic."""
     args = _head_inputs(dev, n, v, dtype, 4)
     base = torch.empty(n * v + 1, dtype=dtype, device=dev)
     base[1:].copy_(args[0].reshape(-1))
     args[0] = base[1:].view(n, v)
     assert args[0].data_ptr() % 16
     _check_head(args, dtype)
+    _check_head_order(args, torch.tensor([0.7, 0.1, -0.01], device=dev) / n)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gipo_head_backward_is_bit_repeatable(dev, dtype):
+@pytest.mark.parametrize("n,v", [(16384, 256), (16384, 1024), (4096, 2048)])
+def test_gipo_head_backward_is_bit_repeatable(dev, dtype, n, v):
+    """Both passes twice, bit for bit, on the register body (V <= 1024, at
+    its limit too) and on the streaming body past it."""
     from repro_torch.kernels import gipo_loss as gl
-    args = _head_inputs(dev, 16384, 256, dtype, 1)
-    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / 16384
+    args = _head_inputs(dev, n, v, dtype, 1)
+    assert gl.head_body(args[0]) == ("registers" if v <= 1024
+                                     else "streaming")
+    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / n
     one = gl.gipo_head_bwd(*args, 0.2, coefs)
     two = gl.gipo_head_bwd(*args, 0.2, coefs)
     assert torch.equal(one, two)
     p1, p2 = (gl.gipo_head_fwd(*args, 0.2) for _ in range(2))
     assert torch.equal(p1, p2)
+
+
+# (N, V, dtype) -> (lanes a row, rows a block) of K5's plan
+# (csrc/gipo_loss.cu::head_plan; lanes 0: the streaming body), the layouts
+# tests/test_torch_ops.py holds the kernel-order oracle at
+HEAD_LAYOUTS = [
+    (257, 48, torch.float32, 32, 1), (300, 64, torch.float32, 32, 1),
+    (100, 256, torch.float32, 32, 1), (224, 256, torch.float32, 32, 1),
+    (77, 37, torch.float32, 32, 1), (9, 1, torch.float32, 32, 1),
+    (1056, 512, torch.float32, 16, 2), (2112, 256, torch.float32, 8, 4),
+    (4224, 128, torch.float32, 4, 8), (4224, 256, torch.bfloat16, 4, 8),
+    (65536, 256, torch.bfloat16, 4, 8), (16384, 1024, torch.float32, 32, 1),
+    (16384, 1024, torch.bfloat16, 16, 2), (16384, 1025, torch.float32, 0, 8),
+    # a last block of rows that holds one row, and one or two rows in all
+    (1, 256, torch.float32, 32, 1), (2, 256, torch.bfloat16, 32, 1),
+    (1057, 512, torch.float32, 16, 2), (2121, 256, torch.float32, 8, 4),
+    (2121, 512, torch.bfloat16, 8, 4), (4233, 256, torch.bfloat16, 4, 8),
+]
+
+
+@pytest.mark.parametrize("n,v,dtype,lanes,rows", HEAD_LAYOUTS)
+def test_gipo_head_layout_is_the_plan(dev, n, v, dtype, lanes, rows):
+    """K5's layout and partial-row count as the C queries report them on
+    the H100 SXM's 132 SMs, and the forward's partials, one row a
+    block."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import gipo_loss as gl
+    logits = torch.zeros((n, v), dtype=dtype, device=dev)
+    assert gl.head_layout(logits) == (lanes, rows)
+    assert gl.head_body(logits) == ("registers" if lanes else "streaming")
+    code = 0 if dtype == torch.float32 else 1
+    assert build.load().gipo_head_partial_rows(n, v, code) == -(-n // rows)
+    rest = [torch.zeros(n, dtype=torch.int32, device=dev)] \
+        + [torch.zeros(n, device=dev) for _ in range(3)]
+    assert gl.gipo_head_fwd(logits, *rest, 0.2).shape == (-(-n // rows), 8)
+
+
+def _check_head_order(args, coefs):
+    """K5's register body against ref.tiled_gipo_head_loss at the layout it
+    reports: the partial rows within 2e-6 of each column's largest value,
+    d_logits within 2e-6 of its largest value (bf16: plus half a bf16 ulp
+    of each value: the kernel rounds its f32 d once)."""
+    from repro_torch.kernels import gipo_loss as gl
+    from repro_torch.kernels.ref import tiled_gipo_head_loss
+    logits = args[0]
+    lanes, rows = gl.head_layout(logits)
+    assert lanes
+    parts = gl.gipo_head_fwd(*args, 0.2)
+    d = gl.gipo_head_bwd(*args, 0.2, coefs)
+    ep, ed = tiled_gipo_head_loss(
+        *args, 0.2, coefs, lanes=lanes, block_rows=rows,
+        offset=logits.data_ptr() % 16 // logits.element_size())
+    assert ((parts - ep).abs() <= 2e-6 * ep.abs().amax(0)).all()
+    rt = 0.0 if logits.dtype == torch.float32 else 2.0 ** -8
+    assert ((d.float() - ed).abs() - rt * ed.abs()).max() \
+        <= 2e-6 * ed.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v,stale", [
+    (257, 48, False), (300, 64, True), (224, 256, False), (77, 37, True),
+    (9, 1, False), (2112, 256, True), (1056, 512, False),
+    (4000, 1024, False), (4224, 256, True), (4224, 96, False),
+    (4224, 250, False), (4224, 37, True),
+])
+def test_gipo_head_register_body_matches_kernel_order(dev, dtype, n, v,
+                                                      stale):
+    args = _head_inputs(dev, n, v, dtype, 5 * n + v, stale=stale)
+    coefs = torch.tensor([0.7, 0.1, -0.01], device=dev) / n
+    _check_head_order(args, coefs)
 
 
 def test_gipo_loss_routes_and_ops_launch_their_kernels(dev):

@@ -209,6 +209,83 @@ def test_masked_rows_get_zero_gradient():
     assert grad[torch.from_numpy(keep)].abs().sum() > 0
 
 
+# K5's register body in its order of arithmetic (ref.tiled_gipo_head_loss)
+# at the layouts (lanes a row, rows a block: a warp's) that
+# csrc/gipo_loss.cu::head_plan picks for f32 at these shapes (32 lanes, one
+# row a warp, so that the grid covers the SMs), and at the layouts it picks
+# at large N (f32: 4 lanes for V <= 128 from N 4224, 8 for V <= 256 from N
+# 2112, 16 for V <= 512 from N 1056); offset 1: the logits one element past
+# a 16-byte boundary, so that every row starts with a scalar head
+TILED_HEAD_CASES = [
+    (257, 48, 32, 1, 0, False), (257, 48, 32, 1, 0, True),
+    (300, 64, 32, 1, 0, False), (300, 64, 16, 2, 0, True),
+    (100, 256, 32, 1, 0, False), (224, 256, 32, 1, 0, False),
+    (224, 256, 8, 4, 0, True), (77, 37, 32, 1, 0, False),
+    (77, 37, 4, 8, 1, True),
+]
+
+
+@pytest.mark.parametrize("n,v,lanes,block_rows,offset,stale",
+                         TILED_HEAD_CASES)
+def test_tiled_gipo_head_oracle_matches_pallas(n, v, lanes, block_rows,
+                                               offset, stale):
+    """``ref.tiled_gipo_head_loss`` (K5's register body: per-lane sums,
+    their butterfly, the CTA's rows in order, one reciprocal a row) against
+    the Pallas ``gipo_head_loss`` in interpret mode, with a target outside
+    V and masked rows, on live and stale logp_old: the loss terms and
+    metrics within 2e-6 relative (floored at 1), d_logits within 2e-6 of
+    its largest value (f32 sums in another order, exponentials within an
+    ulp)."""
+    _check_tiled_head(n, v, lanes, block_rows, offset, stale,
+                      torch.float32)
+
+
+# bf16 logits (8 elements a 16-byte vector) at the layouts head_plan picks
+# for them: 4 lanes a row for V <= 256 from N 4224, where a row's head and
+# tail (up to 7 elements each) take two elements a lane, and 8 lanes
+# (V <= 512 from N 2112); offsets and V that give heads and tails of 1 to 7
+TILED_HEAD_BF16_CASES = [
+    (77, 37, 4, 8, 3, True), (64, 250, 4, 8, 0, False),
+    (40, 61, 8, 4, 7, False),
+]
+
+
+@pytest.mark.parametrize("n,v,lanes,block_rows,offset,stale",
+                         TILED_HEAD_BF16_CASES)
+def test_tiled_gipo_head_oracle_takes_bf16_heads_and_tails(
+        n, v, lanes, block_rows, offset, stale):
+    """As ``test_tiled_gipo_head_oracle_matches_pallas``, on bf16 logits
+    (the Pallas kernel on the same values in f32), within the same bars."""
+    _check_tiled_head(n, v, lanes, block_rows, offset, stale,
+                      torch.bfloat16)
+
+
+def _check_tiled_head(n, v, lanes, block_rows, offset, stale, dtype):
+    data = list(_tok_data(n, v, seed=7 * n + v, stale=stale))
+    data[0] = torch.from_numpy(data[0]).to(dtype).float().numpy()
+    data[1][0] = v                          # the reference's one-hot: none
+    data[4][[1, n // 2]] = 0.0
+    exp, exp_grad = _jax_head(data)
+    logits, tg, lo, ad, mk = _t(data)
+    logits = logits.to(dtype)
+    coefs = torch.tensor([1.0, 0.1, -0.01]) / mk.sum().clamp_min(1.0)
+    partials, d = ref.tiled_gipo_head_loss(logits, tg, lo, ad, mk, SIGMA,
+                                           coefs, lanes=lanes,
+                                           block_rows=block_rows,
+                                           offset=offset)
+    assert partials.shape == (-(-n // block_rows), gl.N_COLS)
+    got = gl._finalize(partials.sum(0))
+    for k in exp[3]:
+        assert abs(float(got[3][k]) - float(exp[3][k])) \
+            <= 2e-6 * max(abs(float(exp[3][k])), 1.0)
+    for g, e in zip(got[:3], exp[:3]):
+        assert abs(float(g) - float(e)) <= 2e-6 * max(abs(float(e)), 1.0)
+    exp_grad = np.asarray(exp_grad)
+    assert np.abs(d.numpy() - exp_grad).max() \
+        <= 2e-6 * np.abs(exp_grad).max()
+    assert not d[1].any() and not d[n // 2].any()
+
+
 @pytest.mark.parametrize("mode", ["pallas", "jnp"])
 @pytest.mark.parametrize("route", [None, "torch"])
 def test_dispatch_gipo_loss_matches_the_reference_dispatch(mode, route):

@@ -71,6 +71,19 @@ Phases, each printing one line of its numbers:
      full-depth f32 action logits of one train micro-batch, against
      ``ref.reference_gipo_loss``, the plain route's autograd, and K4 on the
      same hidden states and head weight.
+  9. system: the asynchronous AcceRL system (``AcceRLSystem``) on
+     openvla-7b at full width and 8 layers, with no route forced: eight
+     rollout workers stepping the toy env against the inference service,
+     the prefetcher's pinned copies to the card on a side stream, the
+     trainer publishing a snapshot each step; ``run_async`` for 3 steps,
+     then ``run_sync`` for 2 on a fresh system. Budgets reached, services
+     healthy, weights swapped and fresh, no published leaf aliasing the
+     live params, K1-K4's launches at least what the batches and steps
+     need, peak memory under 70 GB; step 1 replayed on the plain route
+     from the published v0 snapshot (its KL, entropy and grad norm held as
+     phase 5 holds live step 1's). One ``[system]`` line a run with
+     sps_env, sps_train, the utilisations, the policy lag and the batch
+     latency beside the card's name and power limit.
 
 Every check raises on failure, so the script exits non-zero. The line
 before the last is a JSON summary of every kernel; the last line is
@@ -123,6 +136,8 @@ BWD_BF16_ATOL = 1e-4
 # moments and grad accumulator of the full depth do not fit one card).
 TRAIN_LAYERS = 8
 TRAIN_MEM_LIMIT = 70e9
+# The system phase: train steps of run_async, then of run_sync.
+SYSTEM_STEPS = (3, 2)
 # Step 1 on the kernel route vs the plain route: the largest relative
 # difference over the loss, every metric and the grad norm (denominators
 # floored at ROUTE_FLOOR). Measured 4.8e-4 on the H100 (adv_mean_raw; the
@@ -2204,6 +2219,186 @@ def phase_ops(dev, cfg, counters):
     return got
 
 
+def phase_system(dev, smi, counters):
+    """The asynchronous system end to end: openvla-7b at full width and
+    TRAIN_LAYERS layers (the training phase's model and RL settings),
+    eight rollout workers on the toy env's spatial suite, the inference
+    service, the prefetcher's pinned H2D path and the trainer on one card,
+    with no route forced. ``run_async`` for SYSTEM_STEPS[0] steps, then on a
+    fresh system ``run_sync`` for SYSTEM_STEPS[1]. Each run must reach its
+    budget with every service healthy, finite metrics, lag >= 0, at least
+    two weight swaps, the service within one version of the last one
+    published within the budget (the trainer may finish one more step
+    while the scheduler stops it, after the rollouts have stopped asking),
+    no published leaf sharing storage with the trainer's live params, and
+    each of K1-K4's counters risen by at least what the batches served and
+    the steps taken must have launched (``counters``: name -> (wrapper,
+    _), read over each whole run). Step 1
+    of the async run is replayed on the plain route from the published v0
+    snapshot, with fresh moments and Welford state, on the trainer's first
+    batch: its behaviour log-probs were served by v0 itself, so the
+    training phase's step-1 bounds on live behaviour log-probs hold
+    (LIVE_STEPS_BOUND[0]: the KL, entropy and grad norm within
+    LIVE_ROUTE_BOUND); the loss and the other metrics, whose terms nearly
+    cancel on live log-probs, are printed, as there. Returns the launches
+    by name of each run."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import RLConfig, RuntimeConfig, get_config
+    from repro_torch.core import advnorm, train_step as ts
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import AcceRLSystem
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("openvla-7b"),
+                              num_layers=TRAIN_LAYERS)
+    rl = RLConfig(warmup_steps=1, lr_policy=1e-4, grad_accum=2)
+    rt = RuntimeConfig(num_rollout_workers=8, inference_batch=8,
+                       prefetch_to_device=True)
+    n_l, ga, a = TRAIN_LAYERS, rl.grad_accum, cfg.action_dim
+    out = {}
+
+    def run(label, go, steps):
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        system = AcceRLSystem(cfg, rl, rt, suite="spatial",
+                              segment_horizon=8, max_episode_steps=16,
+                              batch_episodes=8, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        trainer, service = system.trainer, system.inference
+        published, aliased, kept = [], [], {}
+
+        def on_publish(params, version):
+            # trainer thread, right after the store took the snapshot
+            live = {x.untyped_storage().data_ptr()
+                    for x in tree_leaves(trainer.state.params)}
+            aliased.extend(version for x in tree_leaves(params)
+                           if x.untyped_storage().data_ptr() in live)
+            published.append(version)
+            if version == 0:
+                kept["v0"] = params
+        system.store.on_publish = on_publish
+        for fn, _ in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        m = go(system)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, (fn, _) in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        bad = {k: h for k, h in system.health().items() if not h["healthy"]}
+        if bad:
+            raise AssertionError(f"[system] {label}: services failed {bad}")
+        nb, done = m["inference_batches"], m["train_steps"]
+        log = trainer.metrics_log
+        if done < steps or len(log) != done:
+            raise AssertionError(f"[system] {label}: {done} train steps of "
+                                 f"{steps} ({len(log)} logged) in "
+                                 f"{m['wall_s']:.1f} s")
+        if not (m["env_steps"] > 0 and nb > 0):
+            raise AssertionError(f"[system] {label}: env steps "
+                                 f"{m['env_steps']}, batches {nb}")
+        nonfinite = [(i, k) for i, e in enumerate(log) for k, v in e.items()
+                     if not math.isfinite(v)]
+        lags = [e["policy_lag"] for e in log]
+        if nonfinite or min(lags) < 0 or m["mean_policy_lag"] < 0:
+            raise AssertionError(f"[system] {label}: non-finite metrics "
+                                 f"{nonfinite}, policy lags {lags}")
+        last = min(system.store.version(), steps)
+        gauge = service.metrics.gauge("weight_version")
+        if service.weight_swaps < 2 or not gauge >= last - 1:
+            raise AssertionError(f"[system] {label}: {service.weight_swaps} "
+                                 f"swaps, serving v{gauge} while v{last} "
+                                 f"was published")
+        if aliased:
+            raise AssertionError(f"[system] {label}: published versions "
+                                 f"{sorted(set(aliased))} share storage "
+                                 f"with the live params")
+        floor = {"decode_attention": a * n_l * nb,
+                 "flash_attention": n_l * nb + n_l * ga * done,
+                 "flash_attention_bwd": n_l * ga * done,
+                 "fused_policy_loss_fwd": ga * done,
+                 "fused_policy_loss_bwd": ga * done,
+                 "fused_policy_loss_fwd tensor-core body": ga * done,
+                 "fused_policy_loss_bwd tensor-core body": ga * done}
+        short = {k: (launches[k], n) for k, n in floor.items()
+                 if launches[k] < n}
+        if short:
+            raise AssertionError(f"[system] {label}: launches below what "
+                                 f"{nb} batches and {done} steps need "
+                                 f"(got, floor): {short}")
+        if not peak < TRAIN_MEM_LIMIT:
+            raise AssertionError(f"[system] {label}: peak memory "
+                                 f"{peak / 1e9:.1f} GB")
+        lat = service.metrics.series("batch_s")
+        print(f"[system] {label}: {cfg.name} x {n_l} layers, 8 rollout "
+              f"workers, inference batch 8, batch_episodes 8 x horizon 8, "
+              f"grad_accum {ga} | system built in {t_init:.1f} s | wall "
+              f"{m['wall_s']:.2f} s, {done} train steps, {m['env_steps']} "
+              f"env steps, {m['episodes']} episodes | sps_env "
+              f"{m['sps_env']:.2f}, sps_train {m['sps_train']:.2f} | "
+              f"trainer_util {m['trainer_util']:.3f} (busy "
+              f"{trainer.busy_s / done * 1e3:.1f} ms a step), inference_util "
+              f"{m['inference_util']:.3f} | mean_policy_lag "
+              f"{m['mean_policy_lag']:.3f} (per step {lags}) | inference "
+              f"batches {nb}, batch_s p50 "
+              f"{statistics.median(lat) * 1e3:.1f} ms, max "
+              f"{max(lat) * 1e3:.1f} ms | swaps {service.weight_swaps}, "
+              f"serving v{gauge:.0f}, published {published}, sync latency "
+              f"{m['sync_latency_s'] * 1e3:.2f} ms | prefetcher "
+              f"{trainer.prefetcher.metrics()} | launches {launches} | "
+              f"max_memory_allocated {peak / 1e9:.2f} GB (allocated "
+              f"before the build {before / 1e9:.2f} GB) | {smi}")
+        out[label] = launches
+        return system, kept
+
+    system, kept = run("run_async", lambda s: s.run_async(
+        train_steps=SYSTEM_STEPS[0], wall_timeout_s=240.0), SYSTEM_STEPS[0])
+    first, log0 = system.trainer.first_batch, system.trainer.metrics_log[0]
+    params0 = kept.pop("v0")
+    del system, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = ts.TrainState(params=params0, opt=adamw.init(params0),
+                          adv_norm=advnorm.init_adv_state(dev),
+                          version=torch.zeros((), dtype=torch.int32,
+                                              device=dev))
+    with dispatch.forced("torch"):
+        m_plain = ts.make_train_step(cfg, rl, device=dev)(state, first)[1]
+    worst, worst_key = _worst_rel(log0, m_plain, "[system] step-1 replay")
+    held = LIVE_STEPS_BOUND[0]
+    rel = {k: abs(log0[k] - v.item()) / max(abs(v.item()), ROUTE_FLOOR)
+           for k, v in m_plain.items()}
+    print(f"[system] run_async step 1 (kernel route, in the system) vs its "
+          f"replay on the plain route from the published v0 snapshot: "
+          + ", ".join(f"{k} rel {rel[k]:.3e}" for k in held)
+          + f" (bound {LIVE_ROUTE_BOUND}) | printed: max rel diff over "
+          f"{len(m_plain)} metrics {worst:.3e} ({worst_key}), "
+          + ", ".join(f"{k} {r:.3e}" for k, r in rel.items()
+                      if k not in held)
+          + f" | loss {log0['loss']:.6f} vs "
+          f"{m_plain['loss'].item():.6f}, omega mean "
+          f"{log0['omega_mean']:.4f} vs {m_plain['omega_mean'].item():.4f},"
+          f" kl {log0['kl']:.3e} vs {m_plain['kl'].item():.3e}, grad norm "
+          f"{log0['grad_norm']:.4f} vs {m_plain['grad_norm'].item():.4f} | "
+          f"batch policy versions "
+          f"{sorted(set(first.policy_version.tolist()))}")
+    over = {k: rel[k] for k, bound in held.items() if not rel[k] <= bound}
+    if over:
+        raise AssertionError(f"[system] step-1 replay differs: {over}")
+    del state, params0, first, m_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    system, _ = run("run_sync", lambda s: s.run_sync(
+        train_steps=SYSTEM_STEPS[1], episodes_per_round=8,
+        wall_timeout_s=240.0), SYSTEM_STEPS[1])
+    del system
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _init_two_versions(dev, cfg):
     import torch
     from repro_torch.models.policy import init_policy_params
@@ -2259,7 +2454,7 @@ def main() -> int:
             per.setdefault(f"{k} tensor-core body", per.get(k, 0))
         return {k: (fn, per.get(k, 0)) for k, fn in wrappers.items()}
 
-    name, _ = phase_device()
+    name, smi = phase_device()
     entries = phase_kernels(dev)
     by_path, failures = {}, []
 
@@ -2356,6 +2551,11 @@ def main() -> int:
     by_path["kernel-ops entry point"] = phase_ops(dev, cfg, counting(
         flash_attention=2, gipo_head_loss_fwd=2, gipo_head_loss_bwd=1,
         fused_policy_loss_fwd=1, fused_policy_loss_bwd=1, ssd_scan=1))
+    torch.cuda.empty_cache()
+
+    # the asynchronous system: rollouts, serving and training on one card
+    for run, launches in phase_system(dev, smi, counting()).items():
+        by_path[f"openvla-7b system, {run}"] = launches
 
     if failures:
         raise AssertionError("steps 1-3 comparisons failed: "

@@ -57,7 +57,7 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, *,
                      device="cuda") -> TrainState:
     """Random policy params from ``seed`` on ``device``, zero AdamW
     moments and an empty Welford state. (The reference's ZeRO-2 ``mesh``
-    placement is queue A8 of the port.)"""
+    placement is queue A7 of the port.)"""
     dev = resolve_device(device)
     params = init_policy_params(cfg, seed, device=dev)
     return TrainState(params=params, opt=adamw.init(params),

@@ -33,7 +33,16 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 missing = [m for m in ("repro_torch.kernels.ops",
                        "repro_torch.kernels.gipo_loss",
-                       "repro_torch.models.transformer")
+                       "repro_torch.models.transformer",
+                       "repro_torch.envs.toy_manipulation",
+                       "repro_torch.core.resampler",
+                       "repro_torch.data.replay",
+                       "repro_torch.data.prefetch",
+                       "repro_torch.runtime.experience",
+                       "repro_torch.runtime.rollout",
+                       "repro_torch.runtime.trainer",
+                       "repro_torch.runtime.scheduler",
+                       "repro_torch.runtime.orchestrator")
            if m not in sys.modules]
 print(bad, missing)
 sys.exit(1 if bad or missing else 0)
@@ -138,7 +147,10 @@ def test_entry_points_default_to_cuda():
     from repro_torch.core.train_step import init_train_state, make_train_step
     from repro_torch.data.trajectory import dummy_batch
     from repro_torch.models import policy, transformer
-    from repro_torch.runtime import InferenceService, VersionedWeightStore
+    from repro_torch.data.prefetch import Prefetcher
+    from repro_torch.runtime import (AcceRLSystem, FifoChannel,
+                                     InferenceService, TrainerWorker,
+                                     VersionedWeightStore)
     cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"), layers=2,
                            d_model=64)
     ssm_cfg = tconfigs.reduced(tconfigs.get_config("mamba2-2.7b"), layers=2,
@@ -161,6 +173,12 @@ def test_entry_points_default_to_cuda():
         lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
         lambda: InferenceService(cfg, VersionedWeightStore(),
                                  tconfigs.RuntimeConfig()),
+        lambda: TrainerWorker(cfg, tconfigs.RLConfig(),
+                              tconfigs.RuntimeConfig(), FifoChannel(1),
+                              VersionedWeightStore()),
+        lambda: AcceRLSystem(cfg, tconfigs.RLConfig(),
+                             tconfigs.RuntimeConfig()),
+        lambda: Prefetcher(FifoChannel(1), 1, list, to_device=True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

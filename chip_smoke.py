@@ -84,6 +84,17 @@ Phases, each printing one line of its numbers:
      phase 5 holds live step 1's). One ``[system]`` line a run with
      sps_env, sps_train, the utilisations, the policy lag and the batch
      latency beside the card's name and power limit.
+ 10. wm: the world-model mode (paper §4) on the system phase's model: the
+     world model pre-trained on the card (50 oracle trajectories, 100
+     steps; its losses finite and the denoiser's falling), one M_obs and
+     one M_reward step held against a CPU copy on the same noise, then
+     ``AcceRLWMSystem`` (one imagination worker of batch 16, horizon 2,
+     the pure-imagination diet) and ``run_wm`` for 3 steps: the system
+     phase's checks, no real segment trained on, imagination behind every
+     step (K1 and K2 on every imagined step's prefill and decodes), M_obs
+     updated, the WM trees an imagination call may hold never written;
+     step 1 replayed on the plain route. One ``[wm]`` line with imagined
+     steps per second, the real-env-steps-per-update ratio and the rest.
 
 Every check raises on failure, so the script exits non-zero. The line
 before the last is a JSON summary of every kernel; the last line is
@@ -138,6 +149,11 @@ TRAIN_LAYERS = 8
 TRAIN_MEM_LIMIT = 70e9
 # The system phase: train steps of run_async, then of run_sync.
 SYSTEM_STEPS = (3, 2)
+# The world-model phase: run_wm's train steps, the imagination batch, and
+# the card-vs-CPU bar of one WM step (of each leaf's largest value, f32).
+WM_STEPS = 3
+WM_IMAGINATION_BATCH = 16
+WM_PARITY_TOL = 1e-4
 # Step 1 on the kernel route vs the plain route: the largest relative
 # difference over the loss, every metric and the grad norm (denominators
 # floored at ROUTE_FLOOR). Measured 4.8e-4 on the H100 (adv_mean_raw; the
@@ -182,6 +198,16 @@ STEP_KEYS = ("loss", "kl", "entropy", "grad_norm")
 LIVE_KEYS = ("kl", "entropy", "grad_norm")
 LIVE_STEPS_BOUND = [dict.fromkeys(LIVE_KEYS, LIVE_ROUTE_BOUND)] + [
     dict.fromkeys(LIVE_KEYS, 0.1)] * 2
+# The system's step 1 trains on a batch whose behaviour log-probs μ the
+# kernel route served (or imagined) from v0, so the step's own k3-KL of v0
+# against μ measures only the routes' action log-prob gap Δ (~5e-3, as
+# above): KL ≈ E[Δ²]/2 ≈ 1.3e-5, and ω's mean is 1 to within ~|Δ|. Read
+# 1.0e-5 to 2.1e-5 (kernel and plain route) and ω 0.9995-0.9998 in the
+# system and world-model phases on the H100 (set after those readings).
+# The bounds leave ~10x and ~20x room; a serving or imagination kernel that
+# is wrong at its shape moves log-probs by O(0.1), a KL of O(1e-3) or more.
+REPLAY_KL_BOUND = 2e-4
+REPLAY_OMEGA_TOL = 1e-2
 # Steps 1-3 from the same seed-0 state on both routes: the largest relative
 # difference of the loss, KL, entropy and grad norm per step. Measured
 # 6.1e-2 on the H100 (step 2's loss and KL, 6.0e7 vs 5.7e7: the step-2 jump
@@ -645,12 +671,16 @@ def phase_kernels(dev):
 
     # --- K1 flash attention -------------------------------------------------
     # (36, 275): the training forward's shape; its checked inputs and
-    # outputs feed K3's check and both timings at that shape
+    # outputs feed K3's check and both timings at that shape. (16, 13):
+    # imagination's prefill; (24, 20): the training forward on an imagined
+    # micro-batch (8 segments x H+1 steps of 20 tokens)
     k1, train_in = {}, {}
     for (b, t, h, kv, d, window) in [(8, 268, 32, 32, 128, None),
                                      (8, 268, 32, 8, 128, None),
                                      (8, 268, 32, 32, 128, 64),
                                      (8, 13, 32, 32, 128, None),
+                                     (16, 13, 32, 32, 128, None),
+                                     (24, 20, 32, 32, 128, None),
                                      (36, 275, 32, 32, 128, None)]:
         for dtype in (torch.float32, torch.bfloat16):
             q = rand(b, t, h, d, dtype=dtype)
@@ -686,24 +716,31 @@ def phase_kernels(dev):
             print(f"[kernels] {tag}: max abs err {err:.3e} lse {lse_err:.3e}"
                   f"{order}")
             if (kv, window, dtype) == (32, None, torch.bfloat16):
-                k1[t] = dict(q=q, k=k, v=v, err=err)
-            if b == 36:
-                train_in[dtype] = (q, k, v, out, lse)
+                k1[b, t] = dict(q=q, k=k, v=v, err=err)
+            if b in (24, 36):
+                train_in[b, dtype] = (q, k, v, out, lse)
             del q, k, v, out, lse, exp, exp_lse
     entries = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:40",
-                    launches=None, max_abs_err=k1[268]["err"],
-                    **_time_flash(k1[268], flush),
-                    service=_time_flash(k1[13], flush),
-                    train_shape=dict(_time_flash(k1[275], flush, lse=True),
-                                     max_abs_err=k1[275]["err"]))]
+                    launches=None, max_abs_err=k1[8, 268]["err"],
+                    **_time_flash(k1[8, 268], flush),
+                    service=_time_flash(k1[8, 13], flush),
+                    imagination=dict(_time_flash(k1[16, 13], flush),
+                                     max_abs_err=k1[16, 13]["err"]),
+                    train_shape=dict(_time_flash(k1[36, 275], flush,
+                                                 lse=True),
+                                     max_abs_err=k1[36, 275]["err"]),
+                    imagined_train=dict(_time_flash(k1[24, 20], flush,
+                                                    lse=True),
+                                        max_abs_err=k1[24, 20]["err"]))]
     del k1
 
     # --- K2 decode attention ------------------------------------------------
+    # (16, 20): imagination's decode over its 13 + 7 slot cache
     k2 = {}
     for (b, s, h, kv, d) in [(8, 275, 32, 32, 128), (8, 275, 32, 8, 128),
-                             (8, 20, 32, 32, 128)]:
+                             (8, 20, 32, 32, 128), (16, 20, 32, 32, 128)]:
         for dtype in (torch.float32, torch.bfloat16):
             q = rand(b, 1, h, d, dtype=dtype)
             k = rand(b, s, kv, d, dtype=dtype)
@@ -729,25 +766,28 @@ def phase_kernels(dev):
                          f"beyond half an ulp {excess:.3e}")
             print(f"[kernels] {tag}: max abs err {err:.3e}{order}")
             if (kv, dtype) == (32, torch.bfloat16):
-                k2[s] = dict(q=q, k=k, v=v, valid=valid, err=err)
+                k2[b, s] = dict(q=q, k=k, v=v, valid=valid, err=err)
     entries.append(dict(name="decode_attention", route="cuda",
                         source="src/repro_torch/csrc/decode_attention.cu",
                         replaces="src/repro/kernels/decode_attention.py:38",
-                        launches=None, max_abs_err=k2[275]["err"],
-                        **_time_decode(k2[275], flush),
-                        service=_time_decode(k2[20], flush)))
+                        launches=None, max_abs_err=k2[8, 275]["err"],
+                        **_time_decode(k2[8, 275], flush),
+                        service=_time_decode(k2[8, 20], flush),
+                        imagination=dict(_time_decode(k2[16, 20], flush),
+                                         max_abs_err=k2[16, 20]["err"])))
 
     # --- K3 flash attention backward ----------------------------------------
     from repro_torch.kernels.flash_attention import (_plain_flash_bwd,
                                                      flash_attention_bwd)
     k3 = {}
     for (b, t, h, kv, d, window) in [(36, 275, 32, 32, 128, None),
+                                     (24, 20, 32, 32, 128, None),
                                      (4, 275, 32, 8, 128, None),
                                      (2, 100, 8, 2, 64, 32),
                                      (3, 50, 4, 4, 128, None)]:
         for dtype in (torch.float32, torch.bfloat16):
-            if b == 36:                    # K1's checked training case
-                q, k, v, o, lse = train_in.pop(dtype)
+            if b in (24, 36):              # K1's checked training cases
+                q, k, v, o, lse = train_in.pop((b, dtype))
             else:
                 q = rand(b, t, h, d, dtype=dtype)
                 k = rand(b, t, kv, d, dtype=dtype)
@@ -766,21 +806,26 @@ def phase_kernels(dev):
                   f"{res[1][0]:.3e} dv {res[2][0]:.3e} | beyond the bar's "
                   f"rounding term, of the largest value: "
                   f"{max(r[1] for r in res):.3e}")
-            if (b, dtype) == (36, torch.bfloat16):
-                k3 = dict(q=q, k=k, v=v, o=o, lse=lse, do=do,
-                          err=max(r[0] for r in res))
+            if b in (24, 36) and dtype == torch.bfloat16:
+                k3[b] = dict(q=q, k=k, v=v, o=o, lse=lse, do=do,
+                             err=max(r[0] for r in res))
             del q, k, v, do, o, lse, got, exp
     entries.append(dict(name="flash_attention_bwd", route="cuda",
                         source="src/repro_torch/csrc/flash_attention_bwd.cu",
                         replaces="src/repro/kernels/flash_attention.py:176",
-                        launches=None, max_abs_err=k3["err"],
-                        **_time_flash_bwd(k3, flush)))
+                        launches=None, max_abs_err=k3[36]["err"],
+                        **_time_flash_bwd(k3[36], flush),
+                        imagined_train=dict(_time_flash_bwd(k3[24], flush),
+                                            max_abs_err=k3[24]["err"])))
     del k3
 
     # --- K4 fused policy loss -----------------------------------------------
     from repro_torch.kernels import gipo_loss as gl
     k4 = {}
+    # N 112: a micro-batch of imagined segments (8 x H 2 x 7 action
+    # tokens), whose last 32-row tile is ragged
     for (n, d, va, stale) in [(224, 4096, 256, False),
+                              (112, 4096, 256, False),
                               (3584, 4096, 256, False),
                               (224, 2560, 256, False),
                               (224, 2048, 256, False), (300, 64, 48, False),
@@ -819,9 +864,9 @@ def phase_kernels(dev):
             if dtype == torch.bfloat16 and d >= 2048 and not stale:
                 k4[n, d] = dict(c, err=max([ferr] + [r[0] for r in res]))
             del c, args, dh, dw, dh2, dw2, edh, edw
-    t224, t3584, t2560, t2048 = (_time_policy(k4[key], flush) for key in
-                                 ((224, 4096), (3584, 4096), (224, 2560),
-                                  (224, 2048)))
+    t224, t112, t3584, t2560, t2048 = (
+        _time_policy(k4[key], flush) for key in
+        ((224, 4096), (112, 4096), (3584, 4096), (224, 2560), (224, 2048)))
     for tag in ("fwd", "bwd"):
         entries.append(dict(
             name=f"fused_policy_loss_{tag}", route="cuda",
@@ -829,7 +874,8 @@ def phase_kernels(dev):
             replaces=("src/repro/kernels/gipo_loss.py:301" if tag == "fwd"
                       else "src/repro/kernels/gipo_loss.py:312"),
             launches=None, max_abs_err=max(v["err"] for v in k4.values()),
-            **t224[tag], large_batch=t3584[tag], mamba2_width=t2560[tag],
+            **t224[tag], imagined_batch=t112[tag], large_batch=t3584[tag],
+            mamba2_width=t2560[tag],
             zamba2_width=t2048[tag]))
     del k4
     entries += _gipo_head_kernels(gen, dev, flush)
@@ -2219,175 +2265,225 @@ def phase_ops(dev, cfg, counters):
     return got
 
 
-def phase_system(dev, smi, counters):
-    """The asynchronous system end to end: openvla-7b at full width and
-    TRAIN_LAYERS layers (the training phase's model and RL settings),
-    eight rollout workers on the toy env's spatial suite, the inference
-    service, the prefetcher's pinned H2D path and the trainer on one card,
-    with no route forced. ``run_async`` for SYSTEM_STEPS[0] steps, then on a
-    fresh system ``run_sync`` for SYSTEM_STEPS[1]. Each run must reach its
-    budget with every service healthy, finite metrics, lag >= 0, at least
-    two weight swaps, the service within one version of the last one
-    published within the budget (the trainer may finish one more step
-    while the scheduler stops it, after the rollouts have stopped asking),
-    no published leaf sharing storage with the trainer's live params, and
-    each of K1-K4's counters risen by at least what the batches served and
-    the steps taken must have launched (``counters``: name -> (wrapper,
-    _), read over each whole run). Step 1
-    of the async run is replayed on the plain route from the published v0
-    snapshot, with fresh moments and Welford state, on the trainer's first
-    batch: its behaviour log-probs were served by v0 itself, so the
-    training phase's step-1 bounds on live behaviour log-probs hold
-    (LIVE_STEPS_BOUND[0]: the KL, entropy and grad norm within
-    LIVE_ROUTE_BOUND); the loss and the other metrics, whose terms nearly
-    cancel on live log-probs, are printed, as there. Returns the launches
-    by name of each run."""
+def _system_config():
+    """The system phases' model and settings: openvla-7b at full width and
+    TRAIN_LAYERS layers, the training phase's RL settings, 8 rollout
+    workers, inference batch 8, the prefetcher's pinned copies."""
     import dataclasses
-    import gc
-    import torch
     from repro_torch.configs import RLConfig, RuntimeConfig, get_config
-    from repro_torch.core import advnorm, train_step as ts
-    from repro_torch.kernels import dispatch
-    from repro_torch.optim import adamw
-    from repro_torch.runtime import AcceRLSystem
-    from repro_torch.tree import tree_leaves
     cfg = dataclasses.replace(get_config("openvla-7b"),
                               num_layers=TRAIN_LAYERS)
     rl = RLConfig(warmup_steps=1, lr_policy=1e-4, grad_accum=2)
     rt = RuntimeConfig(num_rollout_workers=8, inference_batch=8,
                        prefetch_to_device=True)
-    n_l, ga, a = TRAIN_LAYERS, rl.grad_accum, cfg.action_dim
-    out = {}
+    return cfg, rl, rt
 
-    def run(label, go, steps):
-        before = torch.cuda.memory_allocated(dev)
-        t0 = time.perf_counter()
-        system = AcceRLSystem(cfg, rl, rt, suite="spatial",
-                              segment_horizon=8, max_episode_steps=16,
-                              batch_episodes=8, seed=0, device=dev)
-        torch.cuda.synchronize()
-        t_init = time.perf_counter() - t0
-        trainer, service = system.trainer, system.inference
-        published, aliased, kept = [], [], {}
 
-        def on_publish(params, version):
-            # trainer thread, right after the store took the snapshot
-            live = {x.untyped_storage().data_ptr()
-                    for x in tree_leaves(trainer.state.params)}
-            aliased.extend(version for x in tree_leaves(params)
-                           if x.untyped_storage().data_ptr() in live)
-            published.append(version)
-            if version == 0:
-                kept["v0"] = params
-        system.store.on_publish = on_publish
-        for fn, _ in counters.values():
-            fn.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        m = go(system)
-        torch.cuda.synchronize()
-        launches = {k: fn.launches for k, (fn, _) in counters.items()}
-        peak = torch.cuda.max_memory_allocated(dev)
-        bad = {k: h for k, h in system.health().items() if not h["healthy"]}
-        if bad:
-            raise AssertionError(f"[system] {label}: services failed {bad}")
-        nb, done = m["inference_batches"], m["train_steps"]
-        log = trainer.metrics_log
-        if done < steps or len(log) != done:
-            raise AssertionError(f"[system] {label}: {done} train steps of "
-                                 f"{steps} ({len(log)} logged) in "
-                                 f"{m['wall_s']:.1f} s")
-        if not (m["env_steps"] > 0 and nb > 0):
-            raise AssertionError(f"[system] {label}: env steps "
-                                 f"{m['env_steps']}, batches {nb}")
-        nonfinite = [(i, k) for i, e in enumerate(log) for k, v in e.items()
-                     if not math.isfinite(v)]
-        lags = [e["policy_lag"] for e in log]
-        if nonfinite or min(lags) < 0 or m["mean_policy_lag"] < 0:
-            raise AssertionError(f"[system] {label}: non-finite metrics "
-                                 f"{nonfinite}, policy lags {lags}")
-        last = min(system.store.version(), steps)
-        gauge = service.metrics.gauge("weight_version")
-        if service.weight_swaps < 2 or not gauge >= last - 1:
-            raise AssertionError(f"[system] {label}: {service.weight_swaps} "
-                                 f"swaps, serving v{gauge} while v{last} "
-                                 f"was published")
-        if aliased:
-            raise AssertionError(f"[system] {label}: published versions "
-                                 f"{sorted(set(aliased))} share storage "
-                                 f"with the live params")
-        floor = {"decode_attention": a * n_l * nb,
-                 "flash_attention": n_l * nb + n_l * ga * done,
-                 "flash_attention_bwd": n_l * ga * done,
-                 "fused_policy_loss_fwd": ga * done,
-                 "fused_policy_loss_bwd": ga * done,
-                 "fused_policy_loss_fwd tensor-core body": ga * done,
-                 "fused_policy_loss_bwd tensor-core body": ga * done}
-        short = {k: (launches[k], n) for k, n in floor.items()
-                 if launches[k] < n}
-        if short:
-            raise AssertionError(f"[system] {label}: launches below what "
-                                 f"{nb} batches and {done} steps need "
-                                 f"(got, floor): {short}")
-        if not peak < TRAIN_MEM_LIMIT:
-            raise AssertionError(f"[system] {label}: peak memory "
-                                 f"{peak / 1e9:.1f} GB")
-        lat = service.metrics.series("batch_s")
-        print(f"[system] {label}: {cfg.name} x {n_l} layers, 8 rollout "
-              f"workers, inference batch 8, batch_episodes 8 x horizon 8, "
-              f"grad_accum {ga} | system built in {t_init:.1f} s | wall "
-              f"{m['wall_s']:.2f} s, {done} train steps, {m['env_steps']} "
-              f"env steps, {m['episodes']} episodes | sps_env "
-              f"{m['sps_env']:.2f}, sps_train {m['sps_train']:.2f} | "
-              f"trainer_util {m['trainer_util']:.3f} (busy "
-              f"{trainer.busy_s / done * 1e3:.1f} ms a step), inference_util "
-              f"{m['inference_util']:.3f} | mean_policy_lag "
-              f"{m['mean_policy_lag']:.3f} (per step {lags}) | inference "
-              f"batches {nb}, batch_s p50 "
-              f"{statistics.median(lat) * 1e3:.1f} ms, max "
-              f"{max(lat) * 1e3:.1f} ms | swaps {service.weight_swaps}, "
-              f"serving v{gauge:.0f}, published {published}, sync latency "
-              f"{m['sync_latency_s'] * 1e3:.2f} ms | prefetcher "
-              f"{trainer.prefetcher.metrics()} | launches {launches} | "
-              f"max_memory_allocated {peak / 1e9:.2f} GB (allocated "
-              f"before the build {before / 1e9:.2f} GB) | {smi}")
-        out[label] = launches
-        return system, kept
+def _run_system(dev, counters, tag, build, go, steps, floor):
+    """Builds a system (``build``), drives it (``go``) and holds what every
+    system run must: the budget reached with every service healthy, finite
+    metrics, lag >= 0, at least two weight swaps, the service within one
+    version of the last one published within the budget (the trainer may
+    finish one more step while the scheduler stops it, after the rollouts
+    have stopped asking), no published leaf sharing storage with the
+    trainer's live params (an ``on_publish`` hook), each counter of
+    ``counters`` (name -> (wrapper, _), set to 0 just before the run and
+    read just after) risen by at least ``floor(system, m)[name]``, and peak
+    memory under TRAIN_MEM_LIMIT. Returns (system, m, launches, peak,
+    facts), ``facts`` holding the build time, the published versions, the
+    version-0 snapshot and the memory allocated before the build."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    system = build()
+    torch.cuda.synchronize()
+    facts = {"t_init": time.perf_counter() - t0, "before": before,
+             "published": []}
+    trainer, service = system.trainer, system.inference
+    aliased = []
 
-    system, kept = run("run_async", lambda s: s.run_async(
-        train_steps=SYSTEM_STEPS[0], wall_timeout_s=240.0), SYSTEM_STEPS[0])
-    first, log0 = system.trainer.first_batch, system.trainer.metrics_log[0]
-    params0 = kept.pop("v0")
-    del system, kept
-    gc.collect()
-    torch.cuda.empty_cache()
+    def on_publish(params, version):
+        # trainer thread, right after the store took the snapshot
+        live = {x.untyped_storage().data_ptr()
+                for x in tree_leaves(trainer.state.params)}
+        aliased.extend(version for x in tree_leaves(params)
+                       if x.untyped_storage().data_ptr() in live)
+        facts["published"].append(version)
+        if version == 0:
+            facts["v0"] = params
+    system.store.on_publish = on_publish
+    for fn, _ in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    m = go(system)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, (fn, _) in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    bad = {k: h for k, h in system.health().items() if not h["healthy"]}
+    if bad:
+        raise AssertionError(f"{tag}: services failed {bad}")
+    nb, done = m["inference_batches"], m["train_steps"]
+    log = trainer.metrics_log
+    if done < steps or len(log) != done:
+        raise AssertionError(f"{tag}: {done} train steps of {steps} "
+                             f"({len(log)} logged) in {m['wall_s']:.1f} s")
+    if not (m["env_steps"] > 0 and nb > 0):
+        raise AssertionError(f"{tag}: env steps {m['env_steps']}, "
+                             f"batches {nb}")
+    nonfinite = [(i, k) for i, e in enumerate(log) for k, v in e.items()
+                 if not math.isfinite(v)]
+    lags = [e["policy_lag"] for e in log]
+    if nonfinite or min(lags) < 0 or m["mean_policy_lag"] < 0:
+        raise AssertionError(f"{tag}: non-finite metrics {nonfinite}, "
+                             f"policy lags {lags}")
+    last = min(system.store.version(), steps)
+    gauge = service.metrics.gauge("weight_version")
+    if service.weight_swaps < 2 or not gauge >= last - 1:
+        raise AssertionError(f"{tag}: {service.weight_swaps} swaps, "
+                             f"serving v{gauge} while v{last} was "
+                             f"published")
+    if aliased:
+        raise AssertionError(f"{tag}: published versions "
+                             f"{sorted(set(aliased))} share storage with "
+                             f"the live params")
+    short = {k: (launches[k], n) for k, n in floor(system, m).items()
+             if launches[k] < n}
+    if short:
+        raise AssertionError(f"{tag}: launches below what {nb} batches and "
+                             f"{done} steps need (got, floor): {short}")
+    if not peak < TRAIN_MEM_LIMIT:
+        raise AssertionError(f"{tag}: peak memory {peak / 1e9:.1f} GB")
+    return system, m, launches, peak, facts
+
+
+def _step_floor(n_l, ga, a, nb, done):
+    """The least launches ``nb`` served batches and ``done`` train steps
+    make: K2 on every decode token's layers, K1 on every prefill's and
+    every micro-batch's layers, K3 on every micro-batch's layers, K4
+    (forward and backward, on the tensor-core body) on every micro-batch."""
+    return {"decode_attention": a * n_l * nb,
+            "flash_attention": n_l * nb + n_l * ga * done,
+            "flash_attention_bwd": n_l * ga * done,
+            "fused_policy_loss_fwd": ga * done,
+            "fused_policy_loss_bwd": ga * done,
+            "fused_policy_loss_fwd tensor-core body": ga * done,
+            "fused_policy_loss_bwd tensor-core body": ga * done}
+
+
+def _replay_step1(dev, cfg, rl, tag, params0, first, log0):
+    """Step 1 of a run replayed on the plain route from the published v0
+    snapshot, with fresh moments and Welford state, on the trainer's first
+    batch, whose behaviour log-probs v0 itself served: the training phase's
+    step-1 bounds on live behaviour log-probs hold (LIVE_STEPS_BOUND[0]:
+    the KL, entropy and grad norm within LIVE_ROUTE_BOUND); the loss and
+    the other metrics, whose terms nearly cancel on live log-probs, are
+    printed, as there. On both routes the KL of v0 against the served μ is
+    at most REPLAY_KL_BOUND and ω's mean within REPLAY_OMEGA_TOL of 1.
+    Returns the plain route's metrics."""
+    import gc
+    import torch
+    from repro_torch.core import advnorm, train_step as ts
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim import adamw
     state = ts.TrainState(params=params0, opt=adamw.init(params0),
                           adv_norm=advnorm.init_adv_state(dev),
                           version=torch.zeros((), dtype=torch.int32,
                                               device=dev))
     with dispatch.forced("torch"):
         m_plain = ts.make_train_step(cfg, rl, device=dev)(state, first)[1]
-    worst, worst_key = _worst_rel(log0, m_plain, "[system] step-1 replay")
+    m_plain = {k: v.item() for k, v in m_plain.items()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst, worst_key = _worst_rel(log0, m_plain, f"{tag} step-1 replay")
     held = LIVE_STEPS_BOUND[0]
-    rel = {k: abs(log0[k] - v.item()) / max(abs(v.item()), ROUTE_FLOOR)
+    rel = {k: abs(log0[k] - v) / max(abs(v), ROUTE_FLOOR)
            for k, v in m_plain.items()}
-    print(f"[system] run_async step 1 (kernel route, in the system) vs its "
-          f"replay on the plain route from the published v0 snapshot: "
+    print(f"{tag} step 1 (kernel route, in the system) vs its replay on "
+          f"the plain route from the published v0 snapshot: "
           + ", ".join(f"{k} rel {rel[k]:.3e}" for k in held)
           + f" (bound {LIVE_ROUTE_BOUND}) | printed: max rel diff over "
           f"{len(m_plain)} metrics {worst:.3e} ({worst_key}), "
           + ", ".join(f"{k} {r:.3e}" for k, r in rel.items()
                       if k not in held)
-          + f" | loss {log0['loss']:.6f} vs "
-          f"{m_plain['loss'].item():.6f}, omega mean "
-          f"{log0['omega_mean']:.4f} vs {m_plain['omega_mean'].item():.4f},"
-          f" kl {log0['kl']:.3e} vs {m_plain['kl'].item():.3e}, grad norm "
-          f"{log0['grad_norm']:.4f} vs {m_plain['grad_norm'].item():.4f} | "
-          f"batch policy versions "
-          f"{sorted(set(first.policy_version.tolist()))}")
+          + f" | loss {log0['loss']:.6f} vs {m_plain['loss']:.6f}, omega "
+          f"mean {log0['omega_mean']:.4f} vs {m_plain['omega_mean']:.4f}, "
+          f"kl {log0['kl']:.3e} vs {m_plain['kl']:.3e}, grad norm "
+          f"{log0['grad_norm']:.4f} vs {m_plain['grad_norm']:.4f} | batch "
+          f"policy versions {sorted(set(first.policy_version.tolist()))}")
     over = {k: rel[k] for k, bound in held.items() if not rel[k] <= bound}
     if over:
-        raise AssertionError(f"[system] step-1 replay differs: {over}")
-    del state, params0, first, m_plain
+        raise AssertionError(f"{tag} step-1 replay differs: {over}")
+    for route, m in (("kernel", log0), ("plain", m_plain)):
+        if not (m["kl"] <= REPLAY_KL_BOUND
+                and abs(m["omega_mean"] - 1.0) <= REPLAY_OMEGA_TOL):
+            raise AssertionError(
+                f"{tag} step 1 on the {route} route: kl {m['kl']} (bound "
+                f"{REPLAY_KL_BOUND}), omega mean {m['omega_mean']} (1 ± "
+                f"{REPLAY_OMEGA_TOL}): v0 did not serve the batch's μ")
+    return m_plain
+
+
+def phase_system(dev, smi, counters):
+    """The asynchronous system end to end: ``_system_config``'s model on
+    the toy env's spatial suite, the inference service, the prefetcher's
+    pinned H2D path and the trainer on one card, with no route forced.
+    ``run_async`` for SYSTEM_STEPS[0] steps, then on a fresh system
+    ``run_sync`` for SYSTEM_STEPS[1], each held by ``_run_system`` with
+    ``_step_floor``'s launches. Step 1 of the async run is replayed on the
+    plain route (``_replay_step1``). Returns the launches by name of each
+    run."""
+    import gc
+    import torch
+    from repro_torch.runtime import AcceRLSystem
+    cfg, rl, rt = _system_config()
+    n_l, ga, a = TRAIN_LAYERS, rl.grad_accum, cfg.action_dim
+    out = {}
+
+    def run(label, go, steps):
+        system, m, launches, peak, facts = _run_system(
+            dev, counters, f"[system] {label}",
+            lambda: AcceRLSystem(cfg, rl, rt, suite="spatial",
+                                 segment_horizon=8, max_episode_steps=16,
+                                 batch_episodes=8, seed=0, device=dev),
+            go, steps, lambda s, m: _step_floor(
+                n_l, ga, a, m["inference_batches"], m["train_steps"]))
+        trainer, service = system.trainer, system.inference
+        done, log = m["train_steps"], trainer.metrics_log
+        lat = service.metrics.series("batch_s")
+        print(f"[system] {label}: {cfg.name} x {n_l} layers, 8 rollout "
+              f"workers, inference batch 8, batch_episodes 8 x horizon 8, "
+              f"grad_accum {ga} | system built in {facts['t_init']:.1f} s "
+              f"| wall {m['wall_s']:.2f} s, {done} train steps, "
+              f"{m['env_steps']} env steps, {m['episodes']} episodes | "
+              f"sps_env {m['sps_env']:.2f}, sps_train {m['sps_train']:.2f} "
+              f"| trainer_util {m['trainer_util']:.3f} (busy "
+              f"{trainer.busy_s / done * 1e3:.1f} ms a step), "
+              f"inference_util {m['inference_util']:.3f} | mean_policy_lag "
+              f"{m['mean_policy_lag']:.3f} (per step "
+              f"{[e['policy_lag'] for e in log]}) | inference batches "
+              f"{m['inference_batches']}, batch_s p50 "
+              f"{statistics.median(lat) * 1e3:.1f} ms, max "
+              f"{max(lat) * 1e3:.1f} ms | swaps {service.weight_swaps}, "
+              f"serving v{service.metrics.gauge('weight_version'):.0f}, "
+              f"published {facts['published']}, sync latency "
+              f"{m['sync_latency_s'] * 1e3:.2f} ms | prefetcher "
+              f"{trainer.prefetcher.metrics()} | launches {launches} | "
+              f"max_memory_allocated {peak / 1e9:.2f} GB (allocated "
+              f"before the build {facts['before'] / 1e9:.2f} GB) | {smi}")
+        out[label] = launches
+        return system, facts
+
+    system, facts = run("run_async", lambda s: s.run_async(
+        train_steps=SYSTEM_STEPS[0], wall_timeout_s=240.0), SYSTEM_STEPS[0])
+    first, log0 = system.trainer.first_batch, system.trainer.metrics_log[0]
+    params0 = facts.pop("v0")
+    del system, facts
+    gc.collect()
+    torch.cuda.empty_cache()
+    _replay_step1(dev, cfg, rl, "[system] run_async", params0, first, log0)
+    del params0, first
     gc.collect()
     torch.cuda.empty_cache()
     system, _ = run("run_sync", lambda s: s.run_sync(
@@ -2397,6 +2493,215 @@ def phase_system(dev, smi, counters):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _wm_step_parity(dev, wm, pre, action_vocab, action_dim):
+    """One M_obs step and one M_reward step from the pre-trained weights
+    and moments, on the card and on a CPU copy, with the same batch and the
+    same explicit noise (drawn on the CPU): every leaf of the new weights
+    and moments, and each loss, within WM_PARITY_TOL of its largest value
+    (f32; TF32 is off). Returns the worst ratio to that bar."""
+    import torch
+    from repro_torch.envs.toy_manipulation import FRAME_DIM
+    from repro_torch.wm import denoiser as dn, reward as rw
+    from repro_torch.wm.wm_system import _clone
+    gen = torch.Generator().manual_seed(0)
+    b = 32
+    f0 = torch.rand(b, FRAME_DIM, generator=gen)
+    batch = dict(
+        f1=torch.rand(b, FRAME_DIM, generator=gen),
+        hist=f0[:, None].repeat(1, wm.history_frames, 1),
+        acts=torch.randint(0, action_vocab, (b, action_dim), generator=gen),
+        succ=(torch.rand(b, generator=gen) > 0.5).float(),
+        z_sigma=torch.randn(b, generator=gen),
+        z_noise=torch.randn(b, FRAME_DIM, generator=gen))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        x = {k: v.to(where) for k, v in batch.items()}
+        obs, obs_opt, l_obs = dn.make_denoiser_train_step(wm)(
+            _clone(pre["obs"], where), _clone(pre["obs_opt"], where),
+            None, x["f1"], x["hist"], x["acts"], z_sigma=x["z_sigma"],
+            z_noise=x["z_noise"])
+        rew, rew_opt, l_rew = rw.make_reward_train_step()(
+            _clone(pre["reward"], where),
+            _clone(pre["reward_opt"], where), x["f1"], x["succ"])
+        out[where.type] = {
+            "loss": {"obs": l_obs, "reward": l_rew},
+            "obs": obs, "obs mu": obs_opt.mu, "obs nu": obs_opt.nu,
+            "reward": rew, "reward mu": rew_opt.mu, "reward nu": rew_opt.nu}
+    worst, worst_key = 0.0, None
+    for group, leaves in out["cpu"].items():
+        for k, exp in leaves.items():
+            got = out["cuda"][group][k].cpu()
+            bar = WM_PARITY_TOL * max(float(exp.abs().max()), 1e-30)
+            r = float((got - exp).abs().max()) / bar
+            if not r <= worst:
+                worst, worst_key = r, f"{group} {k}"
+    if not worst <= 1.0:
+        raise AssertionError(f"[wm] card vs CPU WM step: {worst_key} at "
+                             f"{worst:.3f} x the bar")
+    return worst, worst_key
+
+
+def phase_wm(dev, smi, counters):
+    """The world-model mode (paper §4) end to end on ``_system_config``'s
+    model: the world model pre-trained on the card on the env's oracle
+    trajectories (every loss finite, the denoiser's mean over its last 10
+    steps below its first 10); one M_obs and one M_reward step held
+    against a CPU copy (``_wm_step_parity``); then ``AcceRLWMSystem`` with
+    one imagination worker (batch WM_IMAGINATION_BATCH, ``WMConfig()``'s
+    horizon 2, 8 Euler steps) and the pure-imagination diet
+    (``mix_real_fraction`` 0), ``run_wm`` for WM_STEPS steps, held by
+    ``_run_system`` with ``_step_floor``'s launches plus K1 on H x layers
+    and K2 on H x 7 x layers an imagination call. The mixed source must
+    have taken no real segment, imagination must have made every trained
+    step, the WM trainer must have updated M_obs, and the WM trees bound
+    before the run must be bit-equal to their clones while the M_obs entry
+    was rebound. Step 1 (an imagined batch dreamed under v0) is replayed
+    on the plain route (``_replay_step1``, which also holds the KL of v0
+    against the imagined μ and ω's mean near 1), ω mean above 0.5. One
+    ``[wm]`` line. Returns the run's launches by name."""
+    import gc
+    import torch
+    from repro_torch.configs import WMConfig
+    import numpy as np
+    from repro_torch.wm import AcceRLWMSystem
+    from repro_torch.wm.imagination import make_imagine_fn
+    from repro_torch.wm.wm_system import pretrain_world_model
+    t_phase = time.perf_counter()
+    cfg, rl, rt = _system_config()
+    wm = WMConfig()
+    n_l, ga, a, h = (TRAIN_LAYERS, rl.grad_accum, cfg.action_dim,
+                     wm.imagine_horizon)
+    ib = WM_IMAGINATION_BATCH
+
+    t0 = time.perf_counter()
+    pre = pretrain_world_model(
+        "spatial", wm, trajectories=50, train_steps=100, batch=64,
+        action_vocab=cfg.action_vocab_size, action_dim=a, device=dev)
+    t_pre = time.perf_counter() - t0
+    lo, lr_ = pre["losses"]["obs"], pre["losses"]["reward"]
+    first10, last10 = statistics.fmean(lo[:10]), statistics.fmean(lo[-10:])
+    print(f"[wm] pre-training on the card: {pre['transitions']} oracle "
+          f"transitions of 50 trajectories, 100 steps of batch 64 in "
+          f"{t_pre:.2f} s | denoiser loss {lo[0]:.4f} -> {lo[-1]:.4f}, mean "
+          f"of the first 10 steps {first10:.4f}, of the last 10 "
+          f"{last10:.4f} | reward loss {lr_[0]:.4f} -> {lr_[-1]:.4f}")
+    if not all(math.isfinite(x) for x in lo + lr_) or not last10 < first10:
+        raise AssertionError("[wm] pre-training: non-finite or no falling "
+                             "denoiser loss")
+    worst, worst_key = _wm_step_parity(dev, wm, pre, cfg.action_vocab_size,
+                                       a)
+    print(f"[wm] one M_obs and one M_reward step, card vs CPU on the same "
+          f"noise: worst leaf at {worst:.3e} of the bar ({worst_key}; bar "
+          f"{WM_PARITY_TOL} of each leaf's largest value)")
+
+    held = {}
+
+    def go(system):
+        for k in ("obs", "reward"):
+            held[k] = system.wm_params[k]
+            held[f"{k} clone"] = {n: x.clone() for n, x in held[k].items()}
+        return system.run_wm(train_steps=WM_STEPS, wall_timeout_s=240.0)
+
+    def floor(system, m):
+        calls = sum(im.segments_done for im in system.imaginers) // ib
+        f = _step_floor(n_l, ga, a, m["inference_batches"],
+                        m["train_steps"])
+        f["flash_attention"] += h * n_l * calls
+        f["decode_attention"] += h * a * n_l * calls
+        return f
+
+    system, m, launches, peak, facts = _run_system(
+        dev, counters, "[wm] run_wm",
+        lambda: AcceRLWMSystem(
+            cfg, rl, rt, wm, wm_params=pre, num_imagination_workers=1,
+            imagination_batch=ib, suite="spatial", segment_horizon=8,
+            max_episode_steps=16, batch_episodes=8, seed=0, device=dev),
+        go, WM_STEPS, floor)
+    trainer, service = system.trainer, system.inference
+    imaginer, src = system.imaginers[0], trainer.source
+    done = m["train_steps"]
+    calls = imaginer.segments_done // ib
+    problems = []
+    if not m["imagined_steps"] >= ib * h * done:
+        problems.append(f"imagined steps {m['imagined_steps']}")
+    if not m["img_train_steps"] >= done:
+        problems.append(f"img_train_steps {m['img_train_steps']}")
+    if not m["wm_updates"]["obs"] >= 1:
+        problems.append(f"WM updates {m['wm_updates']}")
+    if src.real_consumed != 0 or not src.imagined_consumed >= ib * done:
+        problems.append(f"consumed real {src.real_consumed}, imagined "
+                        f"{src.imagined_consumed}")
+    changed = [f"{k} {n}" for k in ("obs", "reward")
+               for n, x in held[k].items()
+               if not torch.equal(x, held[f"{k} clone"][n])]
+    if changed or system.wm_params["obs"] is held["obs"]:
+        problems.append(f"bound WM trees written {changed} or M_obs not "
+                        f"rebound")
+    if problems:
+        raise AssertionError(f"[wm] run_wm: {problems}")
+    # one imagination call alone, the services stopped: on v0, the WM
+    # trees as the run left them, seeds from B_wm (median of 3 after one)
+    fn = make_imagine_fn(cfg, wm, device=dev)
+    seeds = system.frame_channel.sample(ib)
+    args = (np.stack([x["tokens"] for x in seeds]),
+            np.stack([x["frame"] for x in seeds]).astype(np.float32),
+            np.array([x["step"] for x in seeds], np.int32))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    alone = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        fn(facts["v0"], system.wm_params["obs"], system.wm_params["reward"],
+           gen, *args)
+        alone.append(time.perf_counter() - t0)
+    wmt = system.wm_trainer
+    n_upd = sum(m["wm_updates"].values())
+    lat = service.metrics.series("batch_s")
+    wall = m["wall_s"]
+    print(f"[wm] run_wm: {cfg.name} x {n_l} layers, 8 rollout workers, "
+          f"inference batch 8, 1 imagination worker of batch {ib}, horizon "
+          f"{h}, {wm.diffusion_steps} Euler steps, mix_real_fraction "
+          f"{m['mix_real_fraction']}, grad_accum {ga} | system built in "
+          f"{facts['t_init']:.1f} s | wall {wall:.2f} s, {done} train "
+          f"steps | imagined steps {m['imagined_steps']} "
+          f"({m['imagined_steps'] / wall:.2f}/s) in {calls} calls, busy "
+          f"{imaginer.metrics.counter('busy_s') / max(calls, 1) * 1e3:.1f} "
+          f"ms a call (alone, the services stopped: "
+          f"{statistics.median(alone[1:]) * 1e3:.1f} ms) | real env steps "
+          f"{m['real_env_steps']}, sps_env "
+          f"{m['sps_env']:.2f} | real_env_steps / img_train_steps "
+          f"{m['real_env_steps'] / max(m['img_train_steps'], 1):.2f} | "
+          f"sps_train {m['sps_train']:.2f}, trainer_util "
+          f"{m['trainer_util']:.3f} (busy {trainer.busy_s / done * 1e3:.1f}"
+          f" ms a step), inference_util {m['inference_util']:.3f} | "
+          f"mean_policy_lag {m['mean_policy_lag']:.3f} (per step "
+          f"{[e['policy_lag'] for e in trainer.metrics_log]}) | WM updates "
+          f"{m['wm_updates']} in {wmt.cycles} cycles, wm-trainer busy "
+          f"{wmt.metrics.counter('busy_s'):.2f} s "
+          f"({wmt.metrics.counter('busy_s') / max(n_upd, 1) * 1e3:.1f} ms "
+          f"an update, util {wmt.utilization():.3f}) | "
+          f"consumed imagined {src.imagined_consumed}, real "
+          f"{src.real_consumed} | img_buffer_dropped "
+          f"{m['img_buffer_dropped']} | inference batches "
+          f"{m['inference_batches']}, batch_s p50 "
+          f"{statistics.median(lat) * 1e3:.1f} ms | swaps "
+          f"{service.weight_swaps}, published {facts['published']} | "
+          f"launches {launches} | max_memory_allocated {peak / 1e9:.2f} GB "
+          f"| {smi}")
+    first, log0 = trainer.first_batch, trainer.metrics_log[0]
+    params0 = facts.pop("v0")
+    del system, facts, held, pre, src, trainer, service, imaginer, wmt
+    gc.collect()
+    torch.cuda.empty_cache()
+    _replay_step1(dev, cfg, rl, "[wm] run_wm", params0, first, log0)
+    if not log0["omega_mean"] > 0.5:
+        raise AssertionError(f"[wm] step 1 omega mean {log0['omega_mean']}")
+    del params0, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[wm] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def _init_two_versions(dev, cfg):
@@ -2556,6 +2861,9 @@ def main() -> int:
     # the asynchronous system: rollouts, serving and training on one card
     for run, launches in phase_system(dev, smi, counting()).items():
         by_path[f"openvla-7b system, {run}"] = launches
+    # the world-model mode: imagination on the policy, the WM trainer
+    by_path["openvla-7b world model, run_wm"] = phase_wm(dev, smi,
+                                                         counting())
 
     if failures:
         raise AssertionError("steps 1-3 comparisons failed: "

@@ -2,7 +2,7 @@
 reference it is held against).
 
 The module layout mirrors ``repro``: ``configs``, ``core``, ``data``,
-``kernels``, ``models``, ``optim``, ``runtime``. The port imports ``torch``
+``envs``, ``kernels``, ``models``, ``optim``, ``runtime``, ``wm``. The port imports ``torch``
 and numpy only; every hot kernel of the reference's Pallas set that it
 carries is a hand-written CUDA kernel for Hopper (``csrc/``), with a plain
 PyTorch version beside it for the CPU.

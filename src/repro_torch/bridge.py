@@ -5,6 +5,9 @@
 nested dict with torch tensors. Keys are the JAX tree paths, so nothing is
 renamed; stacked per-layer leaves keep their leading ``L`` axis.
 
+``wm_params_from_numpy`` carries the reference's world-model parameters
+(and AdamW moments, when given) the same way.
+
 ``batch_from_numpy`` carries a numpy ``TrajectoryBatch`` (as
 ``dummy_batch`` or the reference's rollout makes it) to the device, leaf by
 leaf, with the same dtypes.
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.data.trajectory import TrajectoryBatch
+from repro_torch.optim import adamw
 
 
 def _leaf_to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -50,6 +54,25 @@ def params_from_numpy(tree: Dict[str, Any], *,
             return {k: conv(v) for k, v in node.items()}
         return _leaf_to_tensor(np.asarray(node), dev)
     return conv(tree)
+
+
+def wm_params_from_numpy(tree: Dict[str, Any], *,
+                         device="cuda") -> Dict[str, Any]:
+    """The reference's world-model parameters ``{"obs": …, "reward": …}``
+    with numpy leaves -> the port's f32 tensors, with the AdamW moments
+    ``"obs_opt"`` / ``"reward_opt"``: carried when the tree has them (as
+    numpy ``(step, mu, nu)``), fresh otherwise."""
+    dev = resolve_device(device)
+    out = {k: params_from_numpy(tree[k], device=dev)
+           for k in ("obs", "reward")}
+    for k in ("obs", "reward"):
+        opt = tree.get(f"{k}_opt")
+        out[f"{k}_opt"] = adamw.init(out[k]) if opt is None else \
+            adamw.AdamWState(
+                step=_leaf_to_tensor(np.asarray(opt[0]), dev),
+                mu=params_from_numpy(opt[1], device=dev),
+                nu=params_from_numpy(opt[2], device=dev))
+    return out
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:

@@ -89,3 +89,20 @@ def update(grads, state: AdamWState, params,
 
     tree_map(upd, params, grads, state.mu, state.nu, lr_tree)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu), norm
+
+
+def grad_step(loss_fn: Callable, params, state: AdamWState,
+              lr: Union[torch.Tensor, float]
+              ) -> Tuple[dict, AdamWState, torch.Tensor]:
+    """One ``update`` on the gradient of ``loss_fn(params)``, taken by
+    autograd over detached copies of the leaves (grad mode is switched on
+    for the call, whatever the thread's mode). Returns (params, new_state,
+    loss); ``params`` and the moments are updated in place."""
+    with torch.enable_grad():
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = loss_fn(leaves)
+        flat = tree_leaves(leaves)
+        grads = iter(torch.autograd.grad(loss, flat))
+        grads = tree_map(lambda _: next(grads), leaves)
+    params, state, _ = update(grads, state, params, lr)
+    return params, state, loss.detach()

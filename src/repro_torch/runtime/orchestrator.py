@@ -22,8 +22,7 @@ plain PyTorch route): the inference pool, the trainer and ``evaluate`` all
 run there, and on CUDA the kernels are built before any service starts.
 
 Not ported yet, and raising: remote and connected rollout workers, the
-elastic autoscaler and the telemetry sink (ROADMAP A6), and ``run_wm``
-(the world model, A4).
+elastic autoscaler and the telemetry sink (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -135,10 +134,14 @@ class AcceRLSystem:
 
     def run_wm(self, *, train_steps: int,
                wall_timeout_s: float = 300.0) -> Dict:
-        """World-model mode (paper §4)."""
-        raise NotImplementedError(
-            "run_wm needs the world model (repro/wm), which is not ported "
-            "yet: ROADMAP A4")
+        """World-model mode: the async pipeline with the WM attachment's
+        imagination + WM-trainer services on the bus."""
+        if not self.attachments:
+            raise RuntimeError(
+                "run_wm needs a world model: build the system via "
+                "repro_torch.wm.AcceRLWMSystem or system.attach(...) first")
+        return self.run_async(train_steps=train_steps,
+                              wall_timeout_s=wall_timeout_s)
 
     # -------------------------------------------------------------- evaluation
     def evaluate(self, *, episodes: int = 20, tasks: Optional[List[int]] =

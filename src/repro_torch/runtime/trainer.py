@@ -42,7 +42,7 @@ from repro_torch.core.train_step import init_train_state, make_train_step
 from repro_torch.data.prefetch import Prefetcher
 from repro_torch.data.trajectory import TrajectoryBatch
 from repro_torch.models.transformer import FRONTEND_DIM
-from repro_torch.runtime.service import Service
+from repro_torch.runtime.service import Service, ServiceState
 from repro_torch.runtime.weight_store import VersionedWeightStore
 from repro_torch.tree import tree_map
 
@@ -94,21 +94,31 @@ class TrainerWorker(Service):
                 "ROADMAP A5")
         super().__init__(name, role="trainer")
         self.cfg, self.rl, self.rt = cfg, rl, rt
-        self.source = source
         self.store = store
         self.state = init_train_state(cfg, seed, device=self.device)
         self._step_fn = make_train_step(cfg, rl, device=self.device)
-        self.prefetcher = Prefetcher(
-            source, batch_episodes, collate_segments,
-            depth=rt.prefetch_depth,
-            drain_timeout_s=rt.prefetch_drain_timeout_s,
-            idle_timeout_max_s=rt.prefetch_idle_timeout_s,
-            stage_batches=rt.prefetch_staging,
-            to_device=rt.prefetch_to_device, device=self.device)
+        self.rewire(source, batch_episodes)
         self.metrics_log: List[Dict] = []
         #: the first batch ``train_on_batch`` consumed (a step-1 replay
         #: needs it beside the published version-0 snapshot)
         self.first_batch = None
+
+    def rewire(self, source, batch_size: int) -> None:
+        """Consume ``source`` in batches of ``batch_size`` through a new
+        prefetcher on the runtime config's ingest path (staging, pinned
+        copies to ``device``, timeouts). Before ``start`` only: a running
+        prefetcher cannot be swapped."""
+        if self.status != ServiceState.NEW:
+            raise RuntimeError(f"{self.name}: rewire after start "
+                               f"(state={self.status})")
+        self.source = source
+        self.prefetcher = Prefetcher(
+            source, batch_size, collate_segments,
+            depth=self.rt.prefetch_depth,
+            drain_timeout_s=self.rt.prefetch_drain_timeout_s,
+            idle_timeout_max_s=self.rt.prefetch_idle_timeout_s,
+            stage_batches=self.rt.prefetch_staging,
+            to_device=self.rt.prefetch_to_device, device=self.device)
 
     # -- registry-backed counters ----------------------------------------------
     @property

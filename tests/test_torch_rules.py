@@ -42,7 +42,12 @@ missing = [m for m in ("repro_torch.kernels.ops",
                        "repro_torch.runtime.rollout",
                        "repro_torch.runtime.trainer",
                        "repro_torch.runtime.scheduler",
-                       "repro_torch.runtime.orchestrator")
+                       "repro_torch.runtime.orchestrator",
+                       "repro_torch.wm",
+                       "repro_torch.wm.denoiser",
+                       "repro_torch.wm.reward",
+                       "repro_torch.wm.imagination",
+                       "repro_torch.wm.wm_system")
            if m not in sys.modules]
 print(bad, missing)
 sys.exit(1 if bad or missing else 0)
@@ -151,6 +156,11 @@ def test_entry_points_default_to_cuda():
     from repro_torch.runtime import (AcceRLSystem, FifoChannel,
                                      InferenceService, TrainerWorker,
                                      VersionedWeightStore)
+    from repro_torch.bridge import wm_params_from_numpy
+    from repro_torch.wm import (AcceRLWMSystem, ImaginationWorker,
+                                WorldModelTrainer)
+    from repro_torch.wm.imagination import make_imagine_fn
+    from repro_torch.wm.wm_system import pretrain_world_model
     cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"), layers=2,
                            d_model=64)
     ssm_cfg = tconfigs.reduced(tconfigs.get_config("mamba2-2.7b"), layers=2,
@@ -179,6 +189,19 @@ def test_entry_points_default_to_cuda():
         lambda: AcceRLSystem(cfg, tconfigs.RLConfig(),
                              tconfigs.RuntimeConfig()),
         lambda: Prefetcher(FifoChannel(1), 1, list, to_device=True),
+        lambda: pretrain_world_model("spatial", tconfigs.WMConfig(),
+                                     trajectories=1, train_steps=1, batch=1),
+        lambda: make_imagine_fn(cfg, tconfigs.WMConfig()),
+        lambda: ImaginationWorker(0, cfg, tconfigs.WMConfig(),
+                                  VersionedWeightStore(), {}, FifoChannel(1),
+                                  FifoChannel(1)),
+        lambda: WorldModelTrainer(tconfigs.WMConfig(), {}, {},
+                                  FifoChannel(1)),
+        lambda: AcceRLWMSystem(cfg, tconfigs.RLConfig(),
+                               tconfigs.RuntimeConfig(), tconfigs.WMConfig()),
+        lambda: wm_params_from_numpy(
+            {"obs": {"w": np.zeros(2, np.float32)},
+             "reward": {"w": np.zeros(2, np.float32)}}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

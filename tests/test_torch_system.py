@@ -310,5 +310,5 @@ def test_unported_branches_raise():
         TrainerWorker(_cfg(tc), tc.RLConfig(), base, texp.FifoChannel(1),
                       VersionedWeightStore(), checkpoint_dir="ckpt",
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(RuntimeError, match="needs a world model"):
         _system(tc).run_wm(train_steps=1)

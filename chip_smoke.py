@@ -20,13 +20,16 @@ Phases, each printing one line of its numbers:
      ragged shapes, the action head's N 224 x V 256 and
      benchmarks/fused_loss.py's FULL_SHAPES, all on its register body and
      also against its order of arithmetic; the backward twice, bit for
-     bit; timed with the share of its bound), K1/K2/K3 again at zamba2-1.2b's attention (head_dim 64, MHA; K1
-     also without the causal mask), K6 SSD scan (with and without entering
+     bit; timed with the share of its bound), K1/K2/K3 again at
+     zamba2-1.2b's attention (head_dim 64, MHA; K1 also without the causal
+     mask) and at granite-moe-1b-a400m's (16 query heads over 8 KV heads
+     of 64, at its serving, training and system shapes; K4 at its d
+     1024), K6 SSD scan (with and without entering
      states; which body ran printed, and its bf16 tensor-core body timed
      beside its FMA body) and K7 its backward (run twice, bit for bit) at
      mamba2-2.7b's and zamba2-1.2b's SSD shapes; each timed beside the
      plain version and, where one PyTorch call computes the same function,
-     that call.
+     that call (grouped K/V passed as they are, ``enable_gqa``).
   3. model: openvla-7b at full width (bf16, random weights from a seed),
      prefill + 7 decode steps on the kernel route, replayed on the plain
      route; every step's action logits compared.
@@ -71,7 +74,17 @@ Phases, each printing one line of its numbers:
      full-depth f32 action logits of one train micro-batch, against
      ``ref.reference_gipo_loss``, the plain route's autograd, and K4 on the
      same hidden states and head weight.
-  9. system: the asynchronous AcceRL system (``AcceRLSystem``) on
+  9. granite-moe-1b-a400m (moe: 24 layers, d 1024, 32 experts top-8):
+     one MoE layer at full width on the card and on a CPU copy (f32: the
+     same expert choices and keep masks; bf16: the differing ones
+     printed), its dispatch and combine products timed at the training
+     shape; phases 3-5 again at full width and full depth (256-token and
+     the env's 12-token prompts, K1 and K2 on every layer; three train
+     steps of 36 x 256 tokens against the plain route, stale and live μ,
+     and an f32 copy; one step on the env's sequences), each printing per
+     layer the share of expert choices that agree between the routes and
+     the dropped share of assignments.
+ 10. system: the asynchronous AcceRL system (``AcceRLSystem``) on
      openvla-7b at full width and 8 layers, with no route forced: eight
      rollout workers stepping the toy env against the inference service,
      the prefetcher's pinned copies to the card on a side stream, the
@@ -84,7 +97,7 @@ Phases, each printing one line of its numbers:
      phase 5 holds live step 1's). One ``[system]`` line a run with
      sps_env, sps_train, the utilisations, the policy lag and the batch
      latency beside the card's name and power limit.
- 10. wm: the world-model mode (paper §4) on the system phase's model: the
+ 11. wm: the world-model mode (paper §4) on the system phase's model: the
      world model pre-trained on the card (50 oracle trajectories, 100
      steps; its losses finite and the denoiser's falling), one M_obs and
      one M_reward step held against a CPU copy on the same noise, then
@@ -95,6 +108,13 @@ Phases, each printing one line of its numbers:
      updated, the WM trees an imagination call may hold never written;
      step 1 replayed on the plain route. One ``[wm]`` line with imagined
      steps per second, the real-env-steps-per-update ratio and the rest.
+ 12. system on granite-moe-1b-a400m at full depth: ``run_async`` for 3
+     steps, held as phase 10 holds openvla-7b's, with the moe metrics at
+     every step; step 1 replayed on the kernel route, the KL of v0 against
+     the served μ printed. Then the same on an f32 copy, and on an f32
+     copy at capacity_factor E/k, where no assignment drops: there step 1
+     is replayed on the plain route, and that KL held as phase 10 holds
+     it.
 
 Every check raises on failure, so the script exits non-zero. The line
 before the last is a JSON summary of every kernel; the last line is
@@ -103,6 +123,8 @@ the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -111,6 +133,7 @@ import subprocess
 import sys
 import threading
 import time
+import typing
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -298,6 +321,84 @@ HYB_F32_BOUNDS = (1e-5, 5e-5, [dict.fromkeys(STEP_KEYS, 2e-4)] * 3)
 # step. Each bf16 route's step 1 is also printed against the f32 copy's, to
 # tell rounding from a fault in the bf16 gap.
 OVLA_F32_BOUNDS = (1e-5, 5e-5, [dict.fromkeys(STEP_KEYS, 5e-5)] * 3)
+# granite-moe-1b-a400m (moe: 24 layers, d 1024, 16 query heads over 8 KV
+# heads of 64, 32 experts top-8 of expert width 512, capacity_factor 1.25):
+# serving and training at full width and full depth, bf16, on MOE_OBS-token
+# prompts and train sequences (36 x 256 tokens a micro-batch: 18 groups of
+# 512, capacity 160 an expert) and on the env's lengths (one group). The
+# state (~2.7 GB of bf16 params, ~16 GB of f32 moments and accumulator)
+# fits one card; the plain route checkpoints each layer (both routes' step-1
+# gradients are held at once). The routes differ in the attention kernels'
+# roundings before each router, so a near-tie in a token's top-8 can flip
+# a choice, and through the capacity cumsum shift later tokens' drops. With
+# the reference's init (expert weights at fan-in E: ROADMAP C6) a flip
+# moves its token by as much as the token itself, so the bf16 routes drift
+# apart layer by layer: on the H100 their choices agreed on 99.74-99.77% of
+# the first layer's (token, choice) pairs and 67.8% of the last's, and
+# their action logits differed by 2.4-3.5 (max |logit| 3.3-3.7). The bf16
+# logits are therefore printed, not held; the first layer's agreement is
+# held (MOE_AGREE[0]), and the f32 copy, whose routes agreed on every
+# choice of the served replays and on >= 99.91% in training, carries the
+# route checks (MOE_AGREE[1]; logits read 1.7e-5-4.2e-5 apart). Training
+# in bf16, step 1 read 6.76e-2 over the metrics (kl; loss 6.5e-2) and 1.25
+# per leaf and layer (moe.router[0]: past the first layers the gradients
+# are of different routings, so this bound only catches a blown-up
+# gradient), steps 1-3 6.8e-2, 2.1e-2 and 0.194 (grad norm), the env step
+# 0.110 (kl); on live μ, scored on each route's own log-probs (ω 0.68-0.79;
+# the plain route's log-probs gave the kernel route ω 0.39), entropy within
+# 1.4e-3 and grad norm within 0.172, the KL (0.017-0.064) 0.30-1.60 apart,
+# printed. The f32 copy's step 1: 2.06e-3 over the metrics (ratio_mean)
+# and 2.8e-2 per leaf and layer (attn.wk[20], from the few deep choices
+# that flip in f32 too); steps 1-3 from the same seed: step 1's loss and KL
+# 1.9e-5, entropy 2.5e-6, grad norm 1.98e-4, while K4's dh planted 1e-3
+# too large read 1.20e-3 and its KL coefficient 1% off 1.02e-2 there
+# (scripts/witness_fault.py --arch granite-moe-1b-a400m); steps 2-3 read
+# 3.0e-2-1.7e-1 sound and planted alike (one update moves each weight by
+# ~lr, which flips choices), so they are printed. Bounds are ~3x the
+# readings (f32 step 1's grad norm 3x, 2x below the dh fault).
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_HEADS = (16, 8, 64)                      # query heads, KV heads, D
+MOE_OBS = 256
+MOE_AGREE = (0.99, 0.997)                    # bf16 first layer, f32 every
+MOE_F32_LOGIT_BOUND = 2e-4
+MOE_ROUTE_BOUND = 0.3
+MOE_LEAF_BOUND = 4.0
+MOE_STEPS_BOUND = [dict.fromkeys(STEP_KEYS, 0.2)] * 2 + [
+    dict.fromkeys(STEP_KEYS, 0.6)]
+MOE_LIVE_STEPS_BOUND = [{"entropy": 5e-3, "grad_norm": 0.5}] * 3
+MOE_F32_BOUNDS = (6e-3, 0.1, [{"loss": 1e-4, "kl": 1e-4, "entropy": 1e-5,
+                               "grad_norm": 6e-4}, {}, {}])
+
+
+class Checks(typing.NamedTuple):
+    """What the shared phases hold of one model, chosen once in main (a
+    dense model's are the defaults). ``agree``: the floors of the routes'
+    expert-choice agreement (as MOE_AGREE), or None where no MoE layer
+    routes. ``live_own``: live behaviour log-probs scored on each route's
+    own run (else on the plain route). ``replay``: the route of the
+    system's step-1 replay. ``hold_served``: hold the KL of v0 against the
+    served μ (REPLAY_KL_BOUND). ``metric_keys``: metrics every system step
+    must carry."""
+    agree: tuple | None = None
+    live_own: bool = False
+    replay: str = "torch"
+    hold_served: bool = True
+    metric_keys: tuple = ()
+
+
+DENSE = Checks()
+# granite-moe-1b-a400m: its bf16 routes drift apart (above), and in the
+# system a serving batch forms other MoE groups than a training
+# micro-batch, so other assignments drop: the served-μ KL is printed, and
+# step 1 is replayed on the kernel route. The witness of that cause: the
+# same on an f32 copy (printed), then on an f32 copy at capacity_factor
+# E/k (``_f32_copy(drops=False)``), where every group keeps every
+# assignment: MOE_NO_DROPS, replayed on the plain route with the served-μ
+# KL held.
+MOE = Checks(agree=MOE_AGREE, live_own=True, replay="cuda",
+             hold_served=False,
+             metric_keys=("moe_load_balance", "moe_dropped_frac"))
+MOE_NO_DROPS = MOE._replace(replay="torch", hold_served=True)
 # kernel-name patterns that group a traced train step's device time
 TRACE_GROUPS = (("K1 flash fwd", ("flash_fwd",)),
                 ("K3 flash bwd", ("flash_bwd",)),
@@ -454,10 +555,60 @@ def _kernel_name(mangled: str) -> str:
     return name
 
 
+def _lib_layout(*ts):
+    """[B, T, H, D] tensors as the library's [B, H, T, D], contiguous."""
+    return [x.transpose(1, 2).contiguous() for x in ts]
+
+
+# the library's fused attention backends, in the order the GQA timings try
+# them with grouped K/V as they are (enable_gqa=True)
+SDPA_FUSED = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def _time_sdpa(q, k, v, flush, **kw):
+    """Median device ms of the library's attention on [B, T, H, D] inputs
+    (``kw``: ``is_causal`` or ``attn_mask``), the form that ran, and for
+    grouped K/V the same call on K/V repeated to the query heads
+    beforehand (the repeat not timed; else None). Equal head counts: one
+    call, the library choosing its backend. Grouped K/V: ``enable_gqa`` on
+    K/V as they are, under the first of SDPA_FUSED that takes the call;
+    only if none does, the repeated form."""
+    import warnings
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = _lib_layout(q, k, v)
+    if k.shape[2] == q.shape[2]:
+        return _median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **kw), flush=flush)[0], "sdpa", None
+    rep = q.shape[2] // k.shape[2]
+    kr, vr = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
+    rep_ms = _median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kr, vr, **kw), flush=flush)[0]
+    for name in SDPA_FUSED:
+        with sdpa_kernel([getattr(SDPBackend, name)]), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # a backend's refusal
+            try:
+                F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                               **kw)
+            except RuntimeError:
+                continue
+            return _median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **kw), flush=flush)[0], \
+                f"sdpa gqa {name.lower()}", rep_ms
+    return rep_ms, "sdpa, K/V repeated", None
+
+
+def _lib_line(lib, lib_ms, rep_ms):
+    """The library's time for a kernel's line; the repeated form beside
+    the grouped one."""
+    return f"{lib} {lib_ms:.4f} ms" + (
+        "" if rep_ms is None else f" (K/V repeated beforehand {rep_ms:.4f})")
+
+
 def _time_flash(case, flush, *, lse: bool = False):
     """Kernel, plain version and library call on one bf16 causal case;
     ``lse`` times the training forward, which also writes the LSE."""
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_plain_dense,
                                                      flash_attention)
     q, k, v = case["q"], case["k"], case["v"]
@@ -466,24 +617,22 @@ def _time_flash(case, flush, *, lse: bool = False):
                              flush=flush)
     plain_ms, _ = _median_ms(lambda: _plain_dense(q, k, v, return_lse=lse),
                              flush=flush)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_ms, _ = _median_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), flush=flush)
+    lib_ms, lib, rep_ms = _time_sdpa(q, k, v, flush, is_causal=True)
     pairs = t * (t + 1) // 2                       # causal (q, k) pairs
     bound_ms, bound_by = _bound(_nbytes(q, k, v, q) + lse * b * t * h * 4,
                                 4.0 * d * pairs * b * h, "bfloat16")
     shape = f"B={b} T=S={t} H={h} KV={k.shape[2]} D={d} bf16" \
         + (" +lse" if lse else "")
     print(f"[kernels] flash {shape}: kernel {ms:.4f} ms | plain "
-          f"{plain_ms:.4f} ms | sdpa {lib_ms:.4f} ms | bound "
+          f"{plain_ms:.4f} ms | {_lib_line(lib, lib_ms, rep_ms)} | bound "
           f"{bound_ms:.4f} ms ({bound_by}) | host enqueue {host_ms:.4f} ms")
     return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+                bound_by=bound_by, library_ms=lib_ms, library=lib,
+                library_repeated_ms=rep_ms)
 
 
 def _time_decode(case, flush):
     """Kernel, plain version and library call on one bf16 decode case."""
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (_plain_decode,
                                                       decode_attention)
     q, k, v, valid = case["q"], case["k"], case["v"], case["valid"]
@@ -492,10 +641,8 @@ def _time_decode(case, flush):
                              flush=flush)
     plain_ms, _ = _median_ms(lambda: _plain_decode(q, k, v, valid),
                              flush=flush)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    mask = valid[:, None, None, :]
-    lib_ms, _ = _median_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask), flush=flush)
+    lib_ms, lib, rep_ms = _time_sdpa(q, k, v, flush,
+                                     attn_mask=valid[:, None, None, :])
     # the output needs K and V rows of this run's valid slots only
     n_valid = int(valid.sum().item())
     kv_row = k.shape[2] * d * k.element_size()
@@ -503,15 +650,17 @@ def _time_decode(case, flush):
                                 4.0 * d * h * n_valid, "bfloat16")
     shape = f"B={b} S={k.shape[1]} H={h} KV={k.shape[2]} D={d} bf16"
     print(f"[kernels] decode {shape}: kernel {ms:.4f} ms | plain "
-          f"{plain_ms:.4f} ms | sdpa {lib_ms:.4f} ms | bound "
+          f"{plain_ms:.4f} ms | {_lib_line(lib, lib_ms, rep_ms)} | bound "
           f"{bound_ms:.4f} ms ({bound_by}) | host enqueue {host_ms:.4f} ms")
     return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+                bound_by=bound_by, library_ms=lib_ms, library=lib,
+                library_repeated_ms=rep_ms)
 
 
 def _time_flash_bwd(case, flush):
     """K3, its plain version and the library's flash backward (fed by the
-    library's own forward, timed alone) on one bf16 causal case. K3 is
+    library's own forward, timed alone; grouped K/V as they are where the
+    op takes them, else repeated) on one bf16 causal case. K3 is
     timed twice: the wrapper's call (everything it puts on the stream) and
     its kernels' own launch on buffers allocated beforehand; the gap is
     work outside the kernels."""
@@ -532,14 +681,24 @@ def _time_flash_bwd(case, flush):
         flush=flush)
     plain_ms, _ = _median_ms(
         lambda: _plain_flash_bwd(q, k, v, o, lse, do), flush=flush)
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-        qt, kt, vt, 0.0, True)
-    lo, llse, cq, ck, mq, mk, seed, offset = fwd[:8]
-    lib_ms, _ = _median_ms(
-        lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            dot, qt, kt, vt, lo, llse, cq, ck, mq, mk, 0.0, True, seed,
-            offset), flush=flush)
+    qt, kt, vt, dot = _lib_layout(q, k, v, do)
+
+    def lib_bwd(kt, vt):
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True)
+        lo, llse, cq, ck, mq, mk, seed, offset = fwd[:8]
+        return _median_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, kt, vt, lo, llse, cq, ck, mq, mk, 0.0, True, seed,
+                offset), flush=flush)[0]
+    rep_ms = None
+    if k.shape[2] != h:
+        rep_ms = lib_bwd(*(x.repeat_interleave(h // k.shape[2], dim=1)
+                           for x in (kt, vt)))
+    try:                    # grouped K/V as they are, where the op takes it
+        lib_ms, lib = lib_bwd(kt, vt), "sdpa flash bwd"
+    except RuntimeError:
+        lib_ms, lib, rep_ms = rep_ms, "sdpa flash bwd, K/V repeated", None
     pairs = t * (t + 1) // 2                 # causal (q, k) pairs per head
     bound_ms, bound_by = _bound(
         _nbytes(q, k, v, o, lse, do) + _nbytes(q, k, v),
@@ -547,10 +706,11 @@ def _time_flash_bwd(case, flush):
     shape = f"B={b} T=S={t} H={h} KV={k.shape[2]} D={d} bf16"
     print(f"[kernels] flash_bwd {shape}: kernel {ms:.4f} ms (its kernels' "
           f"own device time {kernels_ms:.4f}) | plain {plain_ms:.4f} ms | "
-          f"sdpa flash bwd {lib_ms:.4f} ms | bound {bound_ms:.4f} ms "
+          f"{_lib_line(lib, lib_ms, rep_ms)} | bound {bound_ms:.4f} ms "
           f"({bound_by}) | host enqueue {host_ms:.4f} ms")
     return dict(shape=shape, ms=ms, kernels_ms=kernels_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                library=lib, library_repeated_ms=rep_ms)
 
 
 def _time_policy(case, flush):
@@ -828,7 +988,8 @@ def phase_kernels(dev):
                               (112, 4096, 256, False),
                               (3584, 4096, 256, False),
                               (224, 2560, 256, False),
-                              (224, 2048, 256, False), (300, 64, 48, False),
+                              (224, 2048, 256, False),
+                              (224, 1024, 256, False), (300, 64, 48, False),
                               (37, 128, 128, False), (224, 4096, 256, True)]:
         for dtype in (torch.float32, torch.bfloat16):
             c = _policy_case(gen, dev, n, d, va, dtype, stale=stale)
@@ -861,12 +1022,16 @@ def phase_kernels(dev):
                   f"{res[1][0]:.3e} | beyond the bar's rounding term, of the "
                   f"largest value: {max(r[1] for r in res):.3e} | two runs "
                   f"equal")
-            if dtype == torch.bfloat16 and d >= 2048 and not stale:
+            if dtype == torch.bfloat16 and d >= 1024 and not stale:
+                if gl.policy_body(c["h"], c["w"]) != "tensor cores":
+                    raise AssertionError(f"{tag}: not on the tensor-core "
+                                         f"body")
                 k4[n, d] = dict(c, err=max([ferr] + [r[0] for r in res]))
             del c, args, dh, dw, dh2, dw2, edh, edw
-    t224, t112, t3584, t2560, t2048 = (
+    t224, t112, t3584, t2560, t2048, t1024 = (
         _time_policy(k4[key], flush) for key in
-        ((224, 4096), (112, 4096), (3584, 4096), (224, 2560), (224, 2048)))
+        ((224, 4096), (112, 4096), (3584, 4096), (224, 2560), (224, 2048),
+         (224, 1024)))
     for tag in ("fwd", "bwd"):
         entries.append(dict(
             name=f"fused_policy_loss_{tag}", route="cuda",
@@ -876,13 +1041,15 @@ def phase_kernels(dev):
             launches=None, max_abs_err=max(v["err"] for v in k4.values()),
             **t224[tag], imagined_batch=t112[tag], large_batch=t3584[tag],
             mamba2_width=t2560[tag],
-            zamba2_width=t2048[tag]))
+            zamba2_width=t2048[tag], granite_moe_width=t1024[tag]))
     del k4
     entries += _gipo_head_kernels(gen, dev, flush)
     z = _zamba2_attention(gen, dev, flush)
+    g = _granite_attention(gen, dev, flush)
     for e, key in zip(entries[:3], ("flash", "decode", "flash_bwd")):
-        e["zamba2"] = z[key]
-        e["max_abs_err"] = max(e["max_abs_err"], z[key]["max_abs_err"])
+        e["zamba2"], e["granite_moe"] = z[key], g[key]
+        e["max_abs_err"] = max(e["max_abs_err"], z[key]["max_abs_err"],
+                               g[key]["max_abs_err"])
     # mamba2-2.7b's SSD (H 80, P 64, N 128), then zamba2-1.2b's (H 64, P 64,
     # N 64: K7's f32 tiles fit chunk 128 there, 199 KB)
     k6, k7 = _ssd_kernels(gen, dev, flush, "mamba2", 80, 64, 128, 64)
@@ -983,6 +1150,100 @@ def _zamba2_attention(gen, dev, flush):
                     max_abs_err=errs["k2"]),
         flash_bwd=dict(_time_flash_bwd(keep["bwd"], flush),
                        max_abs_err=errs["k3"]))
+
+
+def _granite_attention(gen, dev, flush):
+    """K1, K2 and K3 at granite-moe-1b-a400m's attention (16 query heads,
+    8 KV heads, head_dim 64: GQA at D 64), f32 and bf16, each against its
+    plain version: K1 on the serving prompts (B8 T256, the env's T12 and
+    the system's T13: a frame and the env's 12 tokens) and the training
+    shapes (B36 T256, the env's T19 and the system's T20, with the LSE),
+    K3 at the three training shapes, K2 over the serving caches (B8 S263,
+    S19 and the system's longest, S20). Returns bf16 timings by kernel."""
+    import torch
+    from repro_torch.kernels.decode_attention import (_plain_decode,
+                                                      decode_attention)
+    from repro_torch.kernels.flash_attention import (_plain_dense,
+                                                     _plain_flash_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    h, kv, d = MOE_HEADS
+    keep, errs = {}, dict.fromkeys(("k1", "k2", "k3"), 0.0)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    sys_t = SSM_ENV_OBS + 1                  # the system's prompt
+    for b, t in ((8, MOE_OBS), (8, SSM_ENV_OBS), (8, sys_t), (36, MOE_OBS),
+                 (36, SSM_ENV_OBS + 7), (36, sys_t + 7)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rand(b, t, h, d, dtype=dtype)
+            k, v = (rand(b, t, kv, d, dtype=dtype) for _ in range(2))
+            out, lse = flash_attention(q, k, v, return_lse=True)
+            exp, exp_lse = _plain_dense(q, k, v, return_lse=True)
+            torch.cuda.synchronize()
+            tag = f"granite flash B={b} T=S={t} H={h} KV={kv} D={d} " \
+                  f"{str(dtype)[6:]}"
+            err = _check_close(tag, out, exp, dtype)
+            lse_err = (lse - exp_lse).abs().max().item()
+            if not lse_err <= 1e-3:
+                raise AssertionError(f"{tag}: lse err {lse_err}")
+            errs["k1"] = max(errs["k1"], err)
+            line = f"[kernels] {tag}: max abs err {err:.3e} lse {lse_err:.3e}"
+            if dtype == torch.bfloat16:
+                keep[b, t] = dict(q=q, k=k, v=v)
+            if b == 36:
+                do = rand(b, t, h, d, dtype=dtype)
+                got = flash_attention_bwd(q, k, v, out, lse, do)
+                exp = _plain_flash_bwd(q, k, v, out, lse, do)
+                torch.cuda.synchronize()
+                res = [_check_grad(f"{tag} {n}", x, y, dtype)
+                       for n, x, y in zip(("dq", "dk", "dv"), got, exp)]
+                errs["k3"] = max([errs["k3"]] + [r[0] for r in res])
+                line += (f" | flash_bwd max abs err dq {res[0][0]:.3e} dk "
+                         f"{res[1][0]:.3e} dv {res[2][0]:.3e}, beyond the "
+                         f"bar's rounding term {max(r[1] for r in res):.3e}")
+                if dtype == torch.bfloat16:
+                    keep["bwd", t] = dict(q=q, k=k, v=v, o=out, lse=lse,
+                                          do=do)
+                del do, got
+            print(line)
+            del q, k, v, out, lse, exp, exp_lse
+    for s_len in (MOE_OBS + 7, SSM_ENV_OBS + 7, sys_t + 7):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rand(8, 1, h, d, dtype=dtype)
+            k, v = (rand(8, s_len, kv, d, dtype=dtype) for _ in range(2))
+            valid = torch.rand(8, s_len, generator=gen, device=dev) > 0.3
+            valid[:, 0] = True
+            err = _check_close(
+                f"granite decode S={s_len}", decode_attention(q, k, v, valid),
+                _plain_decode(q, k, v, valid), dtype)
+            errs["k2"] = max(errs["k2"], err)
+            print(f"[kernels] granite decode B=8 S={s_len} H={h} KV={kv} "
+                  f"D={d} {str(dtype)[6:]}: max abs err {err:.3e}")
+            keep["decode", s_len] = dict(q=q, k=k, v=v, valid=valid)
+    env_t = SSM_ENV_OBS + 7
+    return dict(
+        flash=dict(_time_flash(keep[8, MOE_OBS], flush),
+                   max_abs_err=errs["k1"],
+                   env_prompt=_time_flash(keep[8, SSM_ENV_OBS], flush),
+                   train_shape=_time_flash(keep[36, MOE_OBS], flush,
+                                           lse=True),
+                   env_train_shape=_time_flash(keep[36, env_t], flush,
+                                               lse=True),
+                   system=_time_flash(keep[8, sys_t], flush),
+                   system_train_shape=_time_flash(keep[36, sys_t + 7], flush,
+                                                  lse=True)),
+        decode=dict(_time_decode(keep["decode", MOE_OBS + 7], flush),
+                    max_abs_err=errs["k2"],
+                    env_prompt=_time_decode(keep["decode", env_t], flush),
+                    system=_time_decode(keep["decode", sys_t + 7], flush)),
+        flash_bwd=dict(_time_flash_bwd(keep["bwd", MOE_OBS], flush),
+                       max_abs_err=errs["k3"],
+                       env_train_shape=_time_flash_bwd(keep["bwd", env_t],
+                                                       flush),
+                       system_train_shape=_time_flash_bwd(
+                           keep["bwd", sys_t + 7], flush)))
 
 
 # K5 at the reference tests' ragged shapes (tests/test_dispatch.py), the
@@ -1368,6 +1629,191 @@ def _time_ssd_bwd(case, flush):
                 bound_by=bound_by, library_ms=None)
 
 
+@contextlib.contextmanager
+def _moe_choices():
+    """Wraps the port's ``moe._group_dispatch`` for the body of the
+    ``with``: each call's expert choices (the top-k of the softmax of its
+    f32 router logits, first choice first, as the call chose them) and its
+    keep mask are appended, in call order, to the list it yields. The
+    port's outputs are unchanged."""
+    import torch
+    from repro_torch.models import moe
+    calls, inner = [], moe._group_dispatch
+
+    def wrapped(params, xg, cfg, cap):
+        out, logits, keep = inner(params, xg, cfg, cap)
+        with torch.no_grad():
+            idx = torch.topk(torch.softmax(logits.detach(), dim=-1),
+                             cfg.top_k, dim=-1).indices
+        calls.append((idx.to(torch.uint8), keep.detach().clone()))
+        return out, logits, keep
+    moe._group_dispatch = wrapped
+    try:
+        yield calls
+    finally:
+        moe._group_dispatch = inner
+
+
+def _moe_agreement(label, kernel, plain, n_layers):
+    """Per layer, between two runs' ``_moe_choices`` lists (the same calls
+    in the same order: call i runs layer i % n_layers): the share of
+    (token, choice) pairs whose expert the other run also chose for that
+    token, the share whose expert sits at the same rank of the top-k
+    (which the GShard priority reads), and each run's dropped share of
+    assignments; printed. Returns the per-layer shares of the first kind."""
+    import torch
+    if len(kernel) != len(plain) or not kernel:
+        raise AssertionError(f"{label}: {len(kernel)} vs {len(plain)} MoE "
+                             f"calls")
+    cols = ("same", "ranked", "total", "kernel", "plain")
+    acc = {c: [0] * n_layers for c in cols}
+    for i, ((ik, kk), (ip, kp)) in enumerate(zip(kernel, plain)):
+        layer = i % n_layers
+        e = int(max(ik.max(), ip.max())) + 1
+        sets = [torch.zeros(ik.shape[:-1] + (e,), dtype=torch.bool,
+                            device=ik.device).scatter_(-1, x.long(), True)
+                for x in (ik, ip)]
+        for c, v in (("same", (sets[0] & sets[1]).sum()),
+                     ("ranked", (ik == ip).sum()), ("total", ik.numel()),
+                     ("kernel", kk.sum()), ("plain", kp.sum())):
+            acc[c][layer] += int(v)
+    share = {c: [a / n for a, n in zip(acc[c], acc["total"])] for c in cols}
+    print(f"{label}, per layer of {acc['total'][0]} (token, choice) pairs: "
+          f"chosen on both routes {[f'{a:.4f}' for a in share['same']]} | "
+          f"at the same rank {[f'{a:.4f}' for a in share['ranked']]} | "
+          f"dropped share, kernel "
+          f"{[f'{1 - x:.4f}' for x in share['kernel']]}, plain "
+          f"{[f'{1 - x:.4f}' for x in share['plain']]}")
+    return share["same"]
+
+
+def _check_moe_agreement(cfg, agree, label, floors):
+    """The routes' expert choices (``agree``: per layer, as
+    ``_moe_agreement`` returns): in bf16 the first layer's agreement at
+    least ``floors[0]`` (its router sees the routes' attention roundings
+    only), in f32 every layer's at least ``floors[1]``."""
+    if cfg.param_dtype == "float32":
+        worst, floor = min(agree), floors[1]
+    else:
+        worst, floor = agree[0], floors[0]
+    if not worst >= floor:
+        raise AssertionError(f"{label}: expert choices agree on {worst} of "
+                             f"the pairs (floor {floor})")
+
+
+def _forward_calls(calls, n_layers, per_micro):
+    """The forward calls of a train step's ``_moe_choices`` list, layer by
+    layer a micro-batch: a checkpointed block runs its router again in the
+    backward (``per_micro`` = 2 x layers), after the forward's."""
+    out = []
+    for m in range(0, len(calls), per_micro):
+        out += calls[m:m + n_layers]
+    return out
+
+
+def phase_moe_layer(dev):
+    """One granite-moe-1b-a400m MoE layer at full width (32 experts top-8,
+    d 1024, expert width 512; weights from a seed) on 8 x MOE_OBS tokens
+    (4 groups of 512, capacity 160), on the card and on a CPU copy of the
+    same f32 weights and inputs: the expert choices and keep masks equal
+    element for element, ``out`` within F32_MAX_ERR of its largest value,
+    the aux terms within 1e-5 relative (the dropped share exactly). Again
+    in bf16 (router f32), the differing choices and keep slots printed.
+    Then the dispatch and combine products and the whole layer, forward
+    and backward, timed at the training shape (36 x MOE_OBS tokens)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p32 = moe.moe_init(gen, cfg.d_model, cfg.moe, torch.float32, dev)
+    x32 = torch.randn(8, MOE_OBS, cfg.d_model, generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        p = {k: v if k == "router" else v.to(dtype) for k, v in p32.items()}
+        x = x32.to(dtype)
+        with torch.no_grad():
+            with _moe_choices() as card:
+                out_c, aux_c = moe.moe_forward(p, x, cfg.moe)
+            with _moe_choices() as host:
+                out_h, aux_h = moe.moe_forward(
+                    tree_map(lambda v: v.cpu(), p), x.cpu(), cfg.moe)
+        (ic, kc), (ih, kh) = card[0], host[0]
+        n_choice = int((ic.cpu() != ih).sum())
+        n_keep = int((kc.cpu() != kh).sum())
+        scale = out_h.float().abs().max().item()
+        err = (out_c.cpu().float() - out_h.float()).abs().max().item()
+        aux_rel = {k: abs(aux_c[k].item() - aux_h[k].item())
+                   / max(abs(aux_h[k].item()), 1e-30) for k in aux_h}
+        tag = f"[moe] {cfg.name} layer, {str(dtype)[6:]}, card vs CPU"
+        print(f"{tag}: {ih.numel()} (token, choice) pairs, {n_choice} "
+              f"differ, {n_keep} keep slots differ | out max abs err "
+              f"{err:.3e} of max |out| {scale:.3f} | aux "
+              + ", ".join(f"{k} {aux_c[k].item():.6g} vs {aux_h[k].item():.6g}"
+                          for k in aux_h)
+              + f" (rel {max(aux_rel.values()):.2e})")
+        if dtype == torch.float32 and not (
+                n_choice == 0 and n_keep == 0
+                and err <= F32_MAX_ERR * scale
+                and aux_c["dropped_frac"].item()
+                == aux_h["dropped_frac"].item()
+                and max(aux_rel.values()) <= 1e-5):
+            raise AssertionError(f"{tag}: the card and the CPU differ")
+        del out_c, out_h, card, host
+    # the training shape: 36 x MOE_OBS tokens, 18 groups of 512 (dense
+    # products: their time does not depend on the one-hot values)
+    p = {k: v if k == "router" else v.to(torch.bfloat16)
+         for k, v in p32.items()}
+    g, e, cap = 36 * MOE_OBS // 512, cfg.moe.num_experts, \
+        moe.capacity(512, cfg.moe)
+    x = torch.randn(g, 512, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    expert_out = torch.randn(g, e, cap, cfg.d_model, generator=gen,
+                             device=dev).to(x.dtype)
+    combine = torch.rand(g, 512, e, cap, generator=gen,
+                         device=dev).to(x.dtype)
+    dispatch = (combine > 0.5).to(x.dtype)
+    xr = x.detach().requires_grad_(True)
+    er = expert_out.detach().requires_grad_(True)
+    cr = combine.detach().requires_grad_(True)
+
+    def dispatch_fwd():
+        return torch.einsum("...nd,...nec->...ecd", xr, dispatch)
+
+    def combine_fwd():
+        return torch.einsum("...ecd,...nec->...nd", er, cr)
+    din, dout = dispatch_fwd(), combine_fwd()
+    g_in, g_out = torch.randn_like(din), torch.randn_like(dout)
+    t = {"dispatch fwd": _median_ms(dispatch_fwd)[0],
+         "combine fwd": _median_ms(combine_fwd)[0],
+         "dispatch bwd": _median_ms(lambda: torch.autograd.grad(
+             din, xr, g_in, retain_graph=True))[0],
+         "combine bwd": _median_ms(lambda: torch.autograd.grad(
+             dout, (er, cr), g_out, retain_graph=True))[0]}
+    pr = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    xs = x.reshape(36, MOE_OBS, cfg.d_model).detach().requires_grad_(True)
+
+    def layer_step():
+        out, aux = moe.moe_forward(pr, xs, cfg.moe)
+        loss = out.float().square().mean() + aux["load_balance"] \
+            + aux["router_z"]
+        return torch.autograd.grad(loss, [xs] + list(pr.values()))
+    t["layer fwd+bwd"] = _median_ms(layer_step, runs=10, warmup=2)[0]
+    per_step = 2 * cfg.num_layers                 # grad_accum 2
+    einsums = sum(v for k, v in t.items() if k != "layer fwd+bwd")
+    print(f"[moe] training shape (36 x {MOE_OBS} tokens, 18 groups of 512, "
+          f"capacity {cap}), bf16, median device ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f" | x {per_step} calls a step: dispatch + combine "
+          f"{einsums * per_step:.1f} ms, the MoE layer "
+          f"{t['layer fwd+bwd'] * per_step:.1f} ms | phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del p32, x32, p, x, pr, xs, din, dout, xr, er, cr
+    torch.cuda.empty_cache()
+    return t
+
+
 def _replay(cfg, params, obs, prefix, tokens):
     """Prefill + one decode per given action token. Returns the action
     logits before each token and after the last ([A + 1] x [B, Va] f32),
@@ -1392,11 +1838,13 @@ def _replay(cfg, params, obs, prefix, tokens):
 
 
 def phase_model(dev, cfg, params, *, obs_len, counters, bound,
-                f32_bound=None):
+                f32_bound=None, agree=None):
     """``sample_action_sequence`` on the kernel route with its launches
     counted (``counters``: name -> (wrapper, launches per prefill + 7
     decodes)), then prefill + one decode per sampled token replayed on both
-    routes and every step's action logits compared within ``bound``. With
+    routes and every step's action logits compared within ``bound`` (None:
+    printed); with ``agree``, the routes' expert choices held by
+    ``_check_moe_agreement``. With
     ``f32_bound``, the two replays again on an f32 copy of the model, held
     within ``f32_bound``: both routes compute the same function, and the
     bf16 difference is their roundings carried through the layers."""
@@ -1421,10 +1869,11 @@ def phase_model(dev, cfg, params, *, obs_len, counters, bound,
             got = {k: fn.launches for k, (fn, _) in counters.items()}
         if got != {k: want for k, (_, want) in counters.items()}:
             raise AssertionError(f"launches {got}")
-        runs = {"torch": [], "cuda": []}
+        runs, choices = {"torch": [], "cuda": []}, {}
         for mode in ("torch", "cuda", "cuda", "torch"):
-            with dispatch.forced(mode):
+            with dispatch.forced(mode), _moe_choices() as calls:
                 runs[mode].append(_replay(cfg, params, obs, prefix, tok))
+            choices.setdefault(mode, calls)
     lk, lp = runs["cuda"][0][0], runs["torch"][0][0]
     if tok.shape != (b, a) or int(tok.min()) < 0 \
             or int(tok.max()) >= cfg.action_vocab_size:
@@ -1447,7 +1896,12 @@ def phase_model(dev, cfg, params, *, obs_len, counters, bound,
         times = ", ".join(f"prefill {r[1] * 1e3:.1f} ms + 7 decodes "
                           f"{r[2] * 1e3:.1f} ms" for r in runs[mode])
         print(f"[model] {name} route, two replays: {times}")
-    if not max(diffs) <= bound:
+    if agree is not None:
+        _check_moe_agreement(cfg, _moe_agreement(
+            f"[model] {cfg.name} bf16, prefill + 7 decodes",
+            choices["cuda"], choices["torch"], cfg.num_layers),
+            f"{cfg.name} bf16 replays", agree)
+    if bound is not None and not max(diffs) <= bound:
         raise AssertionError(f"model logits differ by {max(diffs)}")
     if f32_bound is None:
         return
@@ -1457,11 +1911,17 @@ def phase_model(dev, cfg, params, *, obs_len, counters, bound,
                                 compute_dtype="float32")
     p32 = tree_map(lambda v: v.float(), params)
     with torch.inference_mode():
-        logits = {}
+        logits, choices = {}, {}
         for mode in ("cuda", "torch"):
-            with dispatch.forced(mode):
+            with dispatch.forced(mode), _moe_choices() as calls:
                 logits[mode] = _replay(cfg32, p32, obs, prefix, tok)[0]
+            choices[mode] = calls
     del p32
+    if agree is not None:
+        _check_moe_agreement(cfg32, _moe_agreement(
+            f"[model] {cfg.name} f32 copy, prefill + 7 decodes",
+            choices["cuda"], choices["torch"], cfg.num_layers),
+            f"{cfg.name} f32 replays", agree)
     d32 = [(x - y).abs().max().item()
            for x, y in zip(logits["cuda"], logits["torch"])]
     gap = max((x - y).abs().max().item()
@@ -1625,7 +2085,8 @@ def phase_trace(dev, cfg, params, *, obs_len, frame):
 
 def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
                 remat=False, plain_remat=False, f32_witness=None,
-                live_bounds=None):
+                live_bounds=None, live_steps_bound=LIVE_STEPS_BOUND,
+                checks=DENSE):
     """``arch`` at full width and ``n_layers`` layers, on ``dummy_batch``
     segments of ``obs_len`` observation tokens: the kernel route's
     step-1 gradients (every leaf nonzero) against the plain route's, then
@@ -1644,8 +2105,11 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
     for one more step-1 comparison whose behaviour log-probs are live
     (``_live_behaviour``),
     with ω's mean held above 0.5. Then steps 1-3 run once more from seed 0
-    on both routes with live behaviour log-probs at every step, ω's mean
-    held above 0.5 at each, compared within LIVE_STEPS_BOUND. A bf16 steps
+    on both routes with live behaviour log-probs at every step (scored on
+    the plain route, or with ``checks.live_own`` on each run's own),
+    ω's mean held above 0.5 at each, compared within
+    ``live_steps_bound``; ``checks.agree`` holds step 1's expert choices
+    (``_compare_step1``). A bf16 steps
     1-3 comparison that fails is appended to ``failures``, which main raises
     after the last phase, so that the rest of the run still reports; every
     other check raises at once.
@@ -1678,14 +2142,14 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB")
     m_kernel, m_plain = _compare_step1(f"{arch} bf16", cfg, rl, state,
                                        batch, (remat, remat or plain_remat),
-                                       bounds[:2])
+                                       bounds[:2], checks.agree)
     if live_bounds is not None:
         live = batch._replace(
             behavior_logp=_live_behaviour(cfg, state.params, batch))
         m_live, _ = _compare_step1(f"{arch} bf16, live behaviour "
                                    f"log-probs", cfg, rl, state, live,
                                    (remat, remat or plain_remat),
-                                   live_bounds)
+                                   live_bounds, checks.agree)
         omega = m_live["omega_mean"].item()
         print(f"[train] {arch} live behaviour log-probs: omega mean "
               f"{omega:.3f}, pg {m_live['pg_loss'].item():.5f}, kl "
@@ -1731,8 +2195,11 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
               f"{metrics['value_loss'].item():.5f} kl "
               f"{metrics['kl'].item():.5f} entropy "
               f"{metrics['entropy'].item():.5f} | grad norm "
-              f"{metrics['grad_norm'].item():.4f} | launches {got} | wall "
-              f"{walls[-1] * 1e3:.1f} ms")
+              f"{metrics['grad_norm'].item():.4f}"
+              + "".join(f" | {k} {metrics[k].item():.5f}" for k in
+                        ("moe_load_balance", "moe_dropped_frac")
+                        if k in metrics)
+              + f" | launches {got} | wall {walls[-1] * 1e3:.1f} ms")
     if int(state.version) != 3 or int(state.opt.step) != 3:
         raise AssertionError(f"version {int(state.version)}, opt step "
                              f"{int(state.opt.step)}")
@@ -1777,7 +2244,8 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
     except AssertionError as e:
         failures.append(str(e))
     # steps 1-3 again from seed 0 on live behaviour log-probs, both routes
-    live = {mode: _run_steps(dev, cfg, rl, np_batch, mode, p0=p0, live=True,
+    live = {mode: _run_steps(dev, cfg, rl, np_batch, mode, p0=p0,
+                             live=mode if checks.live_own else "torch",
                              remat=remat or (mode == "torch" and plain_remat),
                              counters=counters if mode == "cuda" else None)[0]
             for mode in ("cuda", "torch")}
@@ -1790,25 +2258,27 @@ def phase_train(dev, arch, n_layers, obs_len, counters, bounds, failures, *,
         raise AssertionError(f"{arch} live steps: omega means {omegas}")
     try:
         _compare_steps(f"{arch} bf16, live behaviour log-probs",
-                       live["cuda"], live["torch"], LIVE_STEPS_BOUND)
+                       live["cuda"], live["torch"], live_steps_bound)
     except AssertionError as e:
         failures.append(str(e))
     if f32_witness is not None:
         _train_f32_witness(dev, cfg, rl, np_batch, *f32_witness,
-                           bf16_step1=(m_kernel, m_plain))
+                           bf16_step1=(m_kernel, m_plain),
+                           agree=checks.agree)
     return totals
 
 
-def _live_behaviour(cfg, params, batch):
+def _live_behaviour(cfg, params, batch, mode="torch"):
     """Behaviour log-probs [B, T+1, A] that a rollout one small update ago
-    would have recorded: the plain route's own action log-probs of
-    ``batch`` plus 0.1 N(0, 1) (numpy, seed 1)."""
+    would have recorded: route ``mode``'s own action log-probs of ``batch``
+    (the plain route's unless the caller asks for another) plus 0.1
+    N(0, 1) (numpy, seed 1)."""
     import numpy as np
     import torch
     from repro_torch.core import train_step as ts
     from repro_torch.kernels import dispatch
     from repro_torch.models.policy import action_log_prob
-    with torch.no_grad(), dispatch.forced("torch"):
+    with torch.no_grad(), dispatch.forced(mode):
         hidden, _, _ = ts._score_batch_hidden(cfg, params, batch,
                                               remat=False)
         # the fused loss's own f32 logits of the action head
@@ -1840,25 +2310,36 @@ def _step1_grads(cfg, rl, state, batch, mode, remat):
     return acc, dict(m, grad_norm=adamw.global_norm(acc))
 
 
-def _compare_step1(label, cfg, rl, state, batch, remat, bounds):
+def _compare_step1(label, cfg, rl, state, batch, remat, bounds, agree=None):
     """Step 1 on both routes (``remat``: (kernel, plain)): every gradient
-    leaf nonzero on the kernel route; the gradients per leaf and layer
-    within ``bounds[1]`` for every leaf the kernels' backward reaches, the
-    value head's printed beside its input's difference; the loss, every
-    metric and the grad norm within ``bounds[0]``. Returns both routes'
-    metrics (kernel, plain)."""
+    leaf nonzero on the kernel route; with ``agree``, the routes' expert
+    choices in the micro-batches' forward held by ``_check_moe_agreement``;
+    the gradients per leaf and layer within ``bounds[1]`` for every leaf
+    the kernels' backward reaches, the value head's printed beside its
+    input's difference; the loss, every metric and the grad norm within
+    ``bounds[0]``. Returns both routes' metrics (kernel, plain)."""
     import torch
     from repro_torch.tree import tree_leaves_with_path
     route_bound, leaf_bound = bounds
-    acc, m_kernel = _step1_grads(cfg, rl, state, batch, "cuda", remat[0])
+    with _moe_choices() as calls_kernel:
+        acc, m_kernel = _step1_grads(cfg, rl, state, batch, "cuda", remat[0])
     zero = [".".join(path) for path, g in tree_leaves_with_path(acc)
             if not bool((g != 0).any())]
     if zero:
         raise AssertionError(f"{label} kernel route: leaves with no "
                              f"gradient {zero}")
     n_leaves = len(list(tree_leaves_with_path(acc)))
-    acc_plain, m_plain = _step1_grads(cfg, rl, state, batch, "torch",
-                                      remat[1])
+    with _moe_choices() as calls_plain:
+        acc_plain, m_plain = _step1_grads(cfg, rl, state, batch, "torch",
+                                          remat[1])
+    if agree is not None:
+        n_l = cfg.num_layers
+        _check_moe_agreement(cfg, _moe_agreement(
+            f"[train] {label} step 1 (both micro-batches' forward)",
+            *(_forward_calls(c, n_l, n_l * (1 + r))
+              for c, r in ((calls_kernel, remat[0]), (calls_plain, remat[1]))),
+            n_l), label, agree)
+    del calls_kernel, calls_plain
     diffs = _leaf_grad_diff(acc, acc_plain)
     del acc, acc_plain
     held = [d for d in diffs if not d[1].startswith("value_head.")]
@@ -1906,13 +2387,13 @@ def _worst_rel(got, exp, label):
 
 
 def _run_steps(dev, cfg, rl, np_batch, mode, *, remat=False, n=3,
-               counters=None, p0=None, live=False):
+               counters=None, p0=None, live=None):
     """``n`` train steps on one route from a fresh seed-0 state
     (``p0``: the parameters it must start from). ``counters``: name ->
-    (wrapper, launches per step), checked at every step. ``live``: each
-    step's behaviour log-probs are ``_live_behaviour`` of the state it
-    starts from. Returns each step's metrics and the launches by name over
-    the steps."""
+    (wrapper, launches per step), checked at every step. ``live`` (a
+    route): each step's behaviour log-probs are ``_live_behaviour`` of the
+    state it starts from, scored on that route. Returns each step's
+    metrics and the launches by name over the steps."""
     import torch
     from repro_torch.bridge import batch_from_numpy
     from repro_torch.core import train_step as ts
@@ -1930,7 +2411,7 @@ def _run_steps(dev, cfg, rl, np_batch, mode, *, remat=False, n=3,
     for i in range(n):
         if live:
             batch = batch._replace(behavior_logp=_live_behaviour(
-                cfg, state.params, batch))
+                cfg, state.params, batch, live))
         for fn, _ in counters.values():
             fn.launches = 0
         with dispatch.forced(mode):
@@ -1968,13 +2449,14 @@ def _compare_steps(label, hist_kernel, hist_plain, steps_bound):
 
 
 def _train_f32_witness(dev, cfg, rl, np_batch, chunk, bounds, *,
-                       bf16_step1=None):
+                       bf16_step1=None, agree=None):
     """Step 1 and steps 1-3 of ``cfg`` again on an f32 copy (the same seed,
     drawn in f32), both routes checkpointing each layer, at SSD chunk
     ``chunk`` (None: no SSM): both routes compute the same function, so
     what separates them in bf16 and not here is rounding. ``bounds`` as
     phase_train's. ``bf16_step1``: the bf16 routes' step-1 metrics (kernel,
-    plain), each printed against the f32 copy's kernel route."""
+    plain), each printed against the f32 copy's kernel route. ``agree``:
+    as ``_compare_step1``'s."""
     import dataclasses
     import torch
     from repro_torch.bridge import batch_from_numpy
@@ -1990,7 +2472,7 @@ def _train_f32_witness(dev, cfg, rl, np_batch, chunk, bounds, *,
     state = ts.init_train_state(cfg32, 0, device=dev)
     batch = batch_from_numpy(np_batch, device=dev)
     m32, _ = _compare_step1(label, cfg32, rl, state, batch, (True, True),
-                            bounds[:2])
+                            bounds[:2], agree)
     if bf16_step1 is not None:
         rows = []
         for route, m16 in zip(("kernel", "plain"), bf16_step1):
@@ -2265,14 +2747,14 @@ def phase_ops(dev, cfg, counters):
     return got
 
 
-def _system_config():
-    """The system phases' model and settings: openvla-7b at full width and
-    TRAIN_LAYERS layers, the training phase's RL settings, 8 rollout
-    workers, inference batch 8, the prefetcher's pinned copies."""
+def _system_config(arch="openvla-7b", n_layers=TRAIN_LAYERS):
+    """The system phases' model and settings: ``arch`` at full width and
+    ``n_layers`` layers (openvla-7b: TRAIN_LAYERS), the training phase's
+    RL settings, 8 rollout workers, inference batch 8, the prefetcher's
+    pinned copies."""
     import dataclasses
     from repro_torch.configs import RLConfig, RuntimeConfig, get_config
-    cfg = dataclasses.replace(get_config("openvla-7b"),
-                              num_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), num_layers=n_layers)
     rl = RLConfig(warmup_steps=1, lr_policy=1e-4, grad_accum=2)
     rt = RuntimeConfig(num_rollout_workers=8, inference_batch=8,
                        prefetch_to_device=True)
@@ -2357,30 +2839,33 @@ def _run_system(dev, counters, tag, build, go, steps, floor):
     return system, m, launches, peak, facts
 
 
-def _step_floor(n_l, ga, a, nb, done):
+def _step_floor(n_l, ga, a, nb, done, tc=True):
     """The least launches ``nb`` served batches and ``done`` train steps
     make: K2 on every decode token's layers, K1 on every prefill's and
     every micro-batch's layers, K3 on every micro-batch's layers, K4
-    (forward and backward, on the tensor-core body) on every micro-batch."""
+    (forward and backward; ``tc``: bf16, on the tensor-core body) on every
+    micro-batch."""
+    tc = ga * done if tc else 0
     return {"decode_attention": a * n_l * nb,
             "flash_attention": n_l * nb + n_l * ga * done,
             "flash_attention_bwd": n_l * ga * done,
             "fused_policy_loss_fwd": ga * done,
             "fused_policy_loss_bwd": ga * done,
-            "fused_policy_loss_fwd tensor-core body": ga * done,
-            "fused_policy_loss_bwd tensor-core body": ga * done}
+            "fused_policy_loss_fwd tensor-core body": tc,
+            "fused_policy_loss_bwd tensor-core body": tc}
 
 
-def _replay_step1(dev, cfg, rl, tag, params0, first, log0):
-    """Step 1 of a run replayed on the plain route from the published v0
-    snapshot, with fresh moments and Welford state, on the trainer's first
-    batch, whose behaviour log-probs v0 itself served: the training phase's
-    step-1 bounds on live behaviour log-probs hold (LIVE_STEPS_BOUND[0]:
-    the KL, entropy and grad norm within LIVE_ROUTE_BOUND); the loss and
-    the other metrics, whose terms nearly cancel on live log-probs, are
-    printed, as there. On both routes the KL of v0 against the served μ is
-    at most REPLAY_KL_BOUND and ω's mean within REPLAY_OMEGA_TOL of 1.
-    Returns the plain route's metrics."""
+def _replay_step1(dev, cfg, rl, tag, params0, first, log0, checks=DENSE):
+    """Step 1 of a run replayed on route ``checks.replay`` from the
+    published v0 snapshot, with fresh moments and Welford state, on the
+    trainer's first batch, whose behaviour log-probs v0 itself served: the
+    training phase's step-1 bounds on live behaviour log-probs hold
+    (LIVE_STEPS_BOUND[0]: the KL, entropy and grad norm within
+    LIVE_ROUTE_BOUND); the loss and the other metrics, whose terms nearly
+    cancel on live log-probs, are printed, as there. With
+    ``checks.hold_served``, on both runs the KL of v0 against the served μ
+    is at most REPLAY_KL_BOUND and ω's mean within REPLAY_OMEGA_TOL of 1;
+    else they are printed. Returns the replay's metrics."""
     import gc
     import torch
     from repro_torch.core import advnorm, train_step as ts
@@ -2390,56 +2875,70 @@ def _replay_step1(dev, cfg, rl, tag, params0, first, log0):
                           adv_norm=advnorm.init_adv_state(dev),
                           version=torch.zeros((), dtype=torch.int32,
                                               device=dev))
-    with dispatch.forced("torch"):
-        m_plain = ts.make_train_step(cfg, rl, device=dev)(state, first)[1]
-    m_plain = {k: v.item() for k, v in m_plain.items()}
+    mode = checks.replay
+    with dispatch.forced(mode):
+        m_replay = ts.make_train_step(cfg, rl, device=dev)(state, first)[1]
+    m_replay = {k: v.item() for k, v in m_replay.items()}
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    worst, worst_key = _worst_rel(log0, m_plain, f"{tag} step-1 replay")
+    worst, worst_key = _worst_rel(log0, m_replay, f"{tag} step-1 replay")
     held = LIVE_STEPS_BOUND[0]
     rel = {k: abs(log0[k] - v) / max(abs(v), ROUTE_FLOOR)
-           for k, v in m_plain.items()}
+           for k, v in m_replay.items()}
     print(f"{tag} step 1 (kernel route, in the system) vs its replay on "
-          f"the plain route from the published v0 snapshot: "
+          f"the {'plain' if mode == 'torch' else 'kernel'} route from the "
+          f"published v0 snapshot: "
           + ", ".join(f"{k} rel {rel[k]:.3e}" for k in held)
           + f" (bound {LIVE_ROUTE_BOUND}) | printed: max rel diff over "
-          f"{len(m_plain)} metrics {worst:.3e} ({worst_key}), "
+          f"{len(m_replay)} metrics {worst:.3e} ({worst_key}), "
           + ", ".join(f"{k} {r:.3e}" for k, r in rel.items()
                       if k not in held)
-          + f" | loss {log0['loss']:.6f} vs {m_plain['loss']:.6f}, omega "
-          f"mean {log0['omega_mean']:.4f} vs {m_plain['omega_mean']:.4f}, "
-          f"kl {log0['kl']:.3e} vs {m_plain['kl']:.3e}, grad norm "
-          f"{log0['grad_norm']:.4f} vs {m_plain['grad_norm']:.4f} | batch "
-          f"policy versions {sorted(set(first.policy_version.tolist()))}")
+          + f" | loss {log0['loss']:.6f} vs {m_replay['loss']:.6f}, omega "
+          f"mean {log0['omega_mean']:.4f} vs {m_replay['omega_mean']:.4f}, "
+          f"kl {log0['kl']:.3e} vs {m_replay['kl']:.3e}, grad norm "
+          f"{log0['grad_norm']:.4f} vs {m_replay['grad_norm']:.4f} | batch "
+          f"policy versions {sorted(set(first.policy_version.tolist()))} | "
+          f"the KL of v0 against the served μ and ω's mean "
+          f"{'held' if checks.hold_served else 'printed'} (bound "
+          f"{REPLAY_KL_BOUND}, 1 ± {REPLAY_OMEGA_TOL})")
     over = {k: rel[k] for k, bound in held.items() if not rel[k] <= bound}
     if over:
         raise AssertionError(f"{tag} step-1 replay differs: {over}")
-    for route, m in (("kernel", log0), ("plain", m_plain)):
-        if not (m["kl"] <= REPLAY_KL_BOUND
+    for route, m in (("system's", log0), ("replay's", m_replay)):
+        if checks.hold_served and not (
+                m["kl"] <= REPLAY_KL_BOUND
                 and abs(m["omega_mean"] - 1.0) <= REPLAY_OMEGA_TOL):
             raise AssertionError(
-                f"{tag} step 1 on the {route} route: kl {m['kl']} (bound "
+                f"{tag} step 1, the {route} run: kl {m['kl']} (bound "
                 f"{REPLAY_KL_BOUND}), omega mean {m['omega_mean']} (1 ± "
                 f"{REPLAY_OMEGA_TOL}): v0 did not serve the batch's μ")
-    return m_plain
+    return m_replay
 
 
-def phase_system(dev, smi, counters):
-    """The asynchronous system end to end: ``_system_config``'s model on
-    the toy env's spatial suite, the inference service, the prefetcher's
-    pinned H2D path and the trainer on one card, with no route forced.
-    ``run_async`` for SYSTEM_STEPS[0] steps, then on a fresh system
-    ``run_sync`` for SYSTEM_STEPS[1], each held by ``_run_system`` with
-    ``_step_floor``'s launches. Step 1 of the async run is replayed on the
-    plain route (``_replay_step1``). Returns the launches by name of each
-    run."""
+def phase_system(dev, smi, counters, *, arch="openvla-7b",
+                 n_layers=TRAIN_LAYERS, sync=True, checks=DENSE, edit=None,
+                 note=""):
+    """The asynchronous system end to end: ``_system_config(arch,
+    n_layers)``'s model (``edit``: a function of its config, to run a copy,
+    named by ``note``) on the toy env's spatial suite, the inference service, the
+    prefetcher's pinned H2D path and the trainer on one card, with no
+    route forced. ``run_async`` for SYSTEM_STEPS[0] steps, then (``sync``)
+    on a fresh system ``run_sync`` for SYSTEM_STEPS[1], each held by
+    ``_run_system`` with ``_step_floor``'s launches; every step's metrics
+    must carry ``checks.metric_keys``. Step 1 of the async run is replayed
+    (``_replay_step1`` with ``checks``). Returns the launches by name of
+    each run."""
     import gc
     import torch
     from repro_torch.runtime import AcceRLSystem
-    cfg, rl, rt = _system_config()
-    n_l, ga, a = TRAIN_LAYERS, rl.grad_accum, cfg.action_dim
+    cfg, rl, rt = _system_config(arch, n_layers)
+    if edit is not None:
+        cfg = edit(cfg)
+    n_l, ga, a = n_layers, rl.grad_accum, cfg.action_dim
+    tc = cfg.compute_dtype == "bfloat16"     # K4's tensor-core body
     out = {}
+    t_phase = time.perf_counter()
 
     def run(label, go, steps):
         system, m, launches, peak, facts = _run_system(
@@ -2448,11 +2947,18 @@ def phase_system(dev, smi, counters):
                                  segment_horizon=8, max_episode_steps=16,
                                  batch_episodes=8, seed=0, device=dev),
             go, steps, lambda s, m: _step_floor(
-                n_l, ga, a, m["inference_batches"], m["train_steps"]))
+                n_l, ga, a, m["inference_batches"], m["train_steps"], tc))
         trainer, service = system.trainer, system.inference
         done, log = m["train_steps"], trainer.metrics_log
         lat = service.metrics.series("batch_s")
-        print(f"[system] {label}: {cfg.name} x {n_l} layers, 8 rollout "
+        keys = checks.metric_keys
+        if not all(k in e for e in log for k in keys):
+            raise AssertionError(f"[system] {label}: metrics {keys} missing "
+                                 f"from {[sorted(e) for e in log]}")
+        keys_line = "".join(
+            f" | {k} per step {[round(e[k], 5) for e in log]}" for k in keys)
+        print(f"[system] {label}: {cfg.name} x {n_l} layers "
+              f"({cfg.param_dtype}), 8 rollout "
               f"workers, inference batch 8, batch_episodes 8 x horizon 8, "
               f"grad_accum {ga} | system built in {facts['t_init']:.1f} s "
               f"| wall {m['wall_s']:.2f} s, {done} train steps, "
@@ -2471,28 +2977,45 @@ def phase_system(dev, smi, counters):
               f"{m['sync_latency_s'] * 1e3:.2f} ms | prefetcher "
               f"{trainer.prefetcher.metrics()} | launches {launches} | "
               f"max_memory_allocated {peak / 1e9:.2f} GB (allocated "
-              f"before the build {facts['before'] / 1e9:.2f} GB) | {smi}")
+              f"before the build {facts['before'] / 1e9:.2f} GB)"
+              f"{keys_line} | {smi}")
         out[label] = launches
         return system, facts
 
-    system, facts = run("run_async", lambda s: s.run_async(
+    system, facts = run("run_async" + note, lambda s: s.run_async(
         train_steps=SYSTEM_STEPS[0], wall_timeout_s=240.0), SYSTEM_STEPS[0])
     first, log0 = system.trainer.first_batch, system.trainer.metrics_log[0]
     params0 = facts.pop("v0")
     del system, facts
     gc.collect()
     torch.cuda.empty_cache()
-    _replay_step1(dev, cfg, rl, "[system] run_async", params0, first, log0)
+    _replay_step1(dev, cfg, rl, f"[system] run_async{note}", params0, first,
+                  log0, checks)
     del params0, first
     gc.collect()
     torch.cuda.empty_cache()
-    system, _ = run("run_sync", lambda s: s.run_sync(
-        train_steps=SYSTEM_STEPS[1], episodes_per_round=8,
-        wall_timeout_s=240.0), SYSTEM_STEPS[1])
-    del system
-    gc.collect()
-    torch.cuda.empty_cache()
+    if sync:
+        system, _ = run("run_sync", lambda s: s.run_sync(
+            train_steps=SYSTEM_STEPS[1], episodes_per_round=8,
+            wall_timeout_s=240.0), SYSTEM_STEPS[1])
+        del system
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[system] {cfg.name}{note} phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def _f32_copy(cfg, drops=True):
+    """An f32 copy of ``cfg``; ``drops=False``: a moe config's at
+    capacity_factor E/k, where an expert's capacity is its group's token
+    count, so no assignment drops, whatever the groups."""
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    if drops:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
 
 
 def _wm_step_parity(dev, wm, pre, action_vocab, action_dim):
@@ -2858,12 +3381,60 @@ def main() -> int:
         fused_policy_loss_fwd=1, fused_policy_loss_bwd=1, ssd_scan=1))
     torch.cuda.empty_cache()
 
+    # granite-moe-1b-a400m (moe): one MoE layer on the card against the
+    # CPU, then serving and training at full width and full depth
+    t_moe = time.perf_counter()
+    phase_moe_layer(dev)
+    cfg = get_config(MOE_ARCH)
+    nl, a = cfg.num_layers, cfg.action_dim
+    params0, params1 = _init_two_versions(dev, cfg)
+    per_batch = counting(flash_attention=nl, decode_attention=nl * a)
+    phase_model(dev, cfg, params0, obs_len=MOE_OBS, bound=None,
+                f32_bound=MOE_F32_LOGIT_BOUND, counters=per_batch,
+                agree=MOE.agree)
+    phase_model(dev, cfg, params0, obs_len=SSM_ENV_OBS, bound=None,
+                counters=per_batch, agree=MOE.agree)
+    by_path[f"{MOE_ARCH} serving"] = phase_serving(
+        dev, cfg, params0, params1, obs_len=MOE_OBS, frame=False,
+        counters=per_batch)
+    by_path[f"{MOE_ARCH} serving, env prompts"] = phase_serving(
+        dev, cfg, params0, params1, obs_len=SSM_ENV_OBS, frame=False,
+        counters=per_batch)
+    phase_trace(dev, cfg, params0, obs_len=MOE_OBS, frame=False)
+    del params0, params1
+    torch.cuda.empty_cache()
+    per_step = counting(flash_attention=nl * ga, flash_attention_bwd=nl * ga,
+                        fused_policy_loss_fwd=ga, fused_policy_loss_bwd=ga)
+    by_path[f"{MOE_ARCH} training"] = phase_train(
+        dev, MOE_ARCH, nl, MOE_OBS - a, per_step,
+        (MOE_ROUTE_BOUND, MOE_LEAF_BOUND, MOE_STEPS_BOUND), failures,
+        plain_remat=True, live_steps_bound=MOE_LIVE_STEPS_BOUND,
+        f32_witness=(None, MOE_F32_BOUNDS), checks=MOE)
+    by_path[f"{MOE_ARCH} training, env sequences"] = phase_train_env(
+        dev, MOE_ARCH, nl, SSM_ENV_OBS, per_step, MOE_ROUTE_BOUND)
+    torch.cuda.empty_cache()
+    print(f"[moe] {MOE_ARCH} layer, serving and training phases wall "
+          f"{time.perf_counter() - t_moe:.1f} s")
+
     # the asynchronous system: rollouts, serving and training on one card
     for run, launches in phase_system(dev, smi, counting()).items():
         by_path[f"openvla-7b system, {run}"] = launches
     # the world-model mode: imagination on the policy, the WM trainer
     by_path["openvla-7b world model, run_wm"] = phase_wm(dev, smi,
                                                          counting())
+    # the system on granite-moe-1b-a400m at full depth, then the witness
+    # of its served-μ gap: an f32 copy, and one without drops (MOE above)
+    nl = get_config(MOE_ARCH).num_layers
+    for run, launches in phase_system(dev, smi, counting(), arch=MOE_ARCH,
+                                      n_layers=nl, sync=False,
+                                      checks=MOE).items():
+        by_path[f"{MOE_ARCH} system, {run}"] = launches
+    phase_system(dev, smi, counting(), arch=MOE_ARCH, n_layers=nl,
+                 sync=False, checks=MOE, edit=_f32_copy, note=", f32 copy")
+    phase_system(dev, smi, counting(), arch=MOE_ARCH, n_layers=nl,
+                 sync=False, checks=MOE_NO_DROPS,
+                 edit=lambda c: _f32_copy(c, drops=False),
+                 note=", f32 copy without drops")
 
     if failures:
         raise AssertionError("steps 1-3 comparisons failed: "

@@ -117,15 +117,22 @@ def _gae_and_norm(values, micro: TrajectoryBatch, adv_state: AdvNormState,
 def _assemble_loss(cfg: ModelConfig, rl: RLConfig, pg, v_loss, kl, ent,
                    aux, stats, pg_metrics):
     """Combine the loss terms and build the (detached) metrics, shared by
-    the reference and fused paths."""
+    the reference and fused paths. A moe backbone's load-balance and
+    router-z terms join the loss; its load balance and dropped share are
+    reported."""
     total = pg + rl.value_coef * v_loss + rl.kl_coef * kl \
         - rl.entropy_coef * ent
+    if cfg.arch_type == "moe":
+        total = total + aux["load_balance"] + aux["router_z"]
     metrics = {
         "loss": total, "pg_loss": pg, "value_loss": v_loss, "kl": kl,
         "entropy": ent,
         "adv_mean_raw": stats[0] / torch.clamp_min(stats[2], 1.0),
         **pg_metrics,
     }
+    if cfg.arch_type == "moe":
+        metrics["moe_load_balance"] = aux["load_balance"]
+        metrics["moe_dropped_frac"] = aux["dropped_frac"]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return total, (metrics, stats.detach())
 

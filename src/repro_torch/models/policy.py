@@ -9,7 +9,7 @@ The trainer scores recorded steps teacher-forced (``policy_forward``, or
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,14 +38,16 @@ class PolicyOutput(NamedTuple):
     logits: torch.Tensor       # [B, A, Va] f32 — per action-token logits
     value: torch.Tensor        # [B]
     hidden: torch.Tensor       # [B, S, d]
-    aux: Dict[str, float]
+    aux: Dict[str, Union[float, torch.Tensor]]  # MoE load-balance /
+    #                            router-z / dropped share (f32 scalars;
+    #                            floats 0 for the other arch types)
 
 
 class PolicyHidden(NamedTuple):
     pred_hidden: torch.Tensor  # [B, A, d] — hidden at the position that
     #                            predicts each action token (pre head)
     value: torch.Tensor        # [B]
-    aux: Dict[str, float]
+    aux: Dict[str, Union[float, torch.Tensor]]  # as PolicyOutput.aux
 
 
 def _teacher_forced(cfg: ModelConfig, params: Params,

@@ -1,5 +1,5 @@
-"""Policy backbone for the dense / vlm / audio, ssm and hybrid arch types,
-as in the reference ``repro/models/transformer.py``.
+"""Policy backbone for every arch type (dense / vlm / audio, moe, ssm and
+hybrid), as in the reference ``repro/models/transformer.py``.
 
 Per-layer leaves are stacked on a leading ``L`` axis under
 ``params["layers"]``; the reference's layer scan is a Python loop over
@@ -16,8 +16,11 @@ backbone (zamba2) applies one *shared* attention + MLP block
 applications) before every ``shared_every``-th Mamba2 layer: ``layers``
 holds ``n_macro * g`` Mamba2 blocks and ``layers_rem`` the remainder. Its
 KV cache has one slot per application (``num_shared_applications``), its
-``SSMState`` one per Mamba2 layer. The moe arch type belongs to a later
-slice of the port and raises ``NotImplementedError``.
+``SSMState`` one per Mamba2 layer. The moe backbone (granite-moe, dbrx)
+stacks attention + ``moe`` blocks (``models/moe.py``: GShard capacity
+dispatch, the router in f32); ``forward`` returns the layers' summed
+load-balance and router-z terms and their mean dropped share in ``aux``,
+while prefill and decode drop them, as the reference does.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (
@@ -45,7 +49,6 @@ from repro_torch.models.ssm import SSMState
 from repro_torch.tree import tree_map
 
 FRONTEND_DIM = 1024  # stub modality-frontend embedding width (ViT/EnCodec)
-_ARCHS = ("dense", "audio", "vlm", "ssm", "hybrid")
 
 
 class DecodeCache(NamedTuple):
@@ -53,13 +56,6 @@ class DecodeCache(NamedTuple):
 
     attn: Optional[KVCache]      # stacked [L or n_shared, ...] or None
     ssm: Optional[SSMState]      # stacked [L, ...] or None
-
-
-def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in _ARCHS:
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet: the moe "
-            f"backbone comes in a later slice of the port")
 
 
 def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -106,7 +102,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     """Random backbone parameters drawn on ``device`` from ``gen`` (a
     generator on that device): truncated-normal fan-in init, same shapes
     and dtypes as the reference's ``init_params``."""
-    _check_arch(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg.param_dtype)
     n, d = cfg.num_layers, cfg.d_model
@@ -134,29 +129,37 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
             lambda v: v[0], _attn_blocks_init(gen, cfg, 1,
                                               cfg.hybrid.shared_d_ff, dtype,
                                               dev))
-    else:
+    elif cfg.arch_type in ("dense", "audio", "vlm", "moe"):
         params["layers"] = _attn_blocks_init(gen, cfg, n, cfg.d_ff, dtype,
                                              dev)
+    else:
+        raise ValueError(f"unknown arch_type {cfg.arch_type}")
     return params
 
 
 def _attn_blocks_init(gen, cfg: ModelConfig, n: int, d_ff: int, dtype,
                       dev) -> Params:
-    """``n`` attention + MLP blocks stacked on a leading axis."""
+    """``n`` attention + MLP blocks stacked on a leading axis; for the moe
+    arch type the MLP is ``moe`` (``moe_lib.stacked_moe_init``)."""
     d = cfg.d_model
     ones = torch.ones((n, d), dtype=dtype, device=dev)
-    return {
+    blocks = {
         "attn_norm": {"scale": ones.clone()},
         "attn": attn_lib.stacked_attention_init(
             gen, n, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, dtype,
             dev),
         "mlp_norm": {"scale": ones},
-        "mlp": {
+    }
+    if cfg.arch_type == "moe":
+        blocks["moe"] = moe_lib.stacked_moe_init(gen, n, d, cfg.moe, dtype,
+                                                 dev)
+    else:
+        blocks["mlp"] = {
             "w_gate": stacked_dense_init(gen, n, (d, d_ff), dtype, dev),
             "w_up": stacked_dense_init(gen, n, (d, d_ff), dtype, dev),
             "w_down": stacked_dense_init(gen, n, (d_ff, d), dtype, dev),
-        },
-    }
+        }
+    return blocks
 
 
 # ---------------------------------------------------------------------------
@@ -179,14 +182,29 @@ def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 _ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
 
 
-def _attn_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                        window: Optional[int],
-                        block: Optional[int]) -> torch.Tensor:
+def _attn_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                   window: Optional[int], block: Optional[int]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x + attention(norm(x)), and that sum normed for the block's MLP."""
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     x = x + attn_lib.attention_forward(
         p["attn"], h, rope_theta=cfg.rope_theta, window=window, block=block)
-    h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    return x, rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+
+
+def _attn_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                        window: Optional[int],
+                        block: Optional[int]) -> torch.Tensor:
+    x, h = _attn_sublayer(p, x, cfg, window, block)
     return x + mlp(p["mlp"], h)
+
+
+def _moe_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                       window: Optional[int], block: Optional[int]
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    x, h = _attn_sublayer(p, x, cfg, window, block)
+    out, aux = moe_lib.moe_forward(p["moe"], h, cfg.moe)
+    return x + out, aux
 
 
 def _ssm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -199,12 +217,12 @@ def _ssm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
 def _schedule(cfg: ModelConfig, params: Params) -> List[Tuple[str, Params,
                                                                int]]:
     """The backbone's blocks in order, as (kind, params, index): kind
-    "attn" or "ssm", index counting that kind's blocks only (the KV slot of
-    an attention block, the ``SSMState`` layer of a Mamba2 block). In the
-    hybrid every "attn" is the one ``shared_attn`` block, its index the
-    application."""
+    "attn", "moe" (attention + MoE) or "ssm", index counting that kind's
+    blocks only (the KV slot of an attention or moe block, the
+    ``SSMState`` layer of a Mamba2 block). In the hybrid every "attn" is
+    the one ``shared_attn`` block, its index the application."""
     if cfg.arch_type != "hybrid":
-        kind = "ssm" if cfg.arch_type == "ssm" else "attn"
+        kind = {"ssm": "ssm", "moe": "moe"}.get(cfg.arch_type, "attn")
         return [(kind, p, i) for i, p in
                 enumerate(_unstack(params["layers"], cfg.num_layers))]
     n_macro, g, rem = hybrid_layout(cfg)
@@ -219,7 +237,19 @@ def _schedule(cfg: ModelConfig, params: Params) -> List[Tuple[str, Params,
     return out
 
 
-_BLOCK_FORWARD = {"attn": _attn_block_forward, "ssm": _ssm_block_forward}
+_BLOCK_FORWARD = {"attn": _attn_block_forward, "moe": _moe_block_forward,
+                  "ssm": _ssm_block_forward}
+
+
+def _sum_aux(cfg: ModelConfig, auxs: List[Dict[str, torch.Tensor]]
+             ) -> Dict[str, Any]:
+    """The moe layers' aux terms summed over layers, ``dropped_frac``
+    averaged (the reference's sum over its scan); zeros for the others."""
+    if not auxs:
+        return dict(_ZERO_AUX)
+    aux = {k: torch.stack([a[k] for a in auxs]).sum() for k in auxs[0]}
+    aux["dropped_frac"] = aux["dropped_frac"] / cfg.num_layers
+    return aux
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -236,9 +266,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (the hybrid's of each macro group: the same arithmetic). The
     reference's ``unroll`` and ``act_sharding`` (scan unrolling and a GSPMD
     layout pin) have no counterpart in an eager single-device loop and are
-    not taken."""
-    _check_arch(cfg)
+    not taken. ``aux`` holds the moe terms (``_sum_aux``), floats 0 for
+    the other arch types."""
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
+    auxs = []
     for kind, p, _ in _schedule(cfg, params):
         block_fn = _BLOCK_FORWARD[kind]
         if remat:
@@ -246,9 +277,12 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                            use_reentrant=False)
         else:
             x = block_fn(p, x, cfg, window, block)
+        if kind == "moe":
+            x, aux = x
+            auxs.append(aux)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = action_head(params["action_head"], x) if head else None
-    return {"hidden": x, "logits": logits, "aux": dict(_ZERO_AUX)}
+    return {"hidden": x, "logits": logits, "aux": _sum_aux(cfg, auxs)}
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +300,6 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     """Zeroed caches: a KV cache stacked on the attention layers (on the
     shared block's applications for hybrid), an ``SSMState`` stacked on the
     Mamba2 layers (``cache_len`` and ``window`` unused for ssm)."""
-    _check_arch(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg.compute_dtype)
     attn = ssm = None
@@ -288,6 +321,16 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
 # Prefill
 # ---------------------------------------------------------------------------
 
+def _feed_forward(kind: str, p: Params, h: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """An attention block's MLP on its normed input: SwiGLU, or for a moe
+    block the MoE layer with its aux terms dropped, as the reference's
+    prefill and decode drop them."""
+    if kind == "moe":
+        return moe_lib.moe_forward(p["moe"], h, cfg.moe)[0]
+    return mlp(p["mlp"], h)
+
+
 def _stack_parts(cls, parts):
     return cls(*(torch.stack(p) for p in zip(*parts))) if parts else None
 
@@ -301,7 +344,6 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``cache_len`` and ``window`` size the KV caches; an SSM state is the
     state after the prompt and ignores them. Each attention block (each
     application of the hybrid's shared block) fills its own KV slot."""
-    _check_arch(cfg)
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
     cache_len = cache_len or x.shape[1]
     eff_len = min(cache_len, window) if window else cache_len
@@ -320,7 +362,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             window=window)
         x = x + out
         hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], hn)
+        x = x + _feed_forward(kind, p, hn, cfg)
         caches.append(kv)
     cache = DecodeCache(attn=_stack_parts(KVCache, caches),
                         ssm=_stack_parts(SSMState, states))
@@ -340,7 +382,6 @@ def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
     place: each attention block's k/v/positions slot (see
     ``attention_decode``; the hybrid's application i writes slot i) and
     each Mamba2 layer's conv tail and SSM state."""
-    _check_arch(cfg)
     if token.ndim == 1:
         token = token[:, None]
     x = embed(params["embed"], token).to(_dtype(cfg.compute_dtype))
@@ -363,7 +404,7 @@ def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
             p["attn"], hn, kv, rope_theta=cfg.rope_theta, window=window)
         x = x + out
         hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], hn)
+        x = x + _feed_forward(kind, p, hn, cfg)
         kv_lengths.append(kv.length)
     new_cache = DecodeCache(
         attn=None if kvs is None else KVCache(

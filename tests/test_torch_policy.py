@@ -22,7 +22,7 @@ from repro.kernels import dispatch as jdispatch
 from repro.models import policy as jpolicy
 from repro.models import transformer as jtransformer
 from repro_torch.bridge import params_from_numpy
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ASSIGNED_ARCHS, get_config, reduced
 from repro_torch.models import policy as tpolicy
 from repro_torch.models import transformer as ttransformer
 
@@ -125,7 +125,28 @@ def test_sampler_draws_from_its_generator():
     assert bool((logp <= 0).all()) and bool(torch.isfinite(val).all())
 
 
-def test_other_arch_types_name_a_later_slice():
-    cfg = reduced(get_config("granite-moe-1b-a400m"), layers=2, d_model=64)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttransformer.init_params(cfg, torch.Generator(), device="cpu")
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_every_assigned_arch_runs_forward_prefill_and_decode(arch):
+    """Each assigned config, reduced (2 layers, d 64), inits on the CPU
+    and runs forward, prefill and decode: finite outputs of the right
+    shapes, and prefill + one decode giving forward's logits at the
+    decoded position (reduced moe configs drop no token)."""
+    cfg = reduced(get_config(arch), layers=2, d_model=64)
+    params = ttransformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)))
+    prefix = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.num_prefix_tokens, ttransformer.FRONTEND_DIM)).astype(
+            np.float32)) if cfg.num_prefix_tokens else None)
+    p = cfg.num_prefix_tokens
+    full = ttransformer.forward(cfg, params, tokens, prefix)
+    assert full["hidden"].shape == (2, p + 9, cfg.d_model)
+    assert full["logits"].shape == (2, p + 9, cfg.action_vocab_size)
+    assert bool(torch.isfinite(full["logits"]).all())
+    out, cache = ttransformer.prefill(cfg, params, tokens[:, :8], prefix,
+                                      cache_len=p + 10)
+    _close(out["logits"], full["logits"][:, :p + 8])
+    dec, cache = ttransformer.decode(cfg, params, tokens[:, 8], cache)
+    assert dec["logits"].shape == (2, 1, cfg.action_vocab_size)
+    _close(dec["logits"][:, 0], full["logits"][:, p + 8])

@@ -34,6 +34,7 @@ bad = sorted(m for m in sys.modules
 missing = [m for m in ("repro_torch.kernels.ops",
                        "repro_torch.kernels.gipo_loss",
                        "repro_torch.models.transformer",
+                       "repro_torch.models.moe",
                        "repro_torch.envs.toy_manipulation",
                        "repro_torch.core.resampler",
                        "repro_torch.data.replay",
@@ -167,8 +168,17 @@ def test_entry_points_default_to_cuda():
                                d_model=64)
     hybrid_cfg = tconfigs.reduced(tconfigs.get_config("zamba2-1.2b"),
                                   layers=2, d_model=64)
+    moe_cfg = tconfigs.reduced(tconfigs.get_config("granite-moe-1b-a400m"),
+                               layers=2, d_model=64)
+    from repro_torch.models import moe
     calls = [
         lambda: init_adv_state(),
+        lambda: moe.moe_init(torch.Generator(), 64, moe_cfg.moe,
+                             torch.float32),
+        lambda: moe.stacked_moe_init(torch.Generator(), 2, 64, moe_cfg.moe,
+                                     torch.float32),
+        lambda: transformer.init_params(moe_cfg, torch.Generator()),
+        lambda: transformer.init_decode_cache(moe_cfg, 1, 4),
         lambda: transformer.init_params(ssm_cfg, torch.Generator()),
         lambda: transformer.init_decode_cache(ssm_cfg, 1, 4),
         lambda: transformer.init_params(hybrid_cfg, torch.Generator()),

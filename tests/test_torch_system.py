@@ -39,10 +39,10 @@ RL_KW = dict(grad_accum=2, lr_policy=1e-3, lr_value=1e-2, warmup_steps=2,
              entropy_coef=0.01)
 
 
-def _cfg(cfgs):
+def _cfg(cfgs, arch="deepseek-7b"):
     # the system gives a text backbone its one frame-embedding token
     return dataclasses.replace(
-        cfgs.reduced(cfgs.get_config("deepseek-7b"), layers=2, d_model=64),
+        cfgs.reduced(cfgs.get_config(arch), layers=2, d_model=64),
         num_prefix_tokens=1)
 
 
@@ -125,6 +125,33 @@ def test_trainer_step_matches_reference_and_publishes_a_snapshot():
         assert torch.equal(x, live[path]), path         # v1 = the new params
     assert not torch.equal(live[("action_head", "w")],
                            live0[("action_head", "w")])
+
+
+def test_trainer_step_on_the_moe_backbone_matches_reference():
+    """Reduced granite-moe-1b-a400m: the trainer's step carries the moe
+    metrics (``moe_load_balance``, ``moe_dropped_frac``) as the
+    reference's does, within METRIC_TOL."""
+    jcfg, tcfg = (_cfg(c, "granite-moe-1b-a400m")
+                  for c in (jconfigs, tconfigs))
+    jrl, trl = jconfigs.RLConfig(**RL_KW), tconfigs.RLConfig(**RL_KW)
+    jtrainer = JTrainerWorker(jcfg, jrl, jconfigs.RuntimeConfig(),
+                              jexp.FifoChannel(8), JStore(),
+                              batch_episodes=4)
+    trainer = TrainerWorker(tcfg, trl, tconfigs.RuntimeConfig(),
+                            texp.FifoChannel(8), VersionedWeightStore(),
+                            batch_episodes=4, device="cpu")
+    trainer.state = _carry(jtrainer.state)
+    assert trainer.state.params["layers"]["moe"]["router"].dtype \
+        == torch.float32
+    jtrainer.begin_inline()
+    trainer.begin_inline()
+    batch = collate_segments(_segments(3)[:4])
+    exp = jtrainer.train_on_batch(batch)
+    got = trainer.train_on_batch(batch)
+    assert {"moe_load_balance", "moe_dropped_frac"} <= set(exp)
+    assert set(got) == set(exp)
+    for k in exp:
+        np.testing.assert_allclose(got[k], exp[k], err_msg=k, **METRIC_TOL)
 
 
 def _prefetched(prefetcher, n):

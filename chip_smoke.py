@@ -108,7 +108,29 @@ Phases, each printing one line of its numbers:
      updated, the WM trees an imagination call may hold never written;
      step 1 replayed on the plain route. One ``[wm]`` line with imagined
      steps per second, the real-env-steps-per-update ratio and the rest.
- 12. system on granite-moe-1b-a400m at full depth: ``run_async`` for 3
+ 12. checkpoint: a ``TrainerWorker`` on openvla-7b at full width and 2
+     layers (bf16 params, f32 moments) saves its state after each of two
+     steps into the temp dir (the reference's ``.npz`` format); the
+     state restored onto a meta template equals the live one bit for bit,
+     and one more step from each is bit for bit the same. Save and restore
+     seconds and GB/s.
+ 13. sync (the paper's Table 8): publish -> acquire of the system phase's
+     weights (3.59 GB of bf16) through the direct, serialized and disk
+     transports and over the wire (``WeightStoreTransport`` against a
+     ``TransportServer`` through the weight lane, every acquire read from
+     the lane), five times each, the acquired tree on the card bit for
+     bit; median, p90 and GB/s.
+ 14. remote: ``AcceRLSystem`` on the system phase's model with two
+     spawned rollout children (four envs each, serving on the card:
+     their own CUDA contexts) and no local rollout worker, segments over
+     the ring data plane and weights over the lane, ``run_async`` for 3
+     steps: phase 10's checks with the children's bridged swaps, every
+     segment over the wire, every acquire read from the lane, the
+     in-process run's metric keys, children exiting 0, /dev/shm left as
+     found, step 1 replayed on the plain route; the children's K1/K2
+     launches counted in each child and bridged through its reports, at
+     least what its batches need.
+ 15. system on granite-moe-1b-a400m at full depth: ``run_async`` for 3
      steps, held as phase 10 holds openvla-7b's, with the moe metrics at
      every step; step 1 replayed on the kernel route, the KL of v0 against
      the served μ printed. Then the same on an f32 copy, and on an f32
@@ -172,6 +194,23 @@ TRAIN_LAYERS = 8
 TRAIN_MEM_LIMIT = 70e9
 # The system phase: train steps of run_async, then of run_sync.
 SYSTEM_STEPS = (3, 2)
+# The checkpoint phase: openvla-7b at full width and CKPT_LAYERS layers,
+# CKPT_STEPS trainer steps each saved (interval 1); keep = CKPT_STEPS
+# checkpoints must fit in CKPT_DISK_SHARE of the free disk.
+CKPT_LAYERS = 2
+CKPT_STEPS = 2
+CKPT_DISK_SHARE = 0.25
+# The sync phase (the paper's Table 8): publish -> acquire, SYNC_ITERS
+# times a transport, on the system tree (openvla-7b, TRAIN_LAYERS layers).
+SYNC_ITERS = 5
+# The remote phase: run_async's train steps with REMOTE_WORKERS spawned
+# rollout children of REMOTE_ENVS envs each on the system tree; the ring
+# data plane and the weight lane, which /dev/shm must hold SHM_HEADROOM
+# times over (the sync phase's lane too).
+REMOTE_STEPS = 3
+REMOTE_WORKERS = 2
+REMOTE_ENVS = 4
+SHM_HEADROOM = 2
 # The world-model phase: run_wm's train steps, the imagination batch, and
 # the card-vs-CPU bar of one WM step (of each leaf's largest value, f32).
 WM_STEPS = 3
@@ -2761,13 +2800,15 @@ def _system_config(arch="openvla-7b", n_layers=TRAIN_LAYERS):
     return cfg, rl, rt
 
 
-def _run_system(dev, counters, tag, build, go, steps, floor):
+def _run_system(dev, counters, tag, build, go, steps, floor, served=None):
     """Builds a system (``build``), drives it (``go``) and holds what every
     system run must: the budget reached with every service healthy, finite
-    metrics, lag >= 0, at least two weight swaps, the service within one
-    version of the last one published within the budget (the trainer may
-    finish one more step while the scheduler stops it, after the rollouts
-    have stopped asking), no published leaf sharing storage with the
+    metrics, lag >= 0, at least two weight swaps in each serving service
+    (``served(system)``: their (name, swaps, version served); the
+    system's own inference service by default), each within one version
+    of the last one published within the budget (the trainer may finish
+    one more step while the scheduler stops it, after the rollouts have
+    stopped asking), no published leaf sharing storage with the
     trainer's live params (an ``on_publish`` hook), each counter of
     ``counters`` (name -> (wrapper, _), set to 0 just before the run and
     read just after) risen by at least ``floor(system, m)[name]``, and peak
@@ -2782,7 +2823,7 @@ def _run_system(dev, counters, tag, build, go, steps, floor):
     torch.cuda.synchronize()
     facts = {"t_init": time.perf_counter() - t0, "before": before,
              "published": []}
-    trainer, service = system.trainer, system.inference
+    trainer = system.trainer
     aliased = []
 
     def on_publish(params, version):
@@ -2805,7 +2846,10 @@ def _run_system(dev, counters, tag, build, go, steps, floor):
     bad = {k: h for k, h in system.health().items() if not h["healthy"]}
     if bad:
         raise AssertionError(f"{tag}: services failed {bad}")
-    nb, done = m["inference_batches"], m["train_steps"]
+    # batches served here and in any remote child (bridged counters)
+    nb = m["inference_batches"] + sum(h.metrics.counter("batches")
+                                      for h in system.remote_hosts)
+    done = m["train_steps"]
     log = trainer.metrics_log
     if done < steps or len(log) != done:
         raise AssertionError(f"{tag}: {done} train steps of {steps} "
@@ -2820,11 +2864,10 @@ def _run_system(dev, counters, tag, build, go, steps, floor):
         raise AssertionError(f"{tag}: non-finite metrics {nonfinite}, "
                              f"policy lags {lags}")
     last = min(system.store.version(), steps)
-    gauge = service.metrics.gauge("weight_version")
-    if service.weight_swaps < 2 or not gauge >= last - 1:
-        raise AssertionError(f"{tag}: {service.weight_swaps} swaps, "
-                             f"serving v{gauge} while v{last} was "
-                             f"published")
+    for name, swaps, gauge in (served or _served_here)(system):
+        if swaps < 2 or not gauge >= last - 1:
+            raise AssertionError(f"{tag}: {name} {swaps} swaps, serving "
+                                 f"v{gauge} while v{last} was published")
     if aliased:
         raise AssertionError(f"{tag}: published versions "
                              f"{sorted(set(aliased))} share storage with "
@@ -2837,6 +2880,14 @@ def _run_system(dev, counters, tag, build, go, steps, floor):
     if not peak < TRAIN_MEM_LIMIT:
         raise AssertionError(f"{tag}: peak memory {peak / 1e9:.1f} GB")
     return system, m, launches, peak, facts
+
+
+def _served_here(system):
+    """(name, weight swaps, version served) of the system's own inference
+    service."""
+    service = system.inference
+    return [(service.name, service.weight_swaps,
+             service.metrics.gauge("weight_version"))]
 
 
 def _step_floor(n_l, ga, a, nb, done, tc=True):
@@ -2918,7 +2969,7 @@ def _replay_step1(dev, cfg, rl, tag, params0, first, log0, checks=DENSE):
 
 def phase_system(dev, smi, counters, *, arch="openvla-7b",
                  n_layers=TRAIN_LAYERS, sync=True, checks=DENSE, edit=None,
-                 note=""):
+                 note="", async_keys=None):
     """The asynchronous system end to end: ``_system_config(arch,
     n_layers)``'s model (``edit``: a function of its config, to run a copy,
     named by ``note``) on the toy env's spatial suite, the inference service, the
@@ -2927,7 +2978,8 @@ def phase_system(dev, smi, counters, *, arch="openvla-7b",
     on a fresh system ``run_sync`` for SYSTEM_STEPS[1], each held by
     ``_run_system`` with ``_step_floor``'s launches; every step's metrics
     must carry ``checks.metric_keys``. Step 1 of the async run is replayed
-    (``_replay_step1`` with ``checks``). Returns the launches by name of
+    (``_replay_step1`` with ``checks``). ``async_keys``: a set to which
+    the async run's metric keys are added. Returns the launches by name of
     each run."""
     import gc
     import torch
@@ -2980,6 +3032,8 @@ def phase_system(dev, smi, counters, *, arch="openvla-7b",
               f"before the build {facts['before'] / 1e9:.2f} GB)"
               f"{keys_line} | {smi}")
         out[label] = launches
+        if async_keys is not None and label.startswith("run_async"):
+            async_keys.update(m)
         return system, facts
 
     system, facts = run("run_async" + note, lambda s: s.run_async(
@@ -3227,6 +3281,441 @@ def phase_wm(dev, smi, counters):
     return launches
 
 
+def _bits_equal(a, b) -> bool:
+    """Two trees of tensors (nested dicts / NamedTuples) hold the same
+    leaves bit for bit (bf16 compared as its int16 bits)."""
+    import torch
+    from repro_torch.data.checkpoint import _flatten_with_path
+    fa, fb = list(_flatten_with_path(a)), list(_flatten_with_path(b))
+    if [k for k, _ in fa] != [k for k, _ in fb]:
+        return False
+    for (_, x), (_, y) in zip(fa, fb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        if not torch.equal(x.to(y.device), y):
+            return False
+    return True
+
+
+def _state_bytes(state) -> int:
+    from repro_torch.data.checkpoint import _flatten_with_path
+    return sum(x.numel() * x.element_size()
+               for _, x in _flatten_with_path(state))
+
+
+def phase_checkpoint(dev, smi):
+    """The trainer's checkpoints (``data/checkpoint.py``, the reference's
+    format) on openvla-7b at full width and CKPT_LAYERS layers: a
+    ``TrainerWorker`` with ``checkpoint_dir`` and ``checkpoint_interval``
+    1 takes CKPT_STEPS steps on the dummy batch, saving each (the
+    directory under the temp dir, whose free space must hold CKPT_STEPS
+    checkpoints in CKPT_DISK_SHARE of it). ``restore`` onto a meta
+    template gives every leaf of the live state bit for bit (bf16 from
+    its bits), and one more step from the restored state equals one from
+    the live state, bit for bit: state and metrics. Prints the save and
+    restore seconds and GB/s (the read warm from the page cache)."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import RuntimeConfig
+    from repro_torch.data import checkpoint
+    from repro_torch.data.trajectory import dummy_batch
+    from repro_torch.runtime import (FifoChannel, TrainerWorker,
+                                     VersionedWeightStore)
+    cfg, rl, _ = _system_config(n_layers=CKPT_LAYERS)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        trainer = TrainerWorker(cfg, rl, RuntimeConfig(), FifoChannel(1),
+                                VersionedWeightStore(), batch_episodes=8,
+                                checkpoint_dir=root, checkpoint_interval=1,
+                                device=dev)
+        nbytes = _state_bytes(trainer.state)
+        free = shutil.disk_usage(root).free
+        if CKPT_STEPS * nbytes > CKPT_DISK_SHARE * free:
+            raise AssertionError(
+                f"[checkpoint] {CKPT_STEPS} checkpoints of {nbytes / 1e9:.2f}"
+                f" GB do not fit in {CKPT_DISK_SHARE} of {free / 1e9:.1f} GB")
+        saves = []
+        save = checkpoint.save
+
+        def timed_save(*args, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = save(*args, **kw)
+            saves.append(time.perf_counter() - t0)
+            return out
+        batches = [dummy_batch(8, 8, 12, cfg.action_dim, cfg.vocab_size,
+                               cfg.action_vocab_size,
+                               num_prefix=cfg.num_prefix_tokens, seed=s)
+                   for s in range(CKPT_STEPS + 1)]
+        checkpoint.save = timed_save
+        try:
+            for b in batches[:CKPT_STEPS]:
+                trainer.train_on_batch(b)
+        finally:
+            checkpoint.save = save
+        files = sorted(p.name for p in pathlib.Path(root).iterdir())
+        if checkpoint.latest_step(root) != CKPT_STEPS or len(files) != \
+                2 * CKPT_STEPS:
+            raise AssertionError(f"[checkpoint] files {files}")
+        meta = _map_leaves(trainer.state, lambda x: torch.empty(
+            x.shape, dtype=x.dtype, device="meta"))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(root, meta, device=dev)
+        torch.cuda.synchronize(dev)
+        t_restore = time.perf_counter() - t0
+        if not _bits_equal(restored, trainer.state):
+            raise AssertionError("[checkpoint] the restored state differs "
+                                 "from the live one")
+        live, m_live = trainer._step_fn(trainer.state, batches[-1])
+        again, m_again = trainer._step_fn(restored, batches[-1])
+        torch.cuda.synchronize(dev)
+        same_state = _bits_equal(again, live)
+        m_live = {k: v.item() for k, v in m_live.items()}
+        m_again = {k: v.item() for k, v in m_again.items()}
+        if not (same_state and m_live == m_again):
+            raise AssertionError(
+                f"[checkpoint] a step from the restored state differs from "
+                f"one from the live state: state equal {same_state}, "
+                f"metrics {m_live} vs {m_again}")
+        print(f"[checkpoint] {cfg.name} x {CKPT_LAYERS} layers "
+              f"({cfg.param_dtype} params, f32 moments): "
+              f"{nbytes / 1e9:.3f} GB a checkpoint, {CKPT_STEPS} steps "
+              f"saved ({files}) | save "
+              + ", ".join(f"{t:.2f} s ({nbytes / t / 1e9:.2f} GB/s)"
+                          for t in saves)
+              + f" | restore onto a meta template {t_restore:.2f} s "
+              f"({nbytes / t_restore / 1e9:.2f} GB/s, warm) | every leaf "
+              f"bit for bit, bf16 included | step {CKPT_STEPS + 1} from "
+              f"the restored state = from the live state, bit for bit "
+              f"(loss {m_live['loss']:.6f}) | free disk {free / 1e9:.1f} "
+              f"GB | phase wall {time.perf_counter() - t_phase:.1f} s | "
+              f"{smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _map_leaves(tree, fn):
+    """``fn`` over the tensor leaves of nested dicts and NamedTuples."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(v, fn) for v in tree))
+    return fn(tree)
+
+
+def _lane_bytes(blob_bytes: int):
+    """The weight lane for blobs of ``blob_bytes`` (two blobs and room for
+    their headers) and /dev/shm's free bytes, which must hold SHM_HEADROOM
+    lanes."""
+    import shutil
+    lane = 2 * blob_bytes + (64 << 20)
+    free = shutil.disk_usage("/dev/shm").free
+    if free < SHM_HEADROOM * lane:
+        raise AssertionError(
+            f"/dev/shm has {free / 1e9:.1f} GB free, under {SHM_HEADROOM} "
+            f"weight lanes of {lane / 1e9:.2f} GB")
+    return lane, free
+
+
+def sync_latency(transport, params, dev, iters=SYNC_ITERS):
+    """Publish -> acquire through ``transport`` (the reference's
+    ``benchmarks/sync_overhead.py::sync_latency``): ``iters`` times
+    begin_publish, publish and acquire of a fresh version, timed until the
+    acquired tree is usable on the card (``synchronize``, as the
+    reference's ``block_until_ready``). ``transport`` may be a store
+    itself (the wire: ``(store, acquirer)``). The first acquired tree is
+    held bit for bit against ``params``. Returns the seconds."""
+    import torch
+    from repro_torch.runtime import VersionedWeightStore
+    store, acquirer = (transport if isinstance(transport, tuple)
+                       else (VersionedWeightStore(transport=transport),) * 2)
+    lat = []
+    for v in range(iters):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        store.begin_publish()
+        store.publish(params, v)
+        got = acquirer.acquire(newer_than=v - 1, timeout=60.0)
+        if got is None or got[1] != v:
+            raise AssertionError(f"[sync] acquire of v{v} gave "
+                                 f"{None if got is None else got[1]}")
+        torch.cuda.synchronize(dev)
+        lat.append(time.perf_counter() - t0)
+        if v == 0 and not _bits_equal(got[0], params):
+            raise AssertionError("[sync] the acquired tree differs")
+        del got
+    return lat
+
+
+def phase_sync(dev, smi):
+    """The paper's Table 8 on the port: publish -> acquire of the system
+    tree (openvla-7b at full width, TRAIN_LAYERS layers, bf16 on the card)
+    through the direct, serialized and disk transports and over the wire
+    (``WeightStoreTransport`` against a ``TransportServer`` in this
+    process, through the weight lane), SYNC_ITERS times each, the lane's
+    one-time warm-up at server start excluded and printed; the acquired
+    tree on the card bit for bit, and every wire acquire served from the
+    lane and read from it (none fell back to the socket body). Prints the
+    median and p90 seconds and GB/s, and the server's encode and
+    lane-write times."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.models.policy import init_policy_params
+    from repro_torch.runtime import (DirectTransport, DiskTransport,
+                                     SerializedTransport,
+                                     VersionedWeightStore)
+    from repro_torch.runtime.transport import (TransportServer,
+                                               WeightStoreTransport)
+    cfg, _, _ = _system_config()
+    t_phase = time.perf_counter()
+    params = init_policy_params(cfg, 0, device=dev)
+    nbytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    lane, shm_free = _lane_bytes(nbytes)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+    rows = []
+    try:
+        for name, t in (("direct", DirectTransport()),
+                        ("serialized", SerializedTransport()),
+                        ("disk", DiskTransport(root))):
+            rows.append((name, sync_latency(t, params, dev), ""))
+            gc.collect()
+        store = VersionedWeightStore()
+        server = TransportServer(weight_lane_bytes=lane).start()
+        server.set_store(store)
+        client = WeightStoreTransport(server.address, use_lane=True,
+                                      device=dev)
+        try:
+            if not server.lane_ready.wait(timeout=300.0):
+                raise AssertionError("[sync] the weight lane never warmed")
+            lat = sync_latency((store, client), params, dev)
+            c = server.metrics.snapshot()["counters"]
+            n = max(c.get("weight_encodes", 0), 1)
+            if not (client.lane_hits == SYNC_ITERS
+                    and client.lane_fallbacks == 0
+                    and c.get("weight_lane_serves") == SYNC_ITERS):
+                raise AssertionError(
+                    f"[sync] of {SYNC_ITERS} acquires the server served "
+                    f"{c.get('weight_lane_serves', 0):.0f} from the lane, "
+                    f"the reader read {client.lane_hits} from it and fell "
+                    f"back to the socket {client.lane_fallbacks} times")
+            rows.append(("wire (lane)", lat, (
+                f" | the lane's pages touched at server start in "
+                f"{c.get('weight_lane_warm_s', 0):.1f} s, before the first "
+                f"publish | server: {c.get('weight_encodes', 0):.0f} "
+                f"encodes of "
+                f"{c.get('weight_encode_s', 0) / n * 1e3:.1f} ms on average "
+                f"(one pinned D2H pass), {c.get('weight_lane_serves', 0):.0f}"
+                f" lane serves, lane writes "
+                f"{c.get('weight_lane_publish_s', 0) / n * 1e3:.1f} ms on "
+                f"average; reader lane hits {client.lane_hits}, "
+                f"fallbacks {client.lane_fallbacks}")))
+        finally:
+            client.close()
+            server.stop()
+            server.join()
+        gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, lat, note in rows:
+        med = statistics.median(lat)
+        p90 = sorted(lat)[math.ceil(0.9 * len(lat)) - 1]
+        print(f"[sync] {name}: publish -> acquire of {nbytes / 1e9:.3f} GB "
+              f"({cfg.name} x {TRAIN_LAYERS} layers, bf16) median "
+              f"{med * 1e3:.1f} ms, p90 {p90 * 1e3:.1f} ms of {len(lat)} "
+              f"({nbytes / med / 1e9:.2f} GB/s) | all "
+              f"{[round(x * 1e3, 1) for x in lat]} ms{note} | {smi}")
+    print(f"[sync] /dev/shm free {shm_free / 1e9:.1f} GB (lane "
+          f"{lane / 1e9:.2f} GB) | phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _shm_names():
+    return {p.name for p in pathlib.Path("/dev/shm").iterdir()}
+
+
+def phase_remote(dev, smi, counters, inproc_keys):
+    """Rollout workers in their own processes (the paper's physical
+    isolation): ``AcceRLSystem`` on the system tree with
+    ``num_rollout_workers`` 0 and REMOTE_WORKERS spawned children of
+    REMOTE_ENVS envs each, each serving its own policy on the card (K1
+    prefill, K2 decode), sending segments over the ring data plane and
+    pulling every version over the weight lane; the parent trains
+    (K1/K3/K4) for REMOTE_STEPS steps of ``run_async``. Held:
+    ``_run_system``'s checks with each child's bridged swaps and version
+    as the served ones; every child served batches, pulled every version
+    published but the last (the trainer may publish it as the run stops)
+    and swapped at least twice; every acquire was read from the lane,
+    none fell back to the socket body, and the server served from the
+    lane as many as the children read; every segment trained on came
+    over the wire; the metric keys equal ``inproc_keys`` (the in-process
+    run's); every service stopped healthy, every child exited 0;
+    /dev/shm holds after the run what it held before; step 1 replayed on
+    the plain route (``_replay_step1``). The children's K1/K2 launches,
+    which the parent's counters cannot see, are counted in each child
+    (zeroed at its start) and bridged through its reports as the
+    counters ``launches.<wrapper>``; each child's are at least what its
+    batches need (K1: layers a batch, K2: layers x action tokens).
+    Returns the path's launches by name, the children's added."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs.base import TransportConfig
+    from repro_torch.runtime import AcceRLSystem
+    cfg, rl, rt = _system_config()
+    n_l, ga, a = TRAIN_LAYERS, rl.grad_accum, cfg.action_dim
+    from repro_torch.models.policy import init_policy_params
+    params = init_policy_params(cfg, 0, device=dev)
+    blob = sum(x.numel() * x.element_size() for x in _leaves(params))
+    del params
+    torch.cuda.empty_cache()
+    lane, shm_free = _lane_bytes(blob)
+    rt = dataclasses.replace(
+        rt, num_rollout_workers=0, inference_batch=REMOTE_ENVS,
+        transport=TransportConfig(
+            kind="ring", remote_rollout_workers=REMOTE_WORKERS,
+            envs_per_worker=REMOTE_ENVS, put_window=16,
+            weight_lane_bytes=lane, connect_timeout_s=120.0))
+    shm_before = _shm_names()
+    t_phase = time.perf_counter()
+
+    def served(system):
+        return [(h.name, h.metrics.counter("weight_swaps"),
+                 h.metrics.gauge("weight_version", -1.0))
+                for h in system.remote_hosts]
+
+    system, m, launches, peak, facts = _run_system(
+        dev, counters, "[remote] run_async",
+        lambda: AcceRLSystem(cfg, rl, rt, suite="spatial",
+                             segment_horizon=8, max_episode_steps=16,
+                             batch_episodes=8, seed=0, device=dev),
+        lambda s: s.run_async(train_steps=REMOTE_STEPS,
+                              wall_timeout_s=300.0),
+        REMOTE_STEPS, lambda s, m: _step_floor(
+            n_l, ga, a, 0, m["train_steps"]), served=served)
+    trainer, server = system.trainer, system.transport_server
+    done = m["train_steps"]
+    hosts = system.remote_hosts
+    if set(m) != set(inproc_keys):
+        raise AssertionError(f"[remote] metric keys {sorted(set(m))} != "
+                             f"the in-process run's {sorted(inproc_keys)}")
+    codes = [h.process.exitcode for h in hosts]
+    stopped = {k: h["state"] for k, h in system.health().items()
+               if h["state"] != "stopped"}
+    if codes != [0] * len(hosts) or stopped or system.workers:
+        raise AssertionError(f"[remote] child exit codes {codes}, services "
+                             f"not stopped {stopped}")
+    pulled, batches, child_launches = {}, {}, {}
+    for h in hosts:
+        g = h.metrics.snapshot()["gauges"]
+        pulled[h.name] = sorted(int(k.rsplit("_v", 1)[1]) for k in g
+                                if k.startswith("weight_acquire_s_v"))
+        batches[h.name] = nb = int(h.metrics.counter("batches"))
+        child_launches[h.name] = got = {
+            k: int(h.metrics.counter(f"launches.{k}", -1))
+            for k in ("flash_attention", "decode_attention")}
+        need = {"flash_attention": n_l * nb,
+                "decode_attention": a * n_l * nb}
+        if any(got[k] < n for k, n in need.items()):
+            raise AssertionError(f"[remote] {h.name}: launches counted in "
+                                 f"the child {got}, its {nb} batches need "
+                                 f"{need}")
+        acquires = h.metrics.hist("weight_acquire_s", {"count": 0})["count"]
+        hits = h.metrics.counter("weight_lane_hits")
+        if not (hits == acquires > 0
+                and h.metrics.counter("weight_lane_fallbacks") == 0):
+            raise AssertionError(
+                f"[remote] {h.name}: {acquires} acquires, {hits:.0f} read "
+                f"from the lane, "
+                f"{h.metrics.counter('weight_lane_fallbacks'):.0f} fell "
+                f"back to the socket")
+        # every version but the last, which the trainer may publish as
+        # the scheduler stops the run
+        missed = set(facts["published"][:-1]) - set(pulled[h.name])
+        if missed or not (batches[h.name] > 0
+                          and h.metrics.counter("weight_swaps") >= 2
+                          and h.metrics.counter("segments") > 0):
+            raise AssertionError(f"[remote] {h.name}: batches "
+                                 f"{batches[h.name]}, pulled "
+                                 f"{pulled[h.name]} of "
+                                 f"{facts['published']}, counters "
+                                 f"{h.metrics.snapshot()['counters']}")
+    pushed = system.experience.total_pushed
+    if not pushed >= 8 * done or trainer.samples_seen <= 0:
+        raise AssertionError(f"[remote] {pushed} segments over the wire "
+                             f"for {done} steps of 8")
+    left = _shm_names() - shm_before
+    if left:
+        raise AssertionError(f"[remote] SHM segments left behind: {left}")
+    sc = server.metrics.snapshot()["counters"]
+    hits = sum(h.metrics.counter("weight_lane_hits") for h in hosts)
+    if sc.get("weight_lane_serves") != hits:
+        raise AssertionError(f"[remote] the server served "
+                             f"{sc.get('weight_lane_serves', 0):.0f} acquires"
+                             f" from the lane, the children read {hits:.0f}")
+    launches = dict(launches)
+    for got in child_launches.values():
+        for k, n in got.items():
+            launches[k] += n
+    lat = {h.name: h.metrics.gauge("batch_s_p50") for h in hosts}
+    acq = {h.name: {int(k.rsplit("_v", 1)[1]): round(v, 3) for k, v in
+                    h.metrics.snapshot()["gauges"].items()
+                    if k.startswith("weight_acquire_s_v")} for h in hosts}
+    log = trainer.metrics_log
+    print(f"[remote] run_async: {cfg.name} x {n_l} layers, "
+          f"{len(hosts)} spawned rollout children x {REMOTE_ENVS} envs "
+          f"(inference batch {REMOTE_ENVS} each, on the card), data plane "
+          f"ring, weight lane {lane / 1e9:.2f} GB (/dev/shm free "
+          f"{shm_free / 1e9:.1f} GB) | system built in "
+          f"{facts['t_init']:.1f} s | wall {m['wall_s']:.2f} s, {done} "
+          f"train steps, {m['env_steps']} env steps, {m['episodes']} "
+          f"episodes | sps_env {m['sps_env']:.2f}, sps_train "
+          f"{m['sps_train']:.2f} | trainer_util {m['trainer_util']:.3f} | "
+          f"mean_policy_lag {m['mean_policy_lag']:.3f} (per step "
+          f"{[e['policy_lag'] for e in log]}) | children's batches "
+          f"{batches}, batch_s p50 "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in lat.items())
+          + f" | published {facts['published']}, pulled {pulled}, each "
+          f"acquire's seconds {acq} | server: the lane's pages touched at "
+          f"start in {sc.get('weight_lane_warm_s', 0):.1f} s, weight "
+          f"encodes {sc.get('weight_encodes', 0):.0f} "
+          f"({sc.get('weight_encode_s', 0):.2f} s), lane writes "
+          f"{sc.get('weight_lane_publish_s', 0):.2f} s, lane serves "
+          f"{sc.get('weight_lane_serves', 0):.0f} = the children's lane "
+          f"reads, no fallback, stream items "
+          f"{sc.get('stream_items', 0):.0f}, ring records in "
+          f"{sc.get('ring_records_in', 0):.0f} | segments over the wire "
+          f"{pushed} | children exit {codes}, /dev/shm as before | "
+          f"launches counted in the children {child_launches} (their "
+          f"batches {batches}), the path's {launches} | parent "
+          f"max_memory_allocated {peak / 1e9:.2f} GB "
+          f"| {smi}")
+    first, log0 = trainer.first_batch, log[0]
+    params0 = facts.pop("v0")
+    del system, facts, trainer, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    _replay_step1(dev, cfg, rl, "[remote] run_async", params0, first, log0)
+    del params0, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[remote] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _init_two_versions(dev, cfg):
     import torch
     from repro_torch.models.policy import init_policy_params
@@ -3417,11 +3906,19 @@ def main() -> int:
           f"{time.perf_counter() - t_moe:.1f} s")
 
     # the asynchronous system: rollouts, serving and training on one card
-    for run, launches in phase_system(dev, smi, counting()).items():
+    inproc_keys = set()
+    for run, launches in phase_system(dev, smi, counting(),
+                                      async_keys=inproc_keys).items():
         by_path[f"openvla-7b system, {run}"] = launches
     # the world-model mode: imagination on the policy, the WM trainer
     by_path["openvla-7b world model, run_wm"] = phase_wm(dev, smi,
                                                          counting())
+    # checkpoints, the weight transports, and rollout workers in their
+    # own processes serving on the card
+    phase_checkpoint(dev, smi)
+    phase_sync(dev, smi)
+    by_path["openvla-7b remote rollout workers, run_async"] = phase_remote(
+        dev, smi, counting(), inproc_keys)
     # the system on granite-moe-1b-a400m at full depth, then the witness
     # of its served-μ gap: an f32 copy, and one without drops (MOE above)
     nl = get_config(MOE_ARCH).num_layers

@@ -39,8 +39,12 @@ The drain loop's partial-batch timeout is configurable
 ``idle_timeout_max_s`` while the source stays empty, so an idle trainer
 does not burn a wakeup every slice.
 
-The reference's ring-lease release for zero-copy transport sources, and
-its ``views_served`` count, come with the transport slice (ROADMAP A6).
+Zero-copy transport sources (a ``ShmRingChannel`` with
+``zero_copy_pop``) hand over segments whose arrays VIEW transport memory
+and carry a ring lease under ``"_lease"``; collate copies the data into
+the batch, so the prefetcher releases every lease right after collate —
+at that point the views are dead weight — and counts them in
+``views_served``.
 """
 from __future__ import annotations
 
@@ -183,12 +187,24 @@ class Prefetcher:
         self.batches_built = 0
         self.bytes_copied = 0        # staged bytes (collate → slab memcpy)
         self.idle_backoffs = 0       # drains that came back empty
+        self.views_served = 0        # ring leases consumed then released
 
     def start(self) -> "Prefetcher":
         self._thread.start()
         return self
 
-    # -- staging plumbing -------------------------------------------------------
+    # -- lease + staging plumbing -----------------------------------------------
+    def _release_leases(self, segments) -> None:
+        """Zero-copy sources stamp a refcounted ring lease into each
+        segment; once collate has copied the arrays out, the views are dead
+        weight — release them so the producer can reclaim the ring."""
+        for seg in segments:
+            if isinstance(seg, dict):
+                lease = seg.pop("_lease", None)
+                if lease is not None:
+                    lease.release()
+                    self.views_served += 1
+
     def _stage(self, batch) -> Tuple[object, Optional[_Slab], object]:
         """Assemble ``batch`` into one pooled page-aligned slab (and ship
         it to the card when configured). Returns the staged batch, the slab
@@ -276,6 +292,7 @@ class Prefetcher:
                     continue
                 timeout = self.drain_timeout_s
             batch = self.collate(segments)
+            self._release_leases(segments)
             slab = event = None
             if self.stage_batches:
                 batch, slab, event = self._stage(batch)
@@ -314,6 +331,7 @@ class Prefetcher:
             "staging_reuse": float(self._pool.staging_reuse),
             "staging_slabs": float(self._pool.slabs_allocated),
             "idle_backoffs": float(self.idle_backoffs),
+            "views_served": float(self.views_served),
         }
 
     def stop(self) -> None:

@@ -13,11 +13,16 @@
     baseline) pacing the SAME services.
 
 ``orchestrator.AcceRLSystem`` composes the layers. The versioned weight
-store implements the drain protocol (App. D.6). The transport, the step
-program and the pipelined executor are not ported yet (ROADMAP A6, A7).
+store implements the drain protocol (App. D.6) over Table 8's three
+transports. ``runtime.transport`` carries the channels and the weights
+across the process boundary (remote rollout workers). The telemetry
+plane, the step program and the pipelined executor are not ported yet
+(ROADMAP A6b, A7).
 """
 from repro_torch.runtime.weight_store import (  # noqa: F401
     DirectTransport,
+    DiskTransport,
+    SerializedTransport,
     VersionedWeightStore,
 )
 from repro_torch.runtime.service import (  # noqa: F401

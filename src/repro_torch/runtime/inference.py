@@ -21,6 +21,7 @@ batch, seeded from the service's own generator under a lock.
 from __future__ import annotations
 
 import queue
+import statistics
 import threading
 import time
 from concurrent.futures import Future
@@ -229,8 +230,13 @@ class InferenceService(Service):
                 })
             self.metrics.inc("batches")
             self.metrics.inc("requests", n)
-        # per-batch latency: window carved -> results on the host
+        # per-batch latency: window carved -> results on the host; its
+        # median over the recent window as a gauge, which a remote
+        # worker's report carries to the parent (series cross as
+        # count/mean/last only)
         self.metrics.record("batch_s", time.monotonic() - t0)
+        self.metrics.set_gauge(
+            "batch_s_p50", statistics.median(self.metrics.series("batch_s")))
 
 
 def _frame_to_prefix(frames: np.ndarray) -> np.ndarray:

@@ -21,12 +21,25 @@ The system runs on ``device`` (default ``"cuda"``; ``"cpu"`` runs the
 plain PyTorch route): the inference pool, the trainer and ``evaluate`` all
 run there, and on CUDA the kernels are built before any service starts.
 
-Not ported yet, and raising: remote and connected rollout workers, the
-elastic autoscaler and the telemetry sink (ROADMAP A6).
+Remote rollout workers (``rt.transport``) run as in the reference: a
+:class:`~repro_torch.runtime.transport.TransportServer` registered first
+hosts the experience channel and the weight store; one
+:class:`~repro_torch.runtime.transport.Supervisor` owns the spawned
+(``remote_rollout_workers``, ``spawn`` children) and connected
+(``connect_rollout_workers``, dialed in by ``repro_torch.launch.worker``)
+slots, whose children serve their own policy on the system's device and
+pull every published version over the wire. Their env steps and
+snapshots join ``metrics()`` under the reference's keys.
+
+Not ported yet, and raising (ROADMAP A6b): the transport journal
+(``journal_dir``), the disaggregated inference plane
+(``inference_plane``), the elastic autoscaler (``supervision.max_workers``),
+the telemetry sink and the ``REPRO_TRACE`` tracing.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -47,18 +60,18 @@ from repro_torch.runtime.weight_store import VersionedWeightStore
 
 def _check_ported(rt: RuntimeConfig) -> None:
     tcfg = rt.transport
-    if tcfg.remote_rollout_workers or tcfg.connect_rollout_workers:
-        raise NotImplementedError(
-            "remote and connected rollout workers (runtime/transport) are "
-            "not ported yet: ROADMAP A6")
-    if tcfg.supervision.max_workers > 0:
-        raise NotImplementedError(
-            "the elastic autoscaler (supervision.max_workers) is not ported "
-            "yet: ROADMAP A6")
-    if rt.telemetry.sink:
-        raise NotImplementedError(
-            "the telemetry sink (runtime/telemetry.py) is not ported yet: "
-            "ROADMAP A6")
+    for unported, what in (
+            (tcfg.journal_dir, "the transport journal (journal_dir)"),
+            (tcfg.inference_plane,
+             "the disaggregated inference plane (inference_plane)"),
+            (tcfg.supervision.max_workers > 0,
+             "the elastic autoscaler (supervision.max_workers)"),
+            (rt.telemetry.sink, "the telemetry sink (runtime/telemetry.py)"),
+            (os.environ.get("REPRO_TRACE"),
+             "the REPRO_TRACE tracing (runtime/telemetry.py)")):
+        if unported:
+            raise NotImplementedError(
+                f"{what} is not ported yet: ROADMAP A6b")
 
 
 class AcceRLSystem:
@@ -66,7 +79,9 @@ class AcceRLSystem:
                  suite: str = "spatial", segment_horizon: int = 8,
                  max_episode_steps: int = 30, batch_episodes: int = 8,
                  latency=None, transport=None, seed: int = 0,
-                 collect_frames: bool = False, device="cuda"):
+                 collect_frames: bool = False,
+                 remote_latency_ms=None, remote_latency_sigma: float = 1.0,
+                 device="cuda"):
         self.device = resolve_device(device)
         _check_ported(rt)
         if cfg.num_prefix_tokens == 0:
@@ -92,6 +107,28 @@ class AcceRLSystem:
         self.resampler = DynamicWeightedResampler(TASKS_PER_SUITE, seed=seed)
         self.registry = ServiceRegistry()
         self.attachments: List = []
+        tcfg = rt.transport
+        self.transport_server = None
+        self.supervisor = None
+        self.remote_hosts: List = []
+        n_remote = tcfg.remote_rollout_workers + tcfg.connect_rollout_workers
+        if n_remote > 0:
+            # registered FIRST: the wire endpoint starts before any child
+            # spawns and stops last, so shutdown stays cooperative
+            from repro_torch.runtime.transport import TransportServer
+            from repro_torch.runtime.transport.channel import parse_address
+            host, port = tcfg.host, tcfg.port
+            if tcfg.listen_addr:
+                host, port = parse_address(tcfg.listen_addr)
+            self.transport_server = self.registry.register(TransportServer(
+                host=host, port=port,
+                shm_threshold=tcfg.shm_threshold_bytes, token=tcfg.token,
+                weight_lane_bytes=tcfg.weight_lane_bytes))
+            self.transport_server.add_channel("experience", self.experience)
+            if self.frame_channel is not None:
+                self.transport_server.add_channel("frames",
+                                                  self.frame_channel)
+            self.transport_server.set_store(self.store)
         self.inference = self.registry.register(
             InferenceService(cfg, self.store, rt, seed=seed,
                              device=self.device))
@@ -109,6 +146,65 @@ class AcceRLSystem:
                 frame_channel=self.frame_channel))
             for i in range(rt.num_rollout_workers)
         ]
+        if n_remote > 0:
+            self._add_remote_slots(n_remote, remote_latency_ms,
+                                   remote_latency_sigma)
+
+    # ----------------------------------------------------------- remote slots
+    def _add_remote_slots(self, n_remote: int, latency_ms,
+                          latency_sigma: float) -> None:
+        """ONE Supervisor owns every non-local worker slot: spawned (child
+        process) and connected (dialed in from another host) incarnations
+        run the same worker body under the same RestartPolicy."""
+        from repro_torch.runtime.transport import (RemoteWorkerSpec,
+                                                   RestartPolicy, Supervisor)
+        rt, tcfg = self.rt, self.rt.transport
+        sup = tcfg.supervision
+        policy = RestartPolicy(
+            mode=sup.restart, max_restarts=sup.max_restarts,
+            window_s=sup.window_s, backoff_initial_s=sup.backoff_initial_s,
+            backoff_factor=sup.backoff_factor,
+            backoff_max_s=sup.backoff_max_s)
+        self.supervisor = self.registry.register(
+            Supervisor(self.transport_server, policy))
+
+        def make_spec(name: str, idx: int) -> RemoteWorkerSpec:
+            return RemoteWorkerSpec(
+                name=name, cfg=self.cfg, rl=self.rl, rt=rt,
+                address=self.transport_server.address,
+                channel="experience",
+                frame_channel=("frames" if self.frame_channel is not None
+                               else None),
+                suite=self.suite, segment_horizon=self.segment_horizon,
+                max_episode_steps=self.max_episode_steps,
+                num_envs=tcfg.envs_per_worker,
+                seed=self.seed * 1000 + rt.num_rollout_workers + idx,
+                use_shm=(tcfg.kind == "shm"),
+                use_ring=(tcfg.kind == "ring"),
+                ring_bytes=tcfg.ring_bytes,
+                put_window=tcfg.put_window,
+                adaptive_window=tcfg.adaptive_put_window,
+                use_weight_lane=(tcfg.weight_lane_bytes > 0),
+                shm_threshold=tcfg.shm_threshold_bytes,
+                connect_timeout_s=tcfg.connect_timeout_s,
+                latency_mean_ms=latency_ms, latency_sigma=latency_sigma,
+                heartbeat_s=tcfg.heartbeat_s, token=tcfg.token,
+                reconnect_attempts=tcfg.reconnect_attempts,
+                reconnect_backoff_s=tcfg.reconnect_backoff_s,
+                device=str(self.device))
+
+        for i in range(tcfg.remote_rollout_workers):
+            spec = make_spec(f"remote-rollout-{i}", i)
+            self.remote_hosts.append(self.registry.register(
+                self.supervisor.add_spawned(spec)))
+        for i in range(tcfg.connect_rollout_workers):
+            spec = make_spec(f"connect-rollout-{i}",
+                             tcfg.remote_rollout_workers + i)
+            self.remote_hosts.append(self.registry.register(
+                self.supervisor.add_connected(
+                    spec, liveness_timeout_s=sup.liveness_timeout_s,
+                    liveness_heartbeats=sup.liveness_heartbeats,
+                    liveness_floor_s=sup.liveness_floor_s)))
 
     # ------------------------------------------------------------- attachments
     def attach(self, attachment) -> "AcceRLSystem":
@@ -129,6 +225,12 @@ class AcceRLSystem:
                  wall_timeout_s: float = 300.0) -> Dict:
         """Synchronous baseline: rollout barrier → train → broadcast —
         the same services under the barrier scheduler."""
+        if self.remote_hosts:
+            raise RuntimeError(
+                "the synchronous baseline is single-process: remote "
+                "rollout workers (rt.transport.remote_rollout_workers / "
+                "connect_rollout_workers) free-run and cannot join the "
+                "step/episode barriers")
         return BarrierScheduler(episodes_per_round=episodes_per_round).run(
             self, train_steps=train_steps, wall_timeout_s=wall_timeout_s)
 
@@ -182,8 +284,10 @@ class AcceRLSystem:
 
     def metrics(self, wall_s: float) -> Dict:
         """One metric schema for every consumer, rebuilt on the per-service
-        registries; attachments extend it in place."""
-        rollouts = self.workers
+        registries; attachments extend it in place. Remote rollout hosts
+        mirror their child's counters, so they aggregate exactly like
+        local workers — the schema does not change with the topology."""
+        rollouts = self.workers + self.remote_hosts
         env_steps = sum(w.env_steps for w in rollouts)
         episodes = sum(w.episodes_done for w in rollouts)
         rets = [r for w in rollouts for r in w.returns]

@@ -24,9 +24,13 @@ reference's immutable arrays are. The clone runs on the trainer thread's
 current stream; every thread of the runtime uses the default stream, so
 stream order makes the copy visible to the inference service.
 
-Not ported yet: the pipelined executor (``rt.pipeline``, ROADMAP A7), the
-checkpoint hook (``checkpoint_dir``, A5) and the import-gated tracing
-(A6); the first two raise.
+With ``checkpoint_dir`` and ``checkpoint_interval``, the trainer saves
+its whole state (``data/checkpoint.py``, the reference's format) every
+``checkpoint_interval`` steps, after the step's publish, as the reference
+does.
+
+Not ported yet: the pipelined executor (``rt.pipeline``, ROADMAP A7, which
+raises) and the import-gated tracing (A6b).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RLConfig, RuntimeConfig
 from repro_torch.core.train_step import init_train_state, make_train_step
+from repro_torch.data import checkpoint
 from repro_torch.data.prefetch import Prefetcher
 from repro_torch.data.trajectory import TrajectoryBatch
 from repro_torch.models.transformer import FRONTEND_DIM
@@ -82,22 +87,21 @@ class TrainerWorker(Service):
     def __init__(self, cfg: ModelConfig, rl: RLConfig, rt: RuntimeConfig,
                  source, store: VersionedWeightStore, *,
                  batch_episodes: int = 8, seed: int = 0,
-                 checkpoint_dir=None, name: str = "trainer", device="cuda"):
+                 checkpoint_dir=None, checkpoint_interval: int = 0,
+                 name: str = "trainer", device="cuda"):
         self.device = resolve_device(device)
         if rt.pipeline:
             raise NotImplementedError(
                 "rt.pipeline (the pipelined executor over disjoint device "
                 "sets) is not ported yet: ROADMAP A7")
-        if checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir (data/checkpoint.py) is not ported yet: "
-                "ROADMAP A5")
         super().__init__(name, role="trainer")
         self.cfg, self.rl, self.rt = cfg, rl, rt
         self.store = store
         self.state = init_train_state(cfg, seed, device=self.device)
         self._step_fn = make_train_step(cfg, rl, device=self.device)
         self.rewire(source, batch_episodes)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_interval = checkpoint_interval
         self.metrics_log: List[Dict] = []
         #: the first batch ``train_on_batch`` consumed (a step-1 replay
         #: needs it beside the published version-0 snapshot)
@@ -189,6 +193,9 @@ class TrainerWorker(Service):
                 if self.rt.drain:
                     self.store.begin_publish()     # drain signal, App. D.6
                 self._publish(version + 1)
+            if (self.checkpoint_dir and self.checkpoint_interval
+                    and steps % self.checkpoint_interval == 0):
+                checkpoint.save(self.checkpoint_dir, steps, self.state)
         out = {k: float(v) for k, v in metrics.items()}
         out["policy_lag"] = lag
         self.metrics_log.append(out)

@@ -1,7 +1,8 @@
-"""Rules the port keeps: it imports neither JAX nor the JAX package, its
-copied configs equal the reference's, the bridge carries bf16 bit-exactly,
-its entry points default to CUDA, and its inference service serves on the
-CPU across a drain swap."""
+"""Rules the port keeps: it imports neither JAX, nor the JAX package, nor
+``ml_dtypes`` (checked after importing every module, the transport and
+checkpoint ones included), its copied configs equal the reference's, the
+bridge carries bf16 bit-exactly, its entry points default to CUDA, and its
+inference service serves on the CPU across a drain swap."""
 import dataclasses
 import pathlib
 import subprocess
@@ -30,7 +31,8 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 missing = [m for m in ("repro_torch.kernels.ops",
                        "repro_torch.kernels.gipo_loss",
                        "repro_torch.models.transformer",
@@ -48,7 +50,19 @@ missing = [m for m in ("repro_torch.kernels.ops",
                        "repro_torch.wm.denoiser",
                        "repro_torch.wm.reward",
                        "repro_torch.wm.imagination",
-                       "repro_torch.wm.wm_system")
+                       "repro_torch.wm.wm_system",
+                       "repro_torch.data.checkpoint",
+                       "repro_torch.runtime.weight_store",
+                       "repro_torch.runtime.transport",
+                       "repro_torch.runtime.transport.codec",
+                       "repro_torch.runtime.transport.ring",
+                       "repro_torch.runtime.transport.channel",
+                       "repro_torch.runtime.transport.server",
+                       "repro_torch.runtime.transport.weights",
+                       "repro_torch.runtime.transport.remote",
+                       "repro_torch.runtime.transport.supervision",
+                       "repro_torch.launch",
+                       "repro_torch.launch.worker")
            if m not in sys.modules]
 print(bad, missing)
 sys.exit(1 if bad or missing else 0)
@@ -145,7 +159,7 @@ def test_bridge_round_trips_the_ssm_tree_bf16_bit_exactly():
             np.testing.assert_array_equal(a, b)
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     from repro_torch.bridge import batch_from_numpy
@@ -162,6 +176,9 @@ def test_entry_points_default_to_cuda():
                                 WorldModelTrainer)
     from repro_torch.wm.imagination import make_imagine_fn
     from repro_torch.wm.wm_system import pretrain_world_model
+    from repro_torch.runtime.transport import WeightStoreTransport
+    from repro_torch.data import checkpoint
+    checkpoint.save(str(tmp_path), 1, {"w": np.zeros(2, np.float32)})
     cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"), layers=2,
                            d_model=64)
     ssm_cfg = tconfigs.reduced(tconfigs.get_config("mamba2-2.7b"), layers=2,
@@ -212,6 +229,9 @@ def test_entry_points_default_to_cuda():
         lambda: wm_params_from_numpy(
             {"obs": {"w": np.zeros(2, np.float32)},
              "reward": {"w": np.zeros(2, np.float32)}}),
+        lambda: WeightStoreTransport(("127.0.0.1", 1)),
+        lambda: checkpoint.restore(str(tmp_path), {"w": torch.empty(
+            2, device="meta")}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

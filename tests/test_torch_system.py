@@ -3,7 +3,12 @@ on the CPU: ``TrainerWorker.train_on_batch`` against the JAX package's
 from the same state and batch, the published snapshot that must not alias
 the live params, the ``Prefetcher`` against the reference's, and
 ``AcceRLSystem.run_async`` / ``run_sync`` / ``evaluate`` end to end on
-reduced deepseek-7b, with the branches not ported yet raising.
+reduced deepseek-7b, with the branches not ported yet raising; the
+trainer's checkpoints restoring its state (one more step from the
+restored state bit for bit that from the live one), and ``run_async``
+with a rollout worker in a spawned child process and with one dialed in
+through ``repro_torch.launch.worker``, each with the reference's metric
+keys and the remote snapshot's counters.
 
 Tolerance: the train step's metrics within rtol 1e-4 / atol 1e-5, the bar
 of ``test_torch_train.py``.
@@ -317,25 +322,128 @@ def test_a_failing_step_stops_every_service():
     assert all(s.status == "stopped" for s in system.registry.all())
 
 
-def test_unported_branches_raise():
+def test_unported_branches_raise(monkeypatch):
     tc = tconfigs
     base = tc.RuntimeConfig(num_rollout_workers=1)
+    tcfg = tc.base.TransportConfig
     for rt, item in (
-            (dataclasses.replace(base, transport=tc.base.TransportConfig(
-                remote_rollout_workers=1)), "A6"),
-            (dataclasses.replace(base, transport=tc.base.TransportConfig(
-                connect_rollout_workers=1)), "A6"),
-            (dataclasses.replace(base, transport=tc.base.TransportConfig(
-                supervision=tc.base.SupervisionConfig(max_workers=2))), "A6"),
+            (dataclasses.replace(base, transport=tcfg(
+                supervision=tc.base.SupervisionConfig(max_workers=2))),
+             "A6b"),
             (dataclasses.replace(base, telemetry=tc.base.TelemetryConfig(
-                sink=True)), "A6"),
+                sink=True)), "A6b"),
+            (dataclasses.replace(base, transport=tcfg(
+                remote_rollout_workers=1, journal_dir="journal")), "A6b"),
+            (dataclasses.replace(base, transport=tcfg(
+                remote_rollout_workers=1, inference_plane="host")), "A6b"),
             (dataclasses.replace(base, pipeline=True), "A7")):
         cfg = tc.reduced(tc.get_config("deepseek-7b"), layers=2, d_model=64)
         with pytest.raises(NotImplementedError, match=item):
             AcceRLSystem(cfg, tc.RLConfig(), rt, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        TrainerWorker(_cfg(tc), tc.RLConfig(), base, texp.FifoChannel(1),
-                      VersionedWeightStore(), checkpoint_dir="ckpt",
-                      device="cpu")
+    monkeypatch.setenv("REPRO_TRACE", "1")
+    with pytest.raises(NotImplementedError, match="A6b"):
+        AcceRLSystem(cfg, tc.RLConfig(), base, device="cpu")
+    monkeypatch.delenv("REPRO_TRACE")
     with pytest.raises(RuntimeError, match="needs a world model"):
         _system(tc).run_wm(train_steps=1)
+
+
+def test_trainer_checkpoints_restore_its_state(tmp_path):
+    from repro_torch.data import checkpoint
+    from repro_torch.data.checkpoint import _flatten_with_path
+    from repro_torch.data.trajectory import dummy_batch
+    tc = tconfigs
+    cfg = _cfg(tc)
+    trainer = TrainerWorker(cfg, tc.RLConfig(**RL_KW), tc.RuntimeConfig(),
+                            texp.FifoChannel(1), VersionedWeightStore(),
+                            batch_episodes=4, checkpoint_dir=str(tmp_path),
+                            checkpoint_interval=1, device="cpu")
+    batches = [dummy_batch(4, 3, 6, cfg.action_dim, cfg.vocab_size,
+                           cfg.action_vocab_size, num_prefix=1, seed=s)
+               for s in range(3)]
+    for b in batches[:2]:
+        trainer.train_on_batch(b)
+    assert checkpoint.latest_step(str(tmp_path)) == 2
+    template = trainer.state._replace(params=jax.tree.map(
+        lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+        trainer.state.params))
+    restored = checkpoint.restore(str(tmp_path), template, device="cpu")
+    again, m_again = trainer._step_fn(restored, batches[2])
+    live, m_live = trainer._step_fn(trainer.state, batches[2])
+    assert {k: float(v) for k, v in m_again.items()} == \
+        {k: float(v) for k, v in m_live.items()}
+    for (key, x), (_, y) in zip(_flatten_with_path(again),
+                                _flatten_with_path(live)):
+        assert torch.equal(x, y), key
+
+
+def _remote_system(seed, **transport):
+    tc = tconfigs
+    cfg = tc.reduced(tc.get_config("deepseek-7b"), layers=2, d_model=64)
+    rl = tc.RLConfig(grad_accum=1, lr_policy=1e-4, lr_value=1e-3)
+    rt = tc.RuntimeConfig(
+        num_rollout_workers=0, inference_batch=4,
+        transport=tc.base.TransportConfig(token="e2e-token", **transport))
+    return AcceRLSystem(cfg, rl, rt, suite="spatial", segment_horizon=4,
+                        max_episode_steps=8, batch_episodes=4, seed=seed,
+                        device="cpu")
+
+
+def _check_remote_run(system, m, reference_keys, name):
+    """As the reference's transport e2e test holds its remote run."""
+    assert m["train_steps"] >= 2 and m["env_steps"] > 0
+    assert set(m) == reference_keys
+    remote = m["services"][name]
+    for key in ("env_steps", "segments", "weight_swaps"):
+        assert remote["counters"].get(key, 0) > 0, key
+    host = system.remote_hosts[0]
+    assert host.env_steps > 0 and host.reports_seen > 0
+    assert m["env_steps"] >= host.env_steps
+    assert {"inference", "rollout-0"} <= set(host.remote_services)
+    health = system.health()
+    assert all(h["state"] == "stopped" for h in health.values()), health
+    assert system.trainer.samples_seen > 0
+    assert system.experience.total_pushed >= 8       # 2 steps x 4, all wired
+
+
+def test_run_async_with_a_spawned_rollout_child(reference_keys):
+    system = _remote_system(seed=0, remote_rollout_workers=1)
+    m = system.run_async(train_steps=2, wall_timeout_s=30.0)
+    _check_remote_run(system, m, reference_keys, "remote-rollout-0")
+    host = system.remote_hosts[0]
+    assert host.process.exitcode == 0
+    assert "weight_acquire_s_v0" in m["services"]["remote-rollout-0"][
+        "gauges"]
+    # the child's kernel launches are bridged: none on the CPU's plain route
+    counters = m["services"]["remote-rollout-0"]["counters"]
+    assert counters["launches.flash_attention"] == 0
+    assert counters["launches.decode_attention"] == 0
+    with pytest.raises(RuntimeError, match="single-process"):
+        system.run_sync(train_steps=1)
+
+
+def _dial_in(address, token):
+    """A connected worker's process body (module level: spawn pickles
+    it)."""
+    import sys
+    from repro_torch.launch.worker import run
+    sys.exit(run(f"{address[0]}:{address[1]}", token=token,
+                 hello_timeout_s=30.0, retry_s=0.2))
+
+
+def test_run_async_with_a_connected_rollout_worker(reference_keys):
+    import multiprocessing
+    system = _remote_system(seed=1, connect_rollout_workers=1)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_dial_in, args=(system.transport_server.address,
+                               "e2e-token"), daemon=True)
+    proc.start()
+    try:
+        m = system.run_async(train_steps=2, wall_timeout_s=30.0)
+    finally:
+        proc.join(timeout=10.0)
+        if proc.is_alive():
+            proc.terminate()
+    _check_remote_run(system, m, reference_keys, "connect-rollout-0")
+    assert proc.exitcode == 0
+    assert system.supervisor.metrics.counter("attaches") == 1

@@ -130,13 +130,31 @@ Phases, each printing one line of its numbers:
      found, step 1 replayed on the plain route; the children's K1/K2
      launches counted in each child and bridged through its reports, at
      least what its batches need.
- 15. system on granite-moe-1b-a400m at full depth: ``run_async`` for 3
+ 15. system on granite-moe-1b-a400m at MOE_SYSTEM_LAYERS of its 24
+     layers (cut from full depth to keep the run in its time limit):
+     ``run_async`` for 3
      steps, held as phase 10 holds openvla-7b's, with the moe metrics at
      every step; step 1 replayed on the kernel route, the KL of v0 against
      the served μ printed. Then the same on an f32 copy, and on an f32
      copy at capacity_factor E/k, where no assignment drops: there step 1
      is replayed on the plain route, and that KL held as phase 10 holds
      it.
+ 16. plane (after phase 14, whose figures its first line prints beside
+     its own; ``[plane]``, ``[telemetry]``, ``[journal]`` lines): the
+     remote phase's two children with no policy and no CUDA context
+     (``inference_plane``): (a) host mode, the parent's pool serving
+     every request over the server's ``infer.*`` endpoints, 3 steps held
+     as phase 10's with K1/K2 counted in the parent alone, nvidia-smi's
+     compute processes and the children's memory maps sampled through
+     the run, step 1 replayed; (b) a spawned tier (``restart=
+     "on_failure"``) SIGKILLed mid-episode and respawned on its port,
+     every request resolved once, its acquire seconds and the respawn's
+     wall printed; (c) (a) again in a process of its own under
+     ``REPRO_TRACE=1``, its dump joining a child's ``rollout.put`` to the
+     parent's ``server.apply`` and a version's publish, acquire and first
+     action; (d) the journal at 2 layers: a crash-consistent copy taken
+     mid-run and a new system with ``resume_journal``, the newest publish
+     on the card bit for bit and the items as journaled.
 
 Every check raises on failure, so the script exits non-zero. The line
 before the last is a JSON summary of every kernel; the last line is
@@ -149,7 +167,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
+import signal
 import statistics
 import subprocess
 import sys
@@ -211,6 +231,7 @@ REMOTE_STEPS = 3
 REMOTE_WORKERS = 2
 REMOTE_ENVS = 4
 SHM_HEADROOM = 2
+PLANE_SMI_PERIOD_S = 1.0          # the plane phase's CUDA-holder sampling
 # The world-model phase: run_wm's train steps, the imagination batch, and
 # the card-vs-CPU bar of one WM step (of each leaf's largest value, f32).
 WM_STEPS = 3
@@ -405,6 +426,12 @@ MOE_LEAF_BOUND = 4.0
 MOE_STEPS_BOUND = [dict.fromkeys(STEP_KEYS, 0.2)] * 2 + [
     dict.fromkeys(STEP_KEYS, 0.6)]
 MOE_LIVE_STEPS_BOUND = [{"entropy": 5e-3, "grad_norm": 0.5}] * 3
+# granite's three system runs (phase 15) at 12 of its 24 layers, for the
+# run's time alone: at full depth they took ~104 s on one H100, and the
+# whole run went past 900 s with the plane phase added. At 24 layers the f32
+# no-drop replay held its bounds in 3 of 3 runs of a separate call, its
+# closest router boundary gap printed (ROADMAP C8)
+MOE_SYSTEM_LAYERS = 12
 MOE_F32_BOUNDS = (6e-3, 0.1, [{"loss": 1e-4, "kl": 1e-4, "entropy": 1e-5,
                                "grad_norm": 6e-4}, {}, {}])
 
@@ -1693,6 +1720,33 @@ def _moe_choices():
         moe._group_dispatch = inner
 
 
+@contextlib.contextmanager
+def _router_gaps():
+    """Wraps the port's ``moe._group_dispatch`` for the body of the
+    ``with``: for each call, the smallest gap between a token's k-th and
+    (k+1)-th router logit (the top-k boundary, where a near-tie lets two
+    routes choose different experts) and the count of gaps under 1e-5
+    are appended to the list it yields, with the call's token count."""
+    import torch
+    from repro_torch.models import moe
+    gaps, inner = [], moe._group_dispatch
+
+    def wrapped(params, xg, cfg, cap):
+        out, logits, keep = inner(params, xg, cfg, cap)
+        with torch.no_grad():
+            top = torch.topk(logits.detach().float(), cfg.top_k + 1,
+                             dim=-1).values
+            gap = top[..., -2] - top[..., -1]
+            gaps.append((gap.min().item(), int((gap < 1e-5).sum()),
+                         gap.numel()))
+        return out, logits, keep
+    moe._group_dispatch = wrapped
+    try:
+        yield gaps
+    finally:
+        moe._group_dispatch = inner
+
+
 def _moe_agreement(label, kernel, plain, n_layers):
     """Per layer, between two runs' ``_moe_choices`` lists (the same calls
     in the same order: call i runs layer i % n_layers): the share of
@@ -2846,9 +2900,13 @@ def _run_system(dev, counters, tag, build, go, steps, floor, served=None):
     bad = {k: h for k, h in system.health().items() if not h["healthy"]}
     if bad:
         raise AssertionError(f"{tag}: services failed {bad}")
-    # batches served here and in any remote child (bridged counters)
+    # batches served here and in any remote child or spawned inference
+    # tier (bridged counters)
+    hosts = list(system.remote_hosts)
+    if system.inference_plane_host is not None:
+        hosts.append(system.inference_plane_host)
     nb = m["inference_batches"] + sum(h.metrics.counter("batches")
-                                      for h in system.remote_hosts)
+                                      for h in hosts)
     done = m["train_steps"]
     log = trainer.metrics_log
     if done < steps or len(log) != done:
@@ -2927,9 +2985,15 @@ def _replay_step1(dev, cfg, rl, tag, params0, first, log0, checks=DENSE):
                           version=torch.zeros((), dtype=torch.int32,
                                               device=dev))
     mode = checks.replay
-    with dispatch.forced(mode):
+    moe_gaps = (_router_gaps() if checks.agree is not None
+                else contextlib.nullcontext(None))
+    with moe_gaps as gaps, dispatch.forced(mode):
         m_replay = ts.make_train_step(cfg, rl, device=dev)(state, first)[1]
     m_replay = {k: v.item() for k, v in m_replay.items()}
+    gap_note = "" if not gaps else (
+        f" | the replay's closest router top-k boundary gap "
+        f"{min(g[0] for g in gaps):.3e}, {sum(g[1] for g in gaps)} under "
+        f"1e-5 of {sum(g[2] for g in gaps)} (token, call) pairs")
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2952,7 +3016,7 @@ def _replay_step1(dev, cfg, rl, tag, params0, first, log0, checks=DENSE):
           f"policy versions {sorted(set(first.policy_version.tolist()))} | "
           f"the KL of v0 against the served μ and ω's mean "
           f"{'held' if checks.hold_served else 'printed'} (bound "
-          f"{REPLAY_KL_BOUND}, 1 ± {REPLAY_OMEGA_TOL})")
+          f"{REPLAY_KL_BOUND}, 1 ± {REPLAY_OMEGA_TOL})" + gap_note)
     over = {k: rel[k] for k, bound in held.items() if not rel[k] <= bound}
     if over:
         raise AssertionError(f"{tag} step-1 replay differs: {over}")
@@ -3569,7 +3633,8 @@ def phase_remote(dev, smi, counters, inproc_keys):
     (zeroed at its start) and bridged through its reports as the
     counters ``launches.<wrapper>``; each child's are at least what its
     batches need (K1: layers a batch, K2: layers x action tokens).
-    Returns the path's launches by name, the children's added."""
+    Returns the path's launches by name, the children's added, and the
+    run's figures that the plane phase prints beside its own."""
     import dataclasses
     import gc
     import torch
@@ -3713,7 +3778,605 @@ def phase_remote(dev, smi, counters, inproc_keys):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[remote] phase wall {time.perf_counter() - t_phase:.1f} s")
+    figures = {"wall_s": m["wall_s"], "sps_env": m["sps_env"],
+               "sps_train": m["sps_train"],
+               "mean_policy_lag": m["mean_policy_lag"],
+               "batch_s_p50": lat,
+               "acquire_s": {k: sorted(v.values()) for k, v in acq.items()}}
+    return launches, figures
+
+
+def _plane_config(plane, n_layers=TRAIN_LAYERS, **transport):
+    """The plane phase's system: the system phase's model at ``n_layers``
+    layers, no local rollout worker, REMOTE_WORKERS spawned rollout
+    children of REMOTE_ENVS envs on the ring data plane, served by the
+    shared inference tier ``plane`` ("host" or "spawn") with one window of
+    every child's envs (inference batch REMOTE_WORKERS x REMOTE_ENVS)."""
+    import dataclasses
+    from repro_torch.configs.base import TransportConfig
+    cfg, rl, rt = _system_config(n_layers=n_layers)
+    rt = dataclasses.replace(
+        rt, num_rollout_workers=0,
+        inference_batch=REMOTE_WORKERS * REMOTE_ENVS,
+        transport=TransportConfig(
+            kind="ring", remote_rollout_workers=REMOTE_WORKERS,
+            envs_per_worker=REMOTE_ENVS, put_window=16,
+            connect_timeout_s=120.0, inference_plane=plane, **transport))
+    return cfg, rl, rt
+
+
+def _plane_system(dev, cfg, rl, rt):
+    from repro_torch.runtime import AcceRLSystem
+    return AcceRLSystem(cfg, rl, rt, suite="spatial", segment_horizon=8,
+                        max_episode_steps=16, batch_episodes=8, seed=0,
+                        device=dev)
+
+
+def _cuda_holders(pids):
+    """Of ``pids``: those ``nvidia-smi --query-compute-apps`` lists, and
+    those holding an open ``/dev/nvidia*`` device (``/proc/<pid>/fd``),
+    which CUDA opens when it initialises, before any context. Importing
+    torch alone maps ``libcuda.so`` but opens no device."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30).stdout
+    listed = {int(x) for x in out.split() if x.strip().isdigit()}
+    opened = set()
+    for pid in pids:
+        try:
+            fds = list(pathlib.Path(f"/proc/{pid}/fd").iterdir())
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                if os.readlink(fd).startswith("/dev/nvidia"):
+                    opened.add(pid)
+                    break
+            except OSError:
+                pass
+    return listed & set(pids), opened
+
+
+def _client_counts(hosts):
+    """Each rollout child's inference-client counters (bridged gauges
+    ``infer_client_<key>``), held: every request it numbered was resolved
+    or failed unanswered as the child closed (``failed``: at most one an
+    env), none was resolved twice (a redelivered result finds no future:
+    ``duplicates``), and the child launched no kernel."""
+    counts = {}
+    for h in hosts:
+        g = h.metrics.snapshot()["gauges"]
+        c = {k[len("infer_client_"):]: int(v) for k, v in g.items()
+             if k.startswith("infer_client_")}
+        if not (c and c["results"] + c["pending"] + c["failed"]
+                == c["submitted"] > 0 and c["pending"] == 0
+                and c["failed"] <= REMOTE_ENVS and c["duplicates"] == 0):
+            raise AssertionError(f"[plane] {h.name}: client counters {c}")
+        if h.metrics.counter("launches.flash_attention", -1) != -1:
+            raise AssertionError(f"[plane] {h.name} launched a kernel")
+        counts[h.name] = c
+    return counts
+
+
+def _plane_common(tag, system, m):
+    """What every plane run must: the children exit 0, every service
+    stopped healthy, every segment trained on came over the wire, the
+    children's client counters whole (``_client_counts``)."""
+    hosts = system.remote_hosts
+    codes = [h.process.exitcode for h in hosts]
+    stopped = {k: h["state"] for k, h in system.health().items()
+               if h["state"] != "stopped"}
+    if codes != [0] * len(hosts) or stopped:
+        raise AssertionError(f"{tag}: child exit codes {codes}, services "
+                             f"not stopped {stopped}")
+    done = m["train_steps"]
+    if not system.experience.total_pushed >= 8 * done:
+        raise AssertionError(f"{tag}: {system.experience.total_pushed} "
+                             f"segments over the wire for {done} steps")
+    return _client_counts(hosts)
+
+
+def _plane_host(dev, smi, counters, remote):
+    """(a) Host mode: the parent's pool serves the children's requests
+    through the server's ``infer.*`` endpoints. Held: ``_run_system``'s
+    checks with the kernels' floors counted in the parent alone (K1/K2
+    serve there, K1/K3/K4 train); what the children resolved <= the
+    server's ``infer_results`` <= what the pool served <= the server's
+    ``infer_submits`` <= what the children numbered (a request in flight
+    as a child closes fails unanswered: ``_client_counts``); no child is
+    a compute process in nvidia-smi or holds a ``/dev/nvidia*`` device
+    (``_cuda_holders``), sampled every PLANE_SMI_PERIOD_S through the run
+    (the parent holds one: the control); step 1 replayed on the plain
+    route as phase 10's."""
+    import gc
+    import torch
+    cfg, rl, rt = _plane_config("host")
+    n_l, ga, a = TRAIN_LAYERS, rl.grad_accum, cfg.action_dim
+    seen = {"children": set(), "listed": set(), "opened": set(),
+            "samples": 0}
+
+    def go(system):
+        stop = threading.Event()
+
+        def watch():
+            while not stop.wait(PLANE_SMI_PERIOD_S):
+                kids = [h.process.pid for h in system.remote_hosts
+                        if h.process is not None]
+                listed, opened = _cuda_holders(kids + [os.getpid()])
+                seen["children"].update(kids)
+                seen["listed"] |= listed
+                seen["opened"] |= opened
+                seen["samples"] += 1
+        t = threading.Thread(target=watch, daemon=True)
+        t.start()
+        try:
+            return system.run_async(train_steps=REMOTE_STEPS,
+                                    wall_timeout_s=300.0)
+        finally:
+            stop.set()
+            t.join()
+
+    system, m, launches, peak, facts = _run_system(
+        dev, counters, "[plane] host mode",
+        lambda: _plane_system(dev, cfg, rl, rt), go, REMOTE_STEPS,
+        lambda s, m: _step_floor(n_l, ga, a, m["inference_batches"],
+                                 m["train_steps"]))
+    tag = "[plane] host mode"
+    clients = _plane_common(tag, system, m)
+    server, pool = system.transport_server.metrics, system.inference
+    sent = sum(c["submitted"] for c in clients.values())
+    got = sum(c["results"] for c in clients.values())
+    if not (got <= server.counter("infer_results") <= pool.requests_served
+            <= server.counter("infer_submits") <= sent):
+        raise AssertionError(
+            f"{tag}: server submits {server.counter('infer_submits')}, "
+            f"results {server.counter('infer_results')}, the children's "
+            f"{clients}, the pool served {pool.requests_served}")
+    me = os.getpid()
+    kids = seen["children"]
+    if not (seen["samples"] and kids and not kids & seen["listed"]
+            and not kids & seen["opened"] and me in seen["opened"]):
+        raise AssertionError(f"{tag}: CUDA holders {seen} (parent {me})")
+    lat = pool.metrics.series("batch_s")
+    fill = pool.requests_served / max(
+        pool.requests_served + pool.metrics.counter("padded_slots"), 1)
+    log = system.trainer.metrics_log
+    print(f"{tag}: {cfg.name} x {n_l} layers, {len(system.remote_hosts)} "
+          f"spawned rollout children x {REMOTE_ENVS} envs with no policy "
+          f"and no CUDA context (nvidia-smi compute pids {sorted(seen['listed'])} "
+          f"over {seen['samples']} samples, children {sorted(kids)}, parent "
+          f"{me}; /dev/nvidia* held by {sorted(seen['opened'])}), "
+          f"served by the parent's pool (inference batch "
+          f"{rt.inference_batch}) | system built in {facts['t_init']:.1f} s"
+          f" | wall {m['wall_s']:.2f} s, {m['train_steps']} train steps, "
+          f"{m['env_steps']} env steps | sps_env {m['sps_env']:.2f}, "
+          f"sps_train {m['sps_train']:.2f} | mean_policy_lag "
+          f"{m['mean_policy_lag']:.3f} (per step "
+          f"{[e['policy_lag'] for e in log]}) | pool batches "
+          f"{m['inference_batches']}, batch_s p50 "
+          f"{statistics.median(lat) * 1e3:.1f} ms, window fill {fill:.3f}, "
+          f"inference_util {m['inference_util']:.3f} | infer_submits "
+          f"{server.counter('infer_submits'):.0f}, infer_results "
+          f"{server.counter('infer_results'):.0f}, pool requests "
+          f"{pool.requests_served}, the children's clients {clients} | "
+          f"launches, all in the parent: {launches} | beside the remote "
+          f"phase's children serving on the card in this run: wall "
+          f"{remote['wall_s']:.2f} s, sps_env {remote['sps_env']:.2f}, "
+          f"sps_train {remote['sps_train']:.2f}, mean_policy_lag "
+          f"{remote['mean_policy_lag']:.3f}, batch_s p50 "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                      for k, v in remote["batch_s_p50"].items())
+          + f", each child's acquires {remote['acquire_s']} s | parent "
+          f"max_memory_allocated {peak / 1e9:.2f} GB | {smi}")
+    first, log0 = system.trainer.first_batch, log[0]
+    params0 = facts.pop("v0")
+    del system, facts
+    gc.collect()
+    torch.cuda.empty_cache()
+    _replay_step1(dev, cfg, rl, tag, params0, first, log0)
     return launches
+
+
+def _plane_spawn(dev, smi, counters):
+    """(b) Spawn mode: the shared pool in a supervised child of its own
+    (``restart="on_failure"``) on a fixed port, acquiring each version
+    once through the weight lane; SIGKILLed once the children are stepping
+    and it has served. Held: ``_run_system``'s checks (the tier's bridged
+    swaps and version as the served ones; the parent's K1/K3/K4 floors);
+    the tier restarted once, on the same address, every service healthy;
+    just before the kill the tier holds a ``/dev/nvidia*`` device and no
+    rollout child does (``_cuda_holders``); each child's client counters
+    whole, at least one epoch change seen;
+    the tier's K1/K2 launches, counted in the tier and bridged, at least
+    what its batches need. Prints the tier's acquire seconds and the
+    respawn's wall time (SIGKILL to the new tier's first batch)."""
+    import gc
+    import torch
+    from repro_torch.configs.base import SupervisionConfig
+    from repro_torch.models.policy import init_policy_params
+    params = init_policy_params(_system_config()[0], 0, device=dev)
+    lane, _ = _lane_bytes(sum(x.numel() * x.element_size()
+                              for x in _leaves(params)))
+    del params
+    torch.cuda.empty_cache()
+    cfg, rl, rt = _plane_config(
+        "spawn", weight_lane_bytes=lane, reconnect_attempts=400,
+        reconnect_backoff_s=0.05, supervision=SupervisionConfig(
+            restart="on_failure", max_restarts=2, backoff_initial_s=0.1,
+            backoff_max_s=1.0))
+    n_l, ga, a = TRAIN_LAYERS, rl.grad_accum, cfg.action_dim
+    kill = {}
+
+    def go(system):
+        tier = system.inference_plane_host
+        kill["address"] = system.infer_address
+
+        def kill_tier():
+            deadline = time.monotonic() + 240.0
+            while time.monotonic() < deadline:
+                if (tier.process is not None
+                        and tier.metrics.counter("batches") > 0
+                        and all(h.env_steps > 0
+                                for h in system.remote_hosts)):
+                    incarnation = tier.incarnation
+                    served = tier.metrics.counter("batches")
+                    kill["pid"] = tier.process.pid
+                    kill["kids"] = {h.process.pid
+                                    for h in system.remote_hosts}
+                    kill["opened"] = _cuda_holders(
+                        sorted(kill["kids"]) + [kill["pid"]])[1]
+                    t0 = time.perf_counter()
+                    os.kill(kill["pid"], signal.SIGKILL)
+                    while time.monotonic() < deadline:
+                        if (tier.incarnation > incarnation
+                                and tier.metrics.counter("batches")
+                                > served):
+                            kill["respawn_s"] = time.perf_counter() - t0
+                            return
+                        time.sleep(0.02)
+                    return
+                time.sleep(0.02)
+
+        def killer():
+            try:
+                kill_tier()
+            except Exception as e:       # noqa: BLE001 — shown by the check
+                kill["error"] = repr(e)
+        t = threading.Thread(target=killer, daemon=True)
+        t.start()
+        try:
+            return system.run_async(train_steps=REMOTE_STEPS,
+                                    wall_timeout_s=300.0)
+        finally:
+            t.join(timeout=5.0)
+
+    def served(system):
+        tier = system.inference_plane_host
+        return [(tier.name, tier.metrics.counter("weight_swaps"),
+                 tier.metrics.gauge("weight_version", -1.0))]
+
+    tag = "[plane] spawn mode"
+    system, m, launches, peak, facts = _run_system(
+        dev, counters, tag, lambda: _plane_system(dev, cfg, rl, rt), go,
+        REMOTE_STEPS, lambda s, m: _step_floor(n_l, ga, a, 0,
+                                               m["train_steps"]),
+        served=served)
+    tier = system.inference_plane_host
+    clients = _plane_common(tag, system, m)
+    if not ("respawn_s" in kill and tier.restarts == 1
+            and kill["opened"] == {kill["pid"]}
+            and system.infer_address == kill["address"]
+            and tier.process.exitcode == 0
+            and all(c["epoch_changes"] >= 1 for c in clients.values())):
+        raise AssertionError(f"{tag}: kill {kill}, tier restarts "
+                             f"{tier.restarts}, address "
+                             f"{system.infer_address}, exit "
+                             f"{tier.process.exitcode}, clients {clients}")
+    snap = tier.metrics.snapshot()
+    nb = int(tier.metrics.counter("batches"))
+    tier_launches = {k: int(tier.metrics.counter(f"launches.{k}", -1))
+                     for k in ("flash_attention", "decode_attention")}
+    need = {"flash_attention": n_l * nb, "decode_attention": a * n_l * nb}
+    if any(tier_launches[k] < n for k, n in need.items()):
+        raise AssertionError(f"{tag}: the tier's launches {tier_launches},"
+                             f" its {nb} batches need {need}")
+    launches = dict(launches)
+    for k, n in tier_launches.items():
+        launches[k] += n
+    acq = {int(k.rsplit("_v", 1)[1]): round(v, 3)
+           for k, v in snap["gauges"].items()
+           if k.startswith("weight_acquire_s_v")}
+    broker = {k[len("broker_"):]: int(v) for k, v in snap["gauges"].items()
+              if k.startswith("broker_")}
+    print(f"{tag}: the same children served by a spawned tier on "
+          f"{kill['address'][0]}:{kill['address'][1]} (weights over the "
+          f"lane, {lane / 1e9:.2f} GB), SIGKILLed (pid {kill['pid']}) "
+          f"mid-episode and respawned on the same port by the supervisor"
+          f" (restarts {tier.restarts}); before the kill /dev/nvidia* held "
+          f"by {sorted(kill['opened'])}, not the children "
+          f"{sorted(kill['kids'])} | respawn wall, SIGKILL to the new"
+          f" tier's first batch: {kill['respawn_s']:.2f} s | the tier's "
+          f"acquire seconds by version (the last incarnation's gauges "
+          f"over the first's) {acq} | wall {m['wall_s']:.2f} s, "
+          f"{m['train_steps']} train steps, {m['env_steps']} env steps | "
+          f"sps_env {m['sps_env']:.2f}, sps_train {m['sps_train']:.2f} | "
+          f"mean_policy_lag {m['mean_policy_lag']:.3f} | tier batches "
+          f"{nb}, batch_s p50 "
+          f"{tier.metrics.gauge('batch_s_p50') * 1e3:.1f} ms | the new "
+          f"tier's broker {broker} | the children's clients {clients} "
+          f"(resolved + failed at close = numbered, no duplicate) | "
+          f"launches: "
+          f"the tier's {tier_launches}, the path's {launches} | parent "
+          f"max_memory_allocated {peak / 1e9:.2f} GB | {smi}")
+    del system, facts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def traced_host_plane(path) -> int:
+    """The traced run of ``_plane_host``'s system (started by
+    ``_plane_trace`` as ``chip_smoke.py --traced-host-plane PATH`` with
+    ``REPRO_TRACE=1``, which its children inherit): ``run_async`` for
+    REMOTE_STEPS steps, the trace dumped to ``path``, one JSON line of the
+    run's pids and counts printed."""
+    import torch
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.runtime import telemetry
+    dev = torch.device("cuda", 0)
+    system = _plane_system(dev, *_plane_config("host"))
+    m = system.run_async(train_steps=REMOTE_STEPS, wall_timeout_s=300.0)
+    bad = {k: h for k, h in system.health().items() if not h["healthy"]}
+    if bad or m["train_steps"] < REMOTE_STEPS:
+        raise AssertionError(f"traced run: {m['train_steps']} steps, "
+                             f"services failed {bad}")
+    sink = system.telemetry_sink.tail()
+    n = telemetry.dump(path, process_name="chip_smoke traced host plane")
+    print(json.dumps({
+        "pid": os.getpid(), "events": n, "wall_s": m["wall_s"],
+        "children": [h.process.pid for h in system.remote_hosts],
+        "folded": system.transport_server.metrics.counter(
+            "trace_events_folded"),
+        "sink_samples": len(sink), "sink_keys": sorted(sink[-1])}))
+    return 0
+
+
+def _by_trace(events, name):
+    """trace id -> the pids of ``name``'s events on it."""
+    out = {}
+    for e in events:
+        if e.get("name") == name and e.get("ph") in ("X", "i"):
+            t = e.get("args", {}).get("trace")
+            if t is not None:
+                out.setdefault(t, set()).add(e["pid"])
+    return out
+
+
+def _plane_trace(smi):
+    """(c) ``traced_host_plane`` in a process of its own: the dump holds a
+    child's ``rollout.put`` joined to the parent's ``server.apply`` on one
+    trace id (and that trace reaching the trainer's pop or collate), and a
+    version's ``weights.publish`` -> ``weights.acquire`` ->
+    ``infer.first_action`` chain (the parent's pool serves, so all three
+    are the parent's); the telemetry sink sampled with the reference's
+    keys."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    path = os.path.join(root, "trace.json")
+    try:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--traced-host-plane", path],
+            env=dict(os.environ, REPRO_TRACE="1"), capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode:
+            raise AssertionError(f"[telemetry] traced run exit "
+                                 f"{res.returncode}: {res.stdout[-2000:]}"
+                                 f"{res.stderr[-4000:]}")
+        run = json.loads(res.stdout.strip().splitlines()[-1])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        nbytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    parent, kids = run["pid"], set(run["children"])
+    puts = _by_trace(events, "rollout.put")
+    applies = _by_trace(events, "server.apply")
+    joined = [t for t in puts if puts[t] <= kids and applies.get(t) == {
+        parent}]
+    trainer_side = set(_by_trace(events, "trainer.collate")) | set(
+        _by_trace(events, "replay.pop"))
+    reached = set(joined) & trainer_side
+    chain = (set(_by_trace(events, "weights.publish"))
+             & (set(_by_trace(events, "weights.acquire"))
+                | set(_by_trace(events, "weights.wire_acquire")))
+             & set(_by_trace(events, "infer.first_action")))
+    pids = {e["pid"] for e in events if e.get("ph") != "M"}
+    if not (joined and reached and chain and kids <= pids
+            and run["folded"] > 0 and run["sink_samples"] > 0
+            and run["sink_keys"] == ["health", "services", "t"]):
+        raise AssertionError(f"[telemetry] joined {len(joined)}, reaching "
+                             f"the trainer {len(reached)}, version chains "
+                             f"{sorted(chain)}, pids {pids}, run {run}")
+    print(f"[telemetry] REPRO_TRACE=1 run of the host-mode plane in its own "
+          f"process: wall {wall:.1f} s (the run {run['wall_s']:.2f} s) | "
+          f"{run['events']} events ({nbytes / 1e6:.2f} MB of Chrome trace) "
+          f"from pids {sorted(pids)} (parent {parent}, children "
+          f"{sorted(kids)}), {run['folded']:.0f} folded from the children's "
+          f"reports | {len(puts)} episode flushes traced, {len(joined)} "
+          f"with a child's rollout.put joined to the parent's server.apply"
+          f", {len(reached)} of them on to the trainer's pop or collate | "
+          f"publish -> acquire -> first action on versions {sorted(chain)}"
+          f" | telemetry sink: {run['sink_samples']} samples, keys "
+          f"{run['sink_keys']} | {smi}")
+
+
+def _same_items(a, b) -> bool:
+    """Two lists of experience items (dicts of arrays) equal, in order."""
+    import numpy as np
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def _plane_journal(dev, smi):
+    """(d) The journal on the checkpoint phase's model (CKPT_LAYERS
+    layers): ``_plane_host``'s system with ``journal_dir`` under the temp
+    dir (no compaction before the stop, so the log keeps every record; the
+    temp dir's free space must hold it in CKPT_DISK_SHARE of it) runs
+    ``run_async``. Once version 2 is published, a thread takes a
+    crash-consistent copy of the journal (holding the experience channel's
+    journal lock, so no put or pop lands between the group-commit flush,
+    the copy and a look at the live channel): ``recover`` of the copy holds
+    exactly the items the channel held then, every item it accepted and
+    every pop it made up to then, and a version published by then, whose
+    tree it decodes onto the card bit for bit. After the run
+    stops, a new system with ``resume_journal`` holds, before it starts,
+    the newest publish on the card bit for bit (the version and every
+    leaf, bf16 by its bits) and the items the first left behind. Prints
+    the journal's counters, the files, and a journaled publish's seconds
+    (the store's hook on the trainer thread: one pinned D2H pass and the
+    append)."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.runtime.transport import recover
+    root = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    crash_dir = root + "_crash"
+    tag = "[journal]"
+    try:
+        cfg, rl, rt = _plane_config("host", n_layers=CKPT_LAYERS,
+                                    journal_dir=root,
+                                    journal_compact_bytes=1 << 62)
+        system = _plane_system(dev, cfg, rl, rt)
+        blob = sum(x.numel() * x.element_size()
+                   for x in _leaves(system.trainer.state.params))
+        free = shutil.disk_usage(root).free
+        # a record a publish (the trainer's REMOTE_STEPS and v0, one more
+        # as it stops), the copy, the final snapshot
+        if 2 * (REMOTE_STEPS + 3) * blob > CKPT_DISK_SHARE * free:
+            raise AssertionError(f"{tag}: {free / 1e9:.1f} GB free for "
+                                 f"publishes of {blob / 1e9:.2f} GB")
+        note, published, pub_s = system.store.on_publish, {}, []
+
+        def on_publish(params, version):
+            t0 = time.perf_counter()
+            note(params, version)
+            pub_s.append(time.perf_counter() - t0)
+            published[version] = params
+        system.store.on_publish = on_publish
+        crash = {}
+
+        def copy_midrun():
+            deadline = time.monotonic() + 240.0
+            while time.monotonic() < deadline and max(published,
+                                                      default=-1) < 2:
+                time.sleep(0.01)
+            chan = system.experience
+            with chan.journal_lock:
+                system.journal.flush()
+                shutil.copytree(root, crash_dir)
+                crash["items"] = chan.peek_all()
+                crash["pushed"] = chan.total_pushed
+        t = threading.Thread(target=copy_midrun, daemon=True)
+        t.start()
+        m = system.run_async(train_steps=REMOTE_STEPS, wall_timeout_s=300.0)
+        t.join(timeout=60.0)
+        bad = {k: h for k, h in system.health().items() if not h["healthy"]}
+        if bad or m["train_steps"] < REMOTE_STEPS or "items" not in crash:
+            raise AssertionError(f"{tag}: {m['train_steps']} steps, "
+                                 f"services failed {bad}, mid-run copy "
+                                 f"{sorted(crash)}")
+        left = system.experience.peek_all()
+        stats = system.journal.stats()
+        files = {p: os.path.getsize(os.path.join(root, p))
+                 for p in sorted(os.listdir(root))}
+        del system
+        gc.collect()
+        torch.cuda.empty_cache()
+        mid = recover(crash_dir)
+        got = mid.store_params(device=dev)
+        if not (got is not None and got[1] in published
+                and _bits_equal(got[0], published[got[1]])
+                and _same_items(mid.channel_items("experience"),
+                                crash["items"])
+                and mid.items_in == crash["pushed"] > 0
+                and mid.items_out == crash["pushed"] - len(crash["items"])):
+            raise AssertionError(
+                f"{tag}: the mid-run copy recovers "
+                f"{None if got is None else got[1]} of {sorted(published)}"
+                f", {len(mid.channel_items('experience'))} items of "
+                f"{mid.items_in} in and {mid.items_out} out; the channel "
+                f"held {len(crash['items'])} of {crash['pushed']} pushed")
+        del got
+        t0 = time.perf_counter()
+        state = recover(root)
+        t_recover = time.perf_counter() - t0
+        rt2 = dataclasses.replace(rt, transport=dataclasses.replace(
+            rt.transport, resume_journal=True))
+        t0 = time.perf_counter()
+        system = _plane_system(dev, cfg, rl, rt2)
+        t_resume = time.perf_counter() - t0
+        got = system.store.acquire(timeout=5.0)
+        items = system.experience.peek_all()
+        system.registry.stop_all()
+        system.journal.close()
+        newest = max(published)
+        if (got is None or got[1] != newest
+                or not _bits_equal(got[0], published[newest])
+                or any(x.device != dev for x in _leaves(got[0]))):
+            raise AssertionError(f"{tag}: resumed store holds "
+                                 f"{None if got is None else got[1]}, the "
+                                 f"last publish was v{newest}, not bit for "
+                                 f"bit on {dev}")
+        if not (_same_items(items, left)
+                and _same_items(state.channel_items("experience"), left)):
+            raise AssertionError(f"{tag}: {len(items)} items resumed, "
+                                 f"{len(state.channel_items('experience'))}"
+                                 f" recovered, {len(left)} left behind")
+        nbytes = sum(x.numel() * x.element_size() for x in _leaves(got[0]))
+        del system, got, published
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(crash_dir, ignore_errors=True)
+    print(f"{tag} {cfg.name} x {CKPT_LAYERS} layers, the host-mode plane "
+          f"with journal_dir: run_async {m['train_steps']} train steps in "
+          f"{m['wall_s']:.2f} s | journal {stats} | files at stop {files} "
+          f"| {len(pub_s)} journaled publishes of {nbytes / 1e9:.2f} GB, "
+          f"the store's hook {statistics.median(pub_s):.3f} s median (max "
+          f"{max(pub_s):.3f}) | the mid-run copy: v{mid.store[0]} on the "
+          f"card bit for bit, {mid.items_in} items put and {mid.items_out} "
+          f"popped as the channel took them, {len(crash['items'])} held as "
+          f"it held them, {mid.records} records, torn tail "
+          f"{mid.torn_tail} | "
+          f"recover at stop {t_recover:.2f} s: v{state.store[0]}, "
+          f"{state.records} records | a new system with resume_journal "
+          f"built in {t_resume:.1f} s: v{newest} on the card bit for bit, "
+          f"{len(items)} experience items as left | {smi}")
+
+
+def phase_plane(dev, smi, counters, remote):
+    """The shared inference tier, the trace across processes and the
+    journal (``_plane_host``, ``_plane_spawn``, ``_plane_trace``,
+    ``_plane_journal``; ``remote``: the remote phase's figures, printed
+    beside host mode's). Returns each run's launches by name."""
+    t_phase = time.perf_counter()
+    out = {"host mode, run_async": _plane_host(dev, smi, counters, remote)}
+    out["spawned tier SIGKILLed, run_async"] = _plane_spawn(dev, smi,
+                                                            counters)
+    _plane_trace(smi)
+    _plane_journal(dev, smi)
+    print(f"[plane] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _init_two_versions(dev, cfg):
@@ -3732,6 +4395,7 @@ def _init_two_versions(dev, cfg):
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3917,11 +4581,16 @@ def main() -> int:
     # own processes serving on the card
     phase_checkpoint(dev, smi)
     phase_sync(dev, smi)
-    by_path["openvla-7b remote rollout workers, run_async"] = phase_remote(
-        dev, smi, counting(), inproc_keys)
-    # the system on granite-moe-1b-a400m at full depth, then the witness
-    # of its served-μ gap: an f32 copy, and one without drops (MOE above)
-    nl = get_config(MOE_ARCH).num_layers
+    launches, remote = phase_remote(dev, smi, counting(), inproc_keys)
+    by_path["openvla-7b remote rollout workers, run_async"] = launches
+    # the shared inference tier: rollout children that never touch the
+    # card, served from the parent's pool and from a spawned tier that
+    # survives a SIGKILL; the trace across processes; the journal
+    for run, launches in phase_plane(dev, smi, counting(), remote).items():
+        by_path[f"openvla-7b inference plane, {run}"] = launches
+    # the system on granite-moe-1b-a400m, then the witness of its
+    # served-μ gap: an f32 copy, and one without drops (MOE above)
+    nl = MOE_SYSTEM_LAYERS
     for run, launches in phase_system(dev, smi, counting(), arch=MOE_ARCH,
                                       n_layers=nl, sync=False,
                                       checks=MOE).items():
@@ -3946,6 +4615,8 @@ def main() -> int:
                          "fused_policy_loss_bwd"):
             e["tensor_core_launches"] = sum(
                 n[f"{e['name']} tensor-core body"] for n in by_path.values())
+    print(f"[smoke] wall {time.perf_counter() - t_main:.1f} s, the "
+          f"kernels' build included | {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3962,4 +4633,6 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--traced-host-plane"]:
+        sys.exit(traced_host_plane(sys.argv[2]))
     sys.exit(main())

@@ -15,9 +15,11 @@
 ``orchestrator.AcceRLSystem`` composes the layers. The versioned weight
 store implements the drain protocol (App. D.6) over Table 8's three
 transports. ``runtime.transport`` carries the channels and the weights
-across the process boundary (remote rollout workers). The telemetry
-plane, the step program and the pipelined executor are not ported yet
-(ROADMAP A6b, A7).
+across the process boundary (remote rollout workers, the shared
+inference tier, the journal, the elastic autoscaler); ``telemetry.py`` is
+the span recorder and the telemetry sink (imported only where
+``REPRO_TRACE`` or a sink asks for it). The step program and the
+pipelined executor are not ported yet (ROADMAP A7).
 """
 from repro_torch.runtime.weight_store import (  # noqa: F401
     DirectTransport,

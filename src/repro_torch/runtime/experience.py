@@ -17,21 +17,40 @@ buffers in :mod:`repro_torch.data.replay`:
 Everything exposing ``pop_batch(n, timeout)`` is a valid trainer source
 (the :class:`~repro_torch.data.prefetch.Prefetcher` contract).
 
-As in the reference ``repro/runtime/experience.py``, without its
-import-gated tracing (the ``REPRO_TRACE`` spans come with the
-observability slice, ROADMAP A6).
+As in the reference ``repro/runtime/experience.py``, with its
+import-gated tracing (``REPRO_TRACE``: ``replay.pop`` and ``mixed.blend``).
 """
 from __future__ import annotations
 
 import abc
+import os
 import time
 from typing import Any, Dict, List, Optional
 
 from repro_torch.data.replay import (BACKPRESSURE_POLICIES, FIFOReplayBuffer,
                                      RingReplayBuffer)
 
+# Import-gated tracing (see transport.faults for the idiom).
+if os.environ.get("REPRO_TRACE"):
+    from repro_torch.runtime import telemetry as _tel
+else:  # pragma: no cover - default path
+    _tel = None
+
 __all__ = ["BACKPRESSURE_POLICIES", "ExperienceChannel", "FifoChannel",
            "RingChannel", "MixedExperienceSource"]
+
+
+def _trace_pop(out: Optional[List[Any]], where: str) -> None:
+    """Mark a successful drain on the trace of its FIRST item: segments
+    carry ``_trace`` stamped by the rollout worker, so the replay hop
+    shows up on the same episode timeline as rollout.put/server.apply."""
+    if _tel is None or not out:
+        return
+    first = out[0]
+    trace = first.get("_trace") if isinstance(first, dict) else None
+    if trace is not None:
+        _tel.instant("replay.pop", cat="experience", trace=int(trace),
+                     args={"count": len(out), "src": where}, flow="step")
 
 
 class ExperienceChannel(abc.ABC):
@@ -103,12 +122,18 @@ class FifoChannel(ExperienceChannel):
 
     def pop_batch(self, n: int, timeout: Optional[float] = None
                   ) -> Optional[List[Any]]:
-        return self._buf.pop_batch(n, timeout=timeout)
+        out = self._buf.pop_batch(n, timeout=timeout)
+        if _tel is not None:
+            _trace_pop(out, "fifo")
+        return out
 
     def pop_many(self, max_items: int, timeout: Optional[float] = None
                  ) -> Optional[List[Any]]:
         # single lock acquisition in the buffer, not two pop_batch calls
-        return self._buf.pop_upto(max_items, timeout=timeout)
+        out = self._buf.pop_upto(max_items, timeout=timeout)
+        if _tel is not None:
+            _trace_pop(out, "fifo")
+        return out
 
     def drain(self) -> List[Any]:
         return self._buf.drain()
@@ -221,6 +246,9 @@ class MixedExperienceSource:
             if need <= 0:
                 out, self._pending = (self._pending[:n],
                                       self._pending[n:])
+                if _tel is not None:
+                    _trace_pop(out, "mixed")
+                    self._blend_trace(out)
                 return out
             taken_real += self._mix_round(need, want_real, taken_real)
             if len(self._pending) >= n:
@@ -243,6 +271,9 @@ class MixedExperienceSource:
             if self._pending:
                 out, self._pending = (self._pending[:max_items],
                                       self._pending[max_items:])
+                if _tel is not None:
+                    _trace_pop(out, "mixed")
+                    self._blend_trace(out)
                 return out
             self._mix_round(max_items, want_real, 0)
             if self._pending:
@@ -250,6 +281,20 @@ class MixedExperienceSource:
             if deadline is not None and time.monotonic() >= deadline:
                 return None
             time.sleep(poll_s)
+
+    def _blend_trace(self, out: List[Any]) -> None:
+        """One ``mixed.blend`` instant per served drain, on the batch's
+        trace id (first traced item): the real/imagined diet actually
+        served shows up next to wm.imagine on the Perfetto timeline."""
+        first = out[0]
+        trace = first.get("_trace") if isinstance(first, dict) else None
+        _tel.instant("mixed.blend", cat="experience",
+                     trace=int(trace) if trace is not None else None,
+                     args={"count": len(out),
+                           "real_consumed": self.real_consumed,
+                           "imagined_consumed": self.imagined_consumed,
+                           "real_fraction": self.real_fraction},
+                     flow="step")
 
     def __len__(self) -> int:
         return len(self.real) + len(self.imagined)

@@ -15,11 +15,17 @@ workers stop scheduling NEW batches, finish the in-flight one, then swap
 weights before resuming — update atomicity + version consistency.
 
 The pool runs on ``device`` (default ``"cuda"``; ``"cpu"`` runs the plain
-PyTorch route). Sampling noise comes from one ``torch.Generator`` per
+PyTorch route). Unlike the reference's, a stopping pool fails the requests
+still queued, so their submitters do not wait out their timeouts. Sampling noise comes from one ``torch.Generator`` per
 batch, seeded from the service's own generator under a lock.
+
+With ``REPRO_TRACE`` set, a weight swap records ``weights.acquire`` and
+the first batch served on each version ``infer.first_action``, once that
+batch's results are on the host.
 """
 from __future__ import annotations
 
+import os
 import queue
 import statistics
 import threading
@@ -36,6 +42,12 @@ from repro_torch.models.policy import make_inference_fn
 from repro_torch.models.transformer import FRONTEND_DIM
 from repro_torch.runtime.service import Service
 from repro_torch.runtime.weight_store import VersionedWeightStore
+
+# Import-gated tracing (see transport.faults for the idiom).
+if os.environ.get("REPRO_TRACE"):
+    from repro_torch.runtime import telemetry as _tel
+else:  # pragma: no cover - default path
+    _tel = None
 
 
 class _Request:
@@ -89,6 +101,9 @@ class InferenceService(Service):
         # live eq.-1 window parameters (schedulers may re-shape these)
         self.window_batch = rt.inference_batch
         self.window_wait_s = rt.inference_max_wait_s
+        # versions whose first post-swap action has been trace-marked
+        # (closes the publish -> acquire -> first-action flow)
+        self._first_action_traced: set = set()
 
     # -- registry-backed counters ----------------------------------------------
     @property
@@ -166,6 +181,11 @@ class InferenceService(Service):
     def _note_swap(self, version: int) -> None:
         self.metrics.inc("weight_swaps")
         self.metrics.set_gauge("weight_version", float(version))
+        if _tel is not None:
+            # middle leg of the policy-lag flow (version is the flow id)
+            _tel.instant("weights.acquire", cat="weights",
+                         trace=int(version),
+                         args={"version": int(version)}, flow="step")
 
     def _run(self) -> None:
         params, version = None, -1
@@ -204,6 +224,16 @@ class InferenceService(Service):
             for size in split_window(len(reqs), self.rt.batch_buckets):
                 self._run_batch(reqs[start:start + size], params, version)
                 start += size
+        # a stopped pool never serves what is still queued: fail those
+        # requests, so no submitter (an env worker, a remote client through
+        # the broker) sits out its result timeout on them
+        while True:
+            try:
+                req = self._q.get_nowait()
+            except queue.Empty:
+                return
+            req.future.set_exception(
+                RuntimeError(f"{self.name} stopped before serving it"))
 
     def _run_batch(self, reqs: List[_Request], params, version: int) -> None:
         t0 = time.monotonic()
@@ -230,6 +260,15 @@ class InferenceService(Service):
                 })
             self.metrics.inc("batches")
             self.metrics.inc("requests", n)
+            if (_tel is not None
+                    and version not in self._first_action_traced):
+                # closes the publish -> acquire -> first-action flow:
+                # the first batch served with this weight version
+                self._first_action_traced.add(version)
+                _tel.instant("infer.first_action", cat="weights",
+                             trace=int(version),
+                             args={"version": int(version), "batch": n},
+                             flow="end")
         # per-batch latency: window carved -> results on the host; its
         # median over the recent window as a gauge, which a remote
         # worker's report carries to the parent (series cross as

@@ -29,17 +29,36 @@ hosts the experience channel and the weight store; one
 (``connect_rollout_workers``, dialed in by ``repro_torch.launch.worker``)
 slots, whose children serve their own policy on the system's device and
 pull every published version over the wire. Their env steps and
-snapshots join ``metrics()`` under the reference's keys.
+snapshots join ``metrics()`` under the reference's keys. The supervisor
+registers before the trainer (unlike the reference, whose children
+could be left redialing a stopped server): stopping in reverse, the
+trainer stops first, then the supervisor waits up to
+``Supervisor.STOP_GRACE_S`` for its children to exit while the inference
+pool and the server still answer their last requests.
 
-Not ported yet, and raising (ROADMAP A6b): the transport journal
-(``journal_dir``), the disaggregated inference plane
-(``inference_plane``), the elastic autoscaler (``supervision.max_workers``),
-the telemetry sink and the ``REPRO_TRACE`` tracing.
+The rest of the transport, as in the reference:
+
+  * ``journal_dir`` write-ahead journals the experience channel and every
+    weight publish (``transport/resilience.py``); ``resume_journal``
+    adopts a previous run's journal before anything starts, the newest
+    publish decoded onto the system's device;
+  * ``inference_plane="host"`` serves remote rollout workers' action
+    requests from this process's own pool (the ``infer.*`` endpoints);
+    ``"spawn"`` runs the shared pool in a supervised child of its own on
+    a fixed port, which acquires each version once. Either way the
+    rollout children hold no policy and no CUDA context;
+  * ``supervision.max_workers > 0`` arms the elastic autoscaler on the
+    experience queue's depth, the slowest worker's policy lag and the
+    inference tier's gauges;
+  * ``rt.telemetry.sink`` (or ``REPRO_TRACE``) registers a
+    :class:`~repro_torch.runtime.telemetry.TelemetrySink`, served through
+    the server's ``metrics.snapshot``.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -58,22 +77,6 @@ from repro_torch.runtime.trainer import TrainerWorker
 from repro_torch.runtime.weight_store import VersionedWeightStore
 
 
-def _check_ported(rt: RuntimeConfig) -> None:
-    tcfg = rt.transport
-    for unported, what in (
-            (tcfg.journal_dir, "the transport journal (journal_dir)"),
-            (tcfg.inference_plane,
-             "the disaggregated inference plane (inference_plane)"),
-            (tcfg.supervision.max_workers > 0,
-             "the elastic autoscaler (supervision.max_workers)"),
-            (rt.telemetry.sink, "the telemetry sink (runtime/telemetry.py)"),
-            (os.environ.get("REPRO_TRACE"),
-             "the REPRO_TRACE tracing (runtime/telemetry.py)")):
-        if unported:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP A6b")
-
-
 class AcceRLSystem:
     def __init__(self, cfg: ModelConfig, rl: RLConfig, rt: RuntimeConfig, *,
                  suite: str = "spatial", segment_horizon: int = 8,
@@ -83,7 +86,6 @@ class AcceRLSystem:
                  remote_latency_ms=None, remote_latency_sigma: float = 1.0,
                  device="cuda"):
         self.device = resolve_device(device)
-        _check_ported(rt)
         if cfg.num_prefix_tokens == 0:
             # a VLA policy always consumes the observation frame — give
             # text-only backbones a 1-token frame-embedding prefix
@@ -110,7 +112,10 @@ class AcceRLSystem:
         tcfg = rt.transport
         self.transport_server = None
         self.supervisor = None
+        self.journal = None
         self.remote_hosts: List = []
+        self.inference_plane_host = None
+        self.infer_address = None
         n_remote = tcfg.remote_rollout_workers + tcfg.connect_rollout_workers
         if n_remote > 0:
             # registered FIRST: the wire endpoint starts before any child
@@ -120,18 +125,53 @@ class AcceRLSystem:
             host, port = tcfg.host, tcfg.port
             if tcfg.listen_addr:
                 host, port = parse_address(tcfg.listen_addr)
+            if tcfg.journal_dir:
+                # resilient control plane: wrap the experience channel so
+                # every accepted put / pop is write-ahead journaled, and
+                # journal weight publishes through the store hook — BEFORE
+                # the trainer and server capture channel references
+                from repro_torch.runtime.transport import TransportJournal
+                self.journal = TransportJournal(
+                    tcfg.journal_dir,
+                    compact_bytes=tcfg.journal_compact_bytes,
+                    resume=tcfg.resume_journal)
+                self.journal.attach_store(self.store)
+                self.experience = self.journal.wrap("experience",
+                                                    self.experience)
             self.transport_server = self.registry.register(TransportServer(
                 host=host, port=port,
                 shm_threshold=tcfg.shm_threshold_bytes, token=tcfg.token,
+                journal=self.journal,
                 weight_lane_bytes=tcfg.weight_lane_bytes))
             self.transport_server.add_channel("experience", self.experience)
             if self.frame_channel is not None:
                 self.transport_server.add_channel("frames",
                                                   self.frame_channel)
             self.transport_server.set_store(self.store)
+            if self.journal is not None and tcfg.resume_journal:
+                # adopt the previous incarnation's state before anything
+                # starts: channels refill, stream watermarks rebuild (so
+                # redialing producers replay exactly-once), the newest
+                # recovered weights republish onto this system's device
+                self.transport_server.resume_from_journal(device=self.device)
         self.inference = self.registry.register(
             InferenceService(cfg, self.store, rt, seed=seed,
                              device=self.device))
+        if (self.transport_server is not None
+                and tcfg.inference_plane == "host"):
+            # host mode: the parent's own pool serves remote workers'
+            # action requests through the infer.* endpoints — continuous
+            # batching across every local AND remote rollout worker
+            from repro_torch.runtime.transport import InferenceBroker
+            self.transport_server.set_inference(
+                InferenceBroker(self.inference))
+        if n_remote > 0:
+            # registered before the trainer: the registry stops in
+            # reverse, so the trainer (no more publishes) stops first,
+            # then the supervisor waits for its children to exit while
+            # the inference pool and the server still answer them
+            self._add_remote_slots(n_remote, remote_latency_ms,
+                                   remote_latency_sigma)
         self.trainer = self.registry.register(
             TrainerWorker(cfg, rl, rt, self.experience, self.store,
                           batch_episodes=batch_episodes, seed=seed,
@@ -146,9 +186,22 @@ class AcceRLSystem:
                 frame_channel=self.frame_channel))
             for i in range(rt.num_rollout_workers)
         ]
-        if n_remote > 0:
-            self._add_remote_slots(n_remote, remote_latency_ms,
-                                   remote_latency_sigma)
+        # observability plane: a TelemetrySink samples the registry into
+        # timestamped history (and serves metrics.snapshot when a
+        # TransportServer is up). Armed by config or by the REPRO_TRACE
+        # env so traced runs get the sink without extra flags; the
+        # telemetry module import is deliberately lazy — untraced,
+        # unsinked runs never load it.
+        tel = rt.telemetry
+        self.telemetry_sink = None
+        if tel.sink or os.environ.get("REPRO_TRACE"):
+            from repro_torch.runtime.telemetry import TelemetrySink
+            self.telemetry_sink = self.registry.register(TelemetrySink(
+                self.registry, interval_s=tel.sink_interval_s,
+                history=tel.sink_history, path=tel.sink_path))
+            if self.transport_server is not None:
+                self.transport_server.snapshot_provider = \
+                    self.telemetry_sink.sample
 
     # ----------------------------------------------------------- remote slots
     def _add_remote_slots(self, n_remote: int, latency_ms,
@@ -167,6 +220,23 @@ class AcceRLSystem:
             backoff_max_s=sup.backoff_max_s)
         self.supervisor = self.registry.register(
             Supervisor(self.transport_server, policy))
+
+        if tcfg.inference_plane == "spawn":
+            # pre-allocate the tier's FIXED port so every restart
+            # incarnation rebinds the same address (SO_REUSEADDR on the
+            # server listener) and workers simply redial
+            from repro_torch.runtime.transport.channel import parse_address
+            infer_host, infer_port = "127.0.0.1", 0
+            if tcfg.infer_listen_addr:
+                infer_host, infer_port = parse_address(
+                    tcfg.infer_listen_addr)
+            if infer_port == 0:
+                probe = socket.socket()
+                probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                probe.bind((infer_host, 0))
+                infer_port = probe.getsockname()[1]
+                probe.close()
+            self.infer_address = (infer_host, infer_port)
 
         def make_spec(name: str, idx: int) -> RemoteWorkerSpec:
             return RemoteWorkerSpec(
@@ -191,7 +261,19 @@ class AcceRLSystem:
                 heartbeat_s=tcfg.heartbeat_s, token=tcfg.token,
                 reconnect_attempts=tcfg.reconnect_attempts,
                 reconnect_backoff_s=tcfg.reconnect_backoff_s,
+                inference=("remote" if tcfg.inference_plane else "local"),
+                infer_address=self.infer_address,
                 device=str(self.device))
+
+        if self.infer_address is not None:
+            # the tier slot registers BEFORE rollout slots so it is
+            # already coming up while they dial; kept out of remote_hosts
+            # (it contributes no env steps to metrics())
+            plane_spec = dataclasses.replace(
+                make_spec("inference-plane", -1), kind="inference",
+                infer_listen=self.infer_address)
+            self.inference_plane_host = self.registry.register(
+                self.supervisor.add_spawned(plane_spec))
 
         for i in range(tcfg.remote_rollout_workers):
             spec = make_spec(f"remote-rollout-{i}", i)
@@ -205,6 +287,73 @@ class AcceRLSystem:
                     spec, liveness_timeout_s=sup.liveness_timeout_s,
                     liveness_heartbeats=sup.liveness_heartbeats,
                     liveness_floor_s=sup.liveness_floor_s)))
+        if sup.max_workers > 0:
+            self._enable_elastic(make_spec, n_remote)
+
+    # --------------------------------------------------------------- elastic
+    def _enable_elastic(self, make_spec, n_static: int) -> None:
+        """Arm the supervisor's autoscaler with signals derived from
+        state already on the bus: experience-queue depth fraction, the
+        weight-version lag of the slowest live worker (the
+        ``policy_version``/``weight_version`` gauges each report
+        bridges), and the inference tier's pressure (its bridged gauges
+        when the plane is spawned, the parent's pool otherwise)."""
+        from repro_torch.runtime.transport import ElasticPolicy
+        sup = self.rt.transport.supervision
+        tcfg = self.rt.transport
+        policy = ElasticPolicy(
+            min_workers=sup.min_workers,
+            max_workers=max(sup.max_workers, n_static),
+            interval_s=sup.elastic_interval_s,
+            scale_up_depth=sup.scale_up_depth,
+            scale_down_depth=sup.scale_down_depth,
+            staleness_cap=sup.staleness_cap,
+            tier_queue_hot=sup.tier_queue_hot,
+            tier_fill_hot=sup.tier_fill_hot,
+            drain_timeout_s=sup.drain_timeout_s)
+
+        def elastic_spec(seq: int):
+            return make_spec(f"elastic-rollout-{seq}", n_static + seq)
+
+        def elastic_signals() -> Dict[str, float]:
+            depth_frac = (len(self.experience)
+                          / max(self.rt.replay_capacity, 1))
+            published = self.store.version()
+            versions = []
+            for slot in self.supervisor.slots:
+                if slot.error is not None or slot.phase == "done":
+                    continue
+                g = slot.metrics.snapshot()["gauges"]
+                v = g.get("policy_version", g.get("weight_version"))
+                if v is not None:
+                    versions.append(float(v))
+            staleness = (published - min(versions)
+                         if versions and published >= 0 else 0.0)
+            # inference-tier pressure: prefer the disaggregated tier's
+            # bridged gauges (spawn mode) over the parent's local pool
+            src = (self.inference_plane_host.metrics
+                   if self.inference_plane_host is not None
+                   else self.inference.metrics)
+            g = src.snapshot()["gauges"]
+            return {"depth_frac": float(depth_frac),
+                    "staleness": float(max(staleness, 0.0)),
+                    "infer_queue_depth": float(g.get("queue_depth", 0.0)),
+                    "infer_window_fill": float(g.get("window_fill", 0.0))}
+
+        def register_slot(slot) -> None:
+            # NOT on the ServiceRegistry: this runs on the supervision
+            # thread mid-run and the registry dict is not thread-safe.
+            # remote_hosts is enough — metrics aggregation reads it, and
+            # supervisor.on_stop raises every slot's stop flag.
+            slot.start()
+            self.remote_hosts.append(slot)
+
+        self.supervisor.enable_elastic(
+            policy, elastic_spec, elastic_signals,
+            mode=("connect" if (tcfg.connect_rollout_workers
+                                and not tcfg.remote_rollout_workers)
+                  else "spawn"),
+            register=register_slot)
 
     # ------------------------------------------------------------- attachments
     def attach(self, attachment) -> "AcceRLSystem":

@@ -20,13 +20,16 @@ SAME loop.
 
 Task selection uses Dynamic Weighted Resampling (App. D.4).
 
-As in the reference ``repro/runtime/rollout.py``, without its import-gated
-tracing (ROADMAP A6). The worker submits to the port's
-:class:`~repro_torch.runtime.inference.InferenceService`, which answers
-with numpy actions, log-probs and a float value.
+As in the reference ``repro/runtime/rollout.py``, with its import-gated
+tracing (``REPRO_TRACE``: ``rollout.put``). The worker submits to the
+port's :class:`~repro_torch.runtime.inference.InferenceService` (or to a
+:class:`~repro_torch.runtime.transport.inference_plane.RemoteInferenceClient`),
+which answers with numpy actions, log-probs and a float value.
 """
 from __future__ import annotations
 
+import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -35,6 +38,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.resampler import DynamicWeightedResampler
 from repro_torch.envs.toy_manipulation import ManipulationEnv
 from repro_torch.runtime.service import NULL_GATE, RolloutGate, Service
+
+# Import-gated tracing (see transport.faults for the idiom): when off,
+# the put path below carries zero extra work and zero extra keys.
+if os.environ.get("REPRO_TRACE"):
+    from repro_torch.runtime import telemetry as _tel
+else:  # pragma: no cover - default path
+    _tel = None
 
 
 def episode_to_segments(traj: Dict[str, np.ndarray], horizon: int
@@ -180,8 +190,30 @@ class RolloutWorker(Service):
         traj["success"] = float(success)
 
         segments = episode_to_segments(traj, self.segment_horizon)
-        # batched flush: one backpressure verdict per segment
-        verdicts = self.experience.put_many(segments)
+        # batched flush: one backpressure verdict per segment, and over a
+        # remote channel ONE codec blob + round-trip per episode instead
+        # of one per segment (or one pipelined stream frame, in which
+        # case the verdicts here are provisional and the channel's
+        # stream stats carry the authoritative accept counts)
+        if _tel is not None:
+            # One trace per episode flush: the id is stamped into every
+            # segment (collate only stacks named keys, so extra scalars
+            # survive the channel untouched) and rides the put-frame
+            # header, joining rollout.put -> server.apply -> trainer
+            # collate into one cross-process chain.
+            trace = _tel.new_id()
+            t_put = time.time()
+            for seg in segments:
+                seg["_trace"] = trace
+                seg["_t_put"] = t_put
+            with _tel.span("rollout.put", cat="rollout", trace=trace,
+                           args={"worker": self.worker_id,
+                                 "segments": len(segments),
+                                 "policy_version": int(version)},
+                           flow="start"):
+                verdicts = self.experience.put_many(segments)
+        else:
+            verdicts = self.experience.put_many(segments)
         self.metrics.inc("segments", float(len(segments)))
         rejected = sum(1 for v in verdicts if not v)
         if rejected:

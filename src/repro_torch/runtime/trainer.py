@@ -29,11 +29,17 @@ its whole state (``data/checkpoint.py``, the reference's format) every
 ``checkpoint_interval`` steps, after the step's publish, as the reference
 does.
 
+With ``REPRO_TRACE`` set, collate records ``trainer.collate`` on each
+traced segment's trace (and the segment's age as ``batch_age_s``), and a
+publish records ``weights.publish`` once the store holds the snapshot.
+
 Not ported yet: the pipelined executor (``rt.pipeline``, ROADMAP A7, which
-raises) and the import-gated tracing (A6b).
+raises).
 """
 from __future__ import annotations
 
+import functools
+import os
 import time
 from typing import Dict, List
 
@@ -51,11 +57,35 @@ from repro_torch.runtime.service import Service, ServiceState
 from repro_torch.runtime.weight_store import VersionedWeightStore
 from repro_torch.tree import tree_map
 
+# Import-gated tracing (see transport.faults for the idiom).
+if os.environ.get("REPRO_TRACE"):
+    from repro_torch.runtime import telemetry as _tel
+else:  # pragma: no cover - default path
+    _tel = None
 
-def collate_segments(segments: List[Dict[str, np.ndarray]]
-                     ) -> TrajectoryBatch:
+
+def collate_segments(segments: List[Dict[str, np.ndarray]],
+                     metrics=None) -> TrajectoryBatch:
     """Stack rollout segments into a numpy TrajectoryBatch (prefetcher
-    thread)."""
+    thread).
+
+    When tracing is on, rollout workers stamp ``_trace``/``_t_put`` into
+    each segment; the trainer-side instant here closes the per-episode
+    flow (rollout.put -> server.apply -> trainer.collate) and the
+    end-to-end batch age lands in the ``batch_age_s`` histogram.
+    """
+    if _tel is not None:
+        now = time.time()
+        for s in segments:
+            trace = s.get("_trace")
+            if trace is None:
+                continue
+            _tel.instant("trainer.collate", cat="trainer",
+                         trace=int(trace),
+                         args={"batch": len(segments)}, flow="end")
+            if metrics is not None and s.get("_t_put") is not None:
+                metrics.observe("batch_age_s",
+                                max(now - float(s["_t_put"]), 0.0))
     stack = lambda k: np.stack([s[k] for s in segments])  # noqa: E731
     frames = stack("frames")                        # [B, T+1, F_env]
     b, tp1, f = frames.shape
@@ -117,7 +147,8 @@ class TrainerWorker(Service):
                                f"(state={self.status})")
         self.source = source
         self.prefetcher = Prefetcher(
-            source, batch_size, collate_segments,
+            source, batch_size,
+            functools.partial(collate_segments, metrics=self.metrics),
             depth=self.rt.prefetch_depth,
             drain_timeout_s=self.rt.prefetch_drain_timeout_s,
             idle_timeout_max_s=self.rt.prefetch_idle_timeout_s,
@@ -141,13 +172,21 @@ class TrainerWorker(Service):
     def busy_s(self) -> float:
         return self.metrics.counter("busy_s")
 
-    def _publish(self, version: int) -> None:
+    def _publish(self, version: int, step: int = 0) -> None:
         """Publish a detached clone of every param leaf: the next step
-        updates the live ones in place."""
+        updates the live ones in place. Then open the policy-lag trace
+        flow: the version is the flow id on both ends, so publish ->
+        acquire -> first action line up in the trace viewer without any
+        shared state (the instant marks the store's commit on the host;
+        the clone may still be running on the device)."""
         with torch.no_grad():
             snapshot = tree_map(lambda p: p.detach().clone(),
                                 self.state.params)
         self.store.publish(snapshot, version)
+        if _tel is not None:
+            _tel.instant("weights.publish", cat="weights", trace=version,
+                         args={"version": version, "step": step},
+                         flow="start")
 
     # -- lifecycle -------------------------------------------------------------
     def on_start(self) -> None:
@@ -192,7 +231,7 @@ class TrainerWorker(Service):
             if steps % self.rt.weight_sync_interval == 0:
                 if self.rt.drain:
                     self.store.begin_publish()     # drain signal, App. D.6
-                self._publish(version + 1)
+                self._publish(version + 1, step=steps)
             if (self.checkpoint_dir and self.checkpoint_interval
                     and steps % self.checkpoint_interval == 0):
                 checkpoint.save(self.checkpoint_dir, steps, self.state)

@@ -20,11 +20,21 @@ the reference ``repro.runtime.transport``, wire-compatible with it:
   * :mod:`remote`  — ``worker_main`` + :class:`RemoteWorkerSpec`, the
     worker process body (one body, two lifecycles);
   * :mod:`supervision` — :class:`Supervisor` / :class:`SupervisedWorker`
-    / :class:`RestartPolicy` and the Spawned/Connected endpoints.
-
-Not ported yet (ROADMAP A6b): the journal (``resilience``), the
-disaggregated inference plane, fault injection, the elastic autoscaler,
-and the import-gated tracing.
+    / :class:`RestartPolicy` / :class:`ElasticPolicy` and the
+    Spawned/Connected endpoints: worker lifecycle decoupled from
+    transport, with restart budgets and elastic autoscaling;
+  * :mod:`resilience` — :class:`TransportJournal` /
+    :class:`JournaledChannel` / :func:`recover`: write-ahead journal +
+    compacting snapshots for the server's hosted state (the reference's
+    file format), so a replacement server (``resume_journal``) survives a
+    SIGKILL with exactly-once stream replay;
+  * :mod:`inference_plane` — :class:`InferenceBroker` /
+    :class:`RemoteInferenceClient` / :class:`InferencePlaneService`: the
+    disaggregated inference tier — many rollout workers sharing one
+    continuously-batched pool behind seq-numbered ``infer.*`` streams
+    with reconnect replay and exactly-once result delivery;
+  * :mod:`faults`  — :class:`FaultPlan`, env-gated deterministic fault
+    injection (never imported unless ``REPRO_FAULTS`` is set).
 """
 from repro_torch.runtime.transport.codec import (  # noqa: F401
     CodecError,
@@ -45,6 +55,11 @@ from repro_torch.runtime.transport.ring import (  # noqa: F401
     ShmRing,
     sweep_stale_shm,
 )
+from repro_torch.runtime.transport.inference_plane import (  # noqa: F401
+    InferenceBroker,
+    InferencePlaneService,
+    RemoteInferenceClient,
+)
 from repro_torch.runtime.transport.server import TransportServer  # noqa: F401
 from repro_torch.runtime.transport.weights import (  # noqa: F401
     WeightStoreTransport,
@@ -55,8 +70,15 @@ from repro_torch.runtime.transport.remote import (  # noqa: F401
     spec_to_wire,
     worker_main,
 )
+from repro_torch.runtime.transport.resilience import (  # noqa: F401
+    JournaledChannel,
+    RecoveredState,
+    TransportJournal,
+    recover,
+)
 from repro_torch.runtime.transport.supervision import (  # noqa: F401
     ConnectedEndpoint,
+    ElasticPolicy,
     RestartPolicy,
     SpawnedEndpoint,
     SupervisedWorker,

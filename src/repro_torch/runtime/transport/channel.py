@@ -57,13 +57,27 @@ from repro_torch.runtime.transport.codec import (decode_pytree,
                                                  plan_pytree, recv_frame,
                                                  send_frame)
 from repro_torch.runtime.transport.ring import (RingError, RingView, ShmRing,
-                                                refuse_unported_gates,
                                                 shm_name)
 
 try:
     from multiprocessing import shared_memory
 except ImportError:  # pragma: no cover — stdlib on every target platform
     shared_memory = None
+
+# import-gated fault injection (see transport.faults): inert — not even
+# imported — unless REPRO_FAULTS is set
+if os.environ.get("REPRO_FAULTS"):
+    from repro_torch.runtime.transport.faults import fault_point as _fault
+else:
+    _fault = None
+
+# import-gated tracing (see runtime.telemetry, same idiom): when on, the
+# active trace context rides put-frame headers (``tr``/``sp``) so the
+# server can join its apply span to the producer's flush span
+if os.environ.get("REPRO_TRACE"):
+    from repro_torch.runtime import telemetry as _tel
+else:
+    _tel = None
 
 POLL_S = 0.5          # per-RPC slice of a long pop/acquire wait
 
@@ -168,9 +182,13 @@ def shm_read(name: str, size: int) -> bytes:
         shm.close()
 
 
-def _dial(address: Tuple[str, int], timeout: float) -> socket.socket:
+def _dial(address: Tuple[str, int], timeout: float,
+          closed=lambda: False) -> socket.socket:
     """Connect with retry-until-deadline (the server may still be
-    binding), then switch to blocking + NODELAY."""
+    binding), then switch to blocking + NODELAY. ``closed()`` true ends
+    the retries at once: a client closed while it redials a peer that is
+    gone (a stopped inference tier) does not hold its caller for the
+    rest of ``timeout``."""
     deadline = time.monotonic() + timeout
     while True:
         try:
@@ -178,7 +196,7 @@ def _dial(address: Tuple[str, int], timeout: float) -> socket.socket:
                                             timeout=max(timeout, 0.05))
             break
         except OSError as e:
-            if time.monotonic() >= deadline:
+            if time.monotonic() >= deadline or closed():
                 raise TransportError(
                     f"cannot connect to transport server at "
                     f"{address}: {e}") from e
@@ -220,7 +238,6 @@ class WireClient:
                  reconnect_backoff_s: float = 0.1,
                  reconnect_backoff_max_s: float = 2.0,
                  on_reconnect=None):
-        refuse_unported_gates()
         self.address = tuple(address)
         self._connect_timeout = connect_timeout
         self._lock = threading.Lock()
@@ -234,7 +251,7 @@ class WireClient:
         self._sock = self._dial(connect_timeout)
 
     def _dial(self, timeout: float) -> socket.socket:
-        return _dial(self.address, timeout)
+        return _dial(self.address, timeout, lambda: self.closed)
 
     def raw_request(self, header: Dict, body: bytes = b"") -> Tuple[Dict,
                                                                     bytes]:
@@ -297,6 +314,8 @@ class WireClient:
                     if attempt and (self.closed or not self._redial(attempt)):
                         break
                     try:
+                        if _fault is not None:
+                            _fault("client.request")
                         send_frame(self._sock, header, body)
                         resp = recv_frame(self._sock)
                         if resp is None:   # clean EOF: peer closed on us
@@ -417,7 +436,6 @@ class PutStream:
                  reconnect_backoff_s: float = 0.1,
                  reconnect_backoff_max_s: float = 2.0,
                  stream_id: Optional[str] = None):
-        refuse_unported_gates()
         self.address = tuple(address)
         self.chan = chan
         self.window = max(int(window), 1)
@@ -449,8 +467,9 @@ class PutStream:
         self._reconnect_backoff_max_s = reconnect_backoff_max_s
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
-        # seq -> (encoded blob, item count, time sent); kept until acked
-        # so a reconnect can replay the window
+        # seq -> (encoded blob, item count, trace ctx or None, time sent);
+        # kept until acked so a reconnect can replay the window — the ctx
+        # rides along so replayed frames keep their trace ids
         self._pending: "collections.OrderedDict[int, Tuple]" = \
             collections.OrderedDict()
         self._next_seq = 0
@@ -525,7 +544,8 @@ class PutStream:
             self._sendbuf_frames = 0
             self._sock.sendall(buf)
 
-    def _send_frame(self, seq: int, payload, count: int) -> None:
+    def _send_frame(self, seq: int, payload, count: int,
+                    ctx: Optional[Dict] = None) -> None:
         """Caller holds the lock. Ring mode writes the encoded blob
         straight into the ring reservation (``payload`` is an
         :class:`~repro_torch.runtime.transport.codec.EncodePlan`, no
@@ -533,8 +553,12 @@ class PutStream:
         references it goes out; socket mode carries ``payload`` bytes as
         the frame body. Frames are appended to the coalescing buffer —
         :meth:`_maybe_flush_sendbuf` / :meth:`_flush_sendbuf` ship it."""
+        if _fault is not None:
+            _fault("client.stream_send")
         header = {"m": "chan.put_stream", "chan": self.chan,
                   "stream": self.stream_id, "seq": seq, "count": count}
+        if ctx:
+            header.update(ctx)             # tr/sp trace ids ride the frame
         if self._ring is not None:
             view = self._ring.reserve(payload.nbytes, timeout=0)
             if view is None:
@@ -638,12 +662,14 @@ class PutStream:
                     waited = 0.0
             if self.closed or self.failed is not None:
                 return [False] * len(items)
+            ctx = _tel.wire_ctx() if _tel is not None else None
             seq = self._next_seq
             self._next_seq += 1
-            self._pending[seq] = (payload, len(items), time.monotonic())
+            self._pending[seq] = (payload, len(items), ctx,
+                                  time.monotonic())
             self.items_enqueued += len(items)
             try:
-                self._send_frame(seq, payload, len(items))
+                self._send_frame(seq, payload, len(items), ctx)
                 self._maybe_flush_sendbuf()
                 if self._sendbuf:          # wake the deadline flusher so
                     self._cv.notify_all()  # a burst tail ships in ~2ms
@@ -725,7 +751,7 @@ class PutStream:
                     if entry is None:
                         continue
                     count = entry[1]
-                    rtt = now - entry[2]   # newest ack wins: one sample
+                    rtt = now - entry[3]   # newest ack wins: one sample
                     verdicts = [bool(v) for v in verdicts]
                     verdicts += [False] * (count - len(verdicts))
                     accepted = sum(verdicts[:count])
@@ -804,12 +830,12 @@ class PutStream:
                 try:
                     self._open()
                     now = time.monotonic()
-                    for seq, (payload, count, _) in list(
-                            self._pending.items()):
+                    for seq, entry in list(self._pending.items()):
+                        payload, count, ctx = entry[0], entry[1], entry[2]
                         # refresh t_sent: a replayed frame's RTT clock
                         # starts at the replay, not the original send
-                        self._pending[seq] = (payload, count, now)
-                        self._send_frame(seq, payload, count)
+                        self._pending[seq] = (payload, count, ctx, now)
+                        self._send_frame(seq, payload, count, ctx)
                         self.replayed_frames += 1
                     self._flush_sendbuf()
                 except (OSError, ValueError, TransportError, RingError):
@@ -960,6 +986,8 @@ class SocketChannel(ExperienceChannel):
             except (TransportError, OSError):
                 return False
         header = {"m": "chan.put", "chan": self.name}
+        if _tel is not None:
+            header.update(_tel.wire_ctx())
         try:
             resp, _ = self._client.request(header, encode_pytree(item),
                                            oob=self.oob)
@@ -984,6 +1012,8 @@ class SocketChannel(ExperienceChannel):
                 return [False] * len(items)
         header = {"m": "chan.put_many", "chan": self.name,
                   "count": len(items)}
+        if _tel is not None:
+            header.update(_tel.wire_ctx())
         try:
             resp, _ = self._client.request(header, encode_pytree(items),
                                            oob=self.oob)

@@ -32,13 +32,25 @@ one torch thread. Each acquire's seconds land in the service's registry
 (``weight_acquire_s`` histogram, ``weight_acquire_s_v<version>`` gauges),
 and the launches of the serving kernels K1 and K2 in the child as the
 counters ``launches.flash_attention`` and ``launches.decode_attention``,
-which the report bridges to the parent. Not ported yet (ROADMAP A6b): the
-``"inference"`` kind (the shared inference tier), ``inference="remote"``
-and the child's trace spans.
+which the report bridges to the parent.
+
+With ``spec.inference == "remote"`` the child holds no policy and no
+device: its env workers submit to the shared inference tier through a
+:class:`~repro_torch.runtime.transport.inference_plane.RemoteInferenceClient`
+(the env, the codec, the channels and that client only — no CUDA
+context), and the client's counters ride the report as the gauges
+``infer_client_<key>``. ``spec.kind == "inference"`` is that tier in a
+child of its own (``inference_plane="spawn"``): an
+:class:`~repro_torch.runtime.transport.inference_plane.InferencePlaneService`
+serving on ``spec.device`` behind its own server on the fixed
+``spec.infer_listen`` address. With ``REPRO_TRACE`` set, the child's
+trace events ride every report (the ``trace`` key), which the parent's
+server folds into its own collector.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 import sys
 import time
@@ -55,7 +67,12 @@ from repro_torch.runtime.transport.channel import (ChannelClosed, ShmChannel,
                                                    TransportError, WireClient)
 from repro_torch.runtime.transport.weights import WeightStoreTransport
 
-_A6B = "is not ported yet: ROADMAP A6b"
+# Tracing is import-gated exactly like transport.faults: when REPRO_TRACE is
+# unset the telemetry module is never imported and child spans ride nowhere.
+if os.environ.get("REPRO_TRACE"):
+    from repro_torch.runtime import telemetry as _tel
+else:  # pragma: no cover - default path, asserted import-inert in tests
+    _tel = None
 
 __all__ = ["RemoteWorkerSpec", "worker_main", "spec_to_wire",
            "spec_from_wire"]
@@ -203,6 +220,12 @@ def _build_report(services: List[Service]) -> Dict:
         "merged": _merge_snapshots([s.metrics.snapshot()
                                     for s in services]),
     }
+    if _tel is not None:
+        # Child-side spans ride the heartbeat; the TransportServer folds
+        # them into its foreign buffer so one trace.dump covers every pid.
+        events = _tel.drain()
+        if events:
+            report["trace"] = events
     return report
 
 
@@ -241,33 +264,44 @@ def _heartbeat_loop(spec: RemoteWorkerSpec, control: WireClient,
         time.sleep(spec.heartbeat_s * (0.75 + 0.5 * random.random()))
 
 
+def _launch_mirror(metrics) -> Callable[[], None]:
+    """The serving kernels' launches (K1 prefill, K2 decode) counted in
+    this process: zeroed here, and the returned hook mirrors them into
+    ``metrics`` as the counters ``launches.<wrapper>`` ahead of every
+    report, so the parent reads what this child launched."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    kernels = {"flash_attention": flash_attention,
+               "decode_attention": decode_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+    mirrored = dict.fromkeys(kernels, 0)
+
+    def mirror() -> None:
+        for name, fn in kernels.items():
+            n = fn.launches
+            metrics.inc(f"launches.{name}", n - mirrored[name])
+            mirrored[name] = n
+    return mirror
+
+
 def worker_main(spec: RemoteWorkerSpec) -> int:
     """Remote-worker entry: build the service set, run it, report.
 
-    ``spec.kind`` ``"rollout"``: env workers with a colocated inference
-    pool on ``spec.device``. Returns the exit code (0 clean stop, 3
-    internal service failure). Heavy imports live here, not at module
-    scope — the parent never pays for them and the child initializes its
-    own CUDA context.
+    ``spec.kind`` selects the body: ``"rollout"`` (env workers, with a
+    colocated pool on ``spec.device`` OR the shared tier per
+    ``spec.inference``) or ``"inference"`` (the shared inference tier).
+    Returns the exit code (0 clean stop, 3 internal service failure).
+    Heavy imports live here, not at module scope — the parent never pays
+    for them, and only a child that serves creates a CUDA context.
     """
     if spec.kind == "inference":
-        raise NotImplementedError(f"the inference-tier worker {_A6B}")
-    if spec.inference == "remote":
-        raise NotImplementedError(
-            f"inference='remote' (the disaggregated inference plane) {_A6B}")
-    import torch
-    from repro_torch import resolve_device
+        return _inference_plane_main(spec)
     from repro_torch.envs.toy_manipulation import (TASKS_PER_SUITE,
                                                    lognormal_latency)
     from repro_torch.core.resampler import DynamicWeightedResampler
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.runtime.inference import InferenceService
     from repro_torch.runtime.rollout import RolloutWorker
 
-    device = resolve_device(spec.device)
-    if device.type == "cpu":
-        torch.set_num_threads(1)
     wire_kw = dict(connect_timeout=spec.connect_timeout_s,
                    reconnect_attempts=spec.reconnect_attempts,
                    reconnect_backoff_s=spec.reconnect_backoff_s,
@@ -289,21 +323,45 @@ def worker_main(spec: RemoteWorkerSpec) -> int:
                          reconnect_attempts=spec.reconnect_attempts,
                          reconnect_backoff_s=spec.reconnect_backoff_s)
 
-    # the weight wire either rides the per-message SHM path or (with
-    # use_weight_lane) reads blobs positionally out of the parent's
-    # persistent broadcast lane ring — one publish serves N same-host
-    # readers with zero per-acquire segment churn
-    store = WeightStoreTransport(
-        spec.address, use_shm=spec.use_shm or spec.use_ring,
-        shm_threshold=spec.shm_threshold,
-        connect_timeout=spec.connect_timeout_s,
-        reconnect_attempts=spec.reconnect_attempts,
-        reconnect_backoff_s=spec.reconnect_backoff_s,
-        use_lane=spec.use_weight_lane, device=device)
-    inference = InferenceService(spec.cfg, store, spec.rt,
-                                 temperature=spec.temperature,
-                                 seed=spec.seed, device=device)
-    store.metrics = inference.metrics
+    store = None
+    if spec.inference == "remote":
+        # disaggregated plane: action requests go to the shared tier; no
+        # local pool, no local weight wire and no device (the tier owns
+        # the weights and the card)
+        from repro_torch.runtime.transport.inference_plane import \
+            RemoteInferenceClient
+        inference = RemoteInferenceClient(
+            tuple(spec.infer_address or spec.address),
+            client_id=spec.name,
+            connect_timeout=spec.connect_timeout_s,
+            shm_threshold=spec.shm_threshold,
+            reconnect_attempts=spec.reconnect_attempts,
+            reconnect_backoff_s=spec.reconnect_backoff_s,
+            use_ring=spec.use_ring)
+        services: List[Service] = []
+    else:
+        import torch
+        from repro_torch import resolve_device
+        from repro_torch.runtime.inference import InferenceService
+        device = resolve_device(spec.device)
+        if device.type == "cpu":
+            torch.set_num_threads(1)
+        # the weight wire either rides the per-message SHM path or (with
+        # use_weight_lane) reads blobs positionally out of the parent's
+        # persistent broadcast lane ring — one publish serves N same-host
+        # readers with zero per-acquire segment churn
+        store = WeightStoreTransport(
+            spec.address, use_shm=spec.use_shm or spec.use_ring,
+            shm_threshold=spec.shm_threshold,
+            connect_timeout=spec.connect_timeout_s,
+            reconnect_attempts=spec.reconnect_attempts,
+            reconnect_backoff_s=spec.reconnect_backoff_s,
+            use_lane=spec.use_weight_lane, device=device)
+        inference = InferenceService(spec.cfg, store, spec.rt,
+                                     temperature=spec.temperature,
+                                     seed=spec.seed, device=device)
+        store.metrics = inference.metrics
+        services = [inference]
 
     latency = (lognormal_latency(spec.latency_mean_ms,
                                  sigma=spec.latency_sigma, seed=spec.seed)
@@ -319,42 +377,82 @@ def worker_main(spec: RemoteWorkerSpec) -> int:
                       seed=spec.seed * 1000 + i, frame_channel=frames)
         for i in range(spec.num_envs)
     ]
-    services: List[Service] = [inference] + list(workers)
+    services = services + list(workers)
 
-    # the serving kernels' launches (K1 prefill, K2 decode) counted in
-    # this process: zeroed here and mirrored into the inference service's
-    # counters ``launches.<wrapper>`` ahead of every report, so the
-    # parent reads what this child launched
-    kernels = {"flash_attention": flash_attention,
-               "decode_attention": decode_attention}
-    for fn in kernels.values():
-        fn.launches = 0
-    mirrored = dict.fromkeys(kernels, 0)
-
-    def mirror_launches() -> None:
-        for name, fn in kernels.items():
-            n = fn.launches
-            inference.metrics.inc(f"launches.{name}", n - mirrored[name])
-            mirrored[name] = n
+    before = None
+    if store is not None:
+        before = _launch_mirror(inference.metrics)
+    elif workers:
+        def before() -> None:
+            # the client's delivery counters (submitted, results,
+            # duplicates, replays, pending) bridged to the parent
+            for key, val in inference.stats().items():
+                workers[0].metrics.set_gauge(f"infer_client_{key}", val)
 
     for s in services:
         s.start()
 
     try:
-        exit_code = _heartbeat_loop(spec, control, services,
-                                    mirror_launches)
+        exit_code = _heartbeat_loop(spec, control, services, before)
     finally:
         for s in reversed(services):
             s.stop()
+        if store is None:
+            # the shared tier may stop before answering this child's last
+            # requests: closing the client fails its pending futures, so
+            # no env worker sits out its result wait before the join
+            inference.close()
         for s in services:
             s.join(timeout=5.0)
         try:                                # best-effort final numbers
-            _report_once(spec, control, services, mirror_launches)
+            _report_once(spec, control, services, before)
         except (TransportError, ChannelClosed):
             pass
         for closable in (experience, frames, store, control):
             if closable is not None:
                 closable.close()
+    return exit_code
+
+
+def _inference_plane_main(spec: RemoteWorkerSpec) -> int:
+    """Inference-tier child: the shared pool + broker behind its own
+    fixed-address ``TransportServer``, serving on ``spec.device``, weights
+    pulled from the parent (through its weight lane when it has one)."""
+    from repro_torch.runtime.transport.inference_plane import \
+        InferencePlaneService
+
+    control = WireClient(spec.address,
+                         connect_timeout=spec.connect_timeout_s,
+                         reconnect_attempts=spec.reconnect_attempts,
+                         reconnect_backoff_s=spec.reconnect_backoff_s)
+    plane = InferencePlaneService(
+        spec.cfg, spec.rt, spec.address,
+        listen=tuple(spec.infer_listen or ("127.0.0.1", 0)),
+        temperature=spec.temperature, seed=spec.seed,
+        use_shm=spec.use_shm or spec.use_ring,
+        shm_threshold=spec.shm_threshold,
+        connect_timeout=spec.connect_timeout_s,
+        reconnect_attempts=spec.reconnect_attempts,
+        reconnect_backoff_s=spec.reconnect_backoff_s, token=spec.token,
+        use_lane=spec.use_weight_lane, device=spec.device)
+    if plane.pool.device.type == "cpu":
+        import torch
+        torch.set_num_threads(1)
+    before = _launch_mirror(plane.pool.metrics)
+    plane.start()
+    # the pool reports alongside the plane so its eq.-1 window counters
+    # (batches, padded_slots, degenerate_batches) bridge to the parent
+    services: List[Service] = [plane, plane.pool]
+    try:
+        exit_code = _heartbeat_loop(spec, control, services, before)
+    finally:
+        plane.stop()
+        plane.join(timeout=5.0)
+        try:
+            _report_once(spec, control, services, before)
+        except (TransportError, ChannelClosed):
+            pass
+        control.close()
     return exit_code
 
 

@@ -58,11 +58,10 @@ exactly the shape of one transport connection. Both sides may live in
 the same process (tests, benchmarks).
 
 Segment names follow the reference's sweepable ``acrl<pidhex>x<token>``
-scheme (``shm_name``; the reference keeps it in its resilience module,
-which is not ported). Its fault injection is not ported either: with
-``REPRO_FAULTS`` set, building a ring, a wire client or a server raises
-(``refuse_unported_gates``), as does ``REPRO_TRACE`` (the import-gated
-tracing) — both come with ROADMAP A6b.
+scheme (``shm_name``, ``sweep_stale_shm``; the reference keeps them in its
+resilience module, which re-exports these). With ``REPRO_FAULTS`` set,
+:meth:`ShmRing.commit` is the ``ring.commit`` fault point
+(``transport/faults.py``).
 """
 from __future__ import annotations
 
@@ -107,17 +106,14 @@ class RingError(RuntimeError):
     """Structural ring failure: bad magic, oversized record, corruption."""
 
 
-def refuse_unported_gates() -> None:
-    """Raise when the environment asks for the reference's fault
-    injection (``REPRO_FAULTS``) or tracing (``REPRO_TRACE``): neither is
-    ported, and a run that asked for them must not pass silently without
-    them."""
-    for var, what in (("REPRO_FAULTS", "fault injection (transport/faults)"),
-                      ("REPRO_TRACE", "tracing (runtime/telemetry)")):
-        if os.environ.get(var):
-            raise NotImplementedError(
-                f"{var} is set, but the transport's {what} is not ported "
-                f"yet: ROADMAP A6b")
+# import-gated fault injection (see transport.faults): inert — not even
+# imported — unless REPRO_FAULTS is set. The gate sits below RingError
+# because faults.py imports it from this (then partially-initialized)
+# module.
+if os.environ.get("REPRO_FAULTS"):
+    from repro_torch.runtime.transport.faults import fault_point as _fault
+else:
+    _fault = None
 
 
 SHM_NAME_PREFIX = "acrl"
@@ -269,7 +265,6 @@ class ShmRing:
     @classmethod
     def create(cls, capacity: int, name: Optional[str] = None) -> "ShmRing":
         """Create a fresh ring with at least ``capacity`` data bytes."""
-        refuse_unported_gates()
         if shared_memory is None:
             raise RingError("shared memory unavailable on this platform")
         capacity = max(_pad8(capacity), 4 * RECORD_HEADER.size)
@@ -296,7 +291,6 @@ class ShmRing:
     @classmethod
     def attach(cls, name: str) -> "ShmRing":
         """Attach to a ring created by the peer (no unlink duty)."""
-        refuse_unported_gates()
         if shared_memory is None:
             raise RingError("shared memory unavailable on this platform")
         return cls(shared_memory.SharedMemory(name=name), created=False)
@@ -367,6 +361,10 @@ class ShmRing:
 
     def commit(self) -> None:
         """Publish the record reserved by the last :meth:`reserve`."""
+        if _fault is not None:
+            # firing here (InjectedTorn) leaves the reservation
+            # uncommitted — exactly the torn write recover() discards
+            _fault("ring.commit")
         self._set(_OFF_ITEMS_COMMITTED,
                   self._get(_OFF_ITEMS_COMMITTED) + 1)
         self._set(_OFF_COMMIT, self._reserved_end)

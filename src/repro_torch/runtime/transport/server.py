@@ -32,20 +32,34 @@ Exposed endpoints (JSON header ``m`` field):
   ``store.state``         (version, draining) — the drain protocol's poll
   ``store.drain``         remote ``begin_publish`` (drain signal)
   ``store.publish``       remote publish (a trainer across the wire)
+  ``infer.open``          inference-plane handshake: broker epoch + the
+                          client's submit-dedup watermark (replay base)
+  ``infer.submit``        one seq-numbered action request for the shared
+                          inference pool (at-most-once per epoch)
+  ``infer.result``        long-poll result delivery with cumulative acks
+                          (un-acked results are redelivered)
   ``worker.hello``        connect-mode handshake: shared-token auth, then
                           the supervisor assigns a slot and ships its spec
   ``worker.report``       child → parent metrics/health bridge; the reply
                           carries the per-incarnation stop flag
-  ``server.stats``        the server's counters and gauges
-  ``metrics.snapshot``    remote scrape of the server's registry
+  ``server.stats``        the server's counters and gauges (and the
+                          journal's state when one is set)
+  ``metrics.snapshot``    remote scrape of the whole registry (the
+                          telemetry sink's sample when one is set, else
+                          this server's own)
+  ``trace.dump``          every buffered trace event of this process,
+                          children's folded in (``REPRO_TRACE``)
   ``ping``                liveness probe
   ======================  ==================================================
 
-Not ported yet (ROADMAP A6b), each raising or answering an error that
-names it: the ``infer.*`` endpoints of the disaggregated inference plane
-(``set_inference``), the write-ahead journal (``journal``,
-``resume_from_journal``), the ``trace.dump`` endpoint and the fault
-points.
+With a :class:`~repro_torch.runtime.transport.resilience.TransportJournal`
+the server flushes it before every reply (the group-commit boundary),
+fuses each streamed flush's dedup watermark into the flush's own record,
+compacts it on the accept loop's idle tick and writes a final snapshot
+at stop; :meth:`resume_from_journal` adopts a previous incarnation's
+state. With ``REPRO_FAULTS`` set, ``server.frame``,
+``server.stream_apply`` and ``server.stream_applied`` are fault points
+(``transport/faults.py``).
 
 Weights are planned once per published version (:meth:`_weights_plan`):
 a tree of CUDA tensors crosses to the host in one pass of copies into one
@@ -85,21 +99,39 @@ just in the benchmark.
 from __future__ import annotations
 
 import collections
+import contextlib
+import os
 import socket
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from repro_torch import resolve_device
 from repro_torch.runtime.service import Service
 from repro_torch.runtime.transport.channel import (shared_memory, shm_read,
                                                    shm_write)
 from repro_torch.runtime.transport.codec import (decode_pytree, plan_pytree,
                                                  encode_pytree, recv_frame,
                                                  send_frame)
+from repro_torch.runtime.transport.resilience import (TransportJournal,
+                                                      recover)
 from repro_torch.runtime.transport.ring import (RingError, ShmRing,
-                                                refuse_unported_gates,
                                                 sweep_stale_shm)
 
-_A6B = "is not ported yet: ROADMAP A6b"
+# fault injection is gated on the IMPORT, not just the call: with
+# REPRO_FAULTS unset the faults module never loads and every fault site
+# is one `is None` check (inertness is tested, not assumed)
+if os.environ.get("REPRO_FAULTS"):
+    from repro_torch.runtime.transport.faults import fault_point as _fault
+else:
+    _fault = None
+
+# import-gated tracing (runtime.telemetry): the server joins producer
+# trace ids from frame headers into its own apply spans, folds child
+# trace buffers shipped via worker.report, and serves trace.dump
+if os.environ.get("REPRO_TRACE"):
+    from repro_torch.runtime import telemetry as _tel
+else:
+    _tel = None
 
 __all__ = ["TransportServer"]
 
@@ -168,17 +200,22 @@ class TransportServer(Service):
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
                  shm_threshold: int = 1 << 16, name: str = "transport",
-                 token: str = "", journal: Any = None,
+                 token: str = "", journal: Optional[TransportJournal] = None,
                  weight_lane_bytes: int = 0):
-        refuse_unported_gates()
-        if journal is not None:
-            raise NotImplementedError(f"the transport journal {_A6B}")
         super().__init__(name, role="transport")
         self._channels: Dict[str, Any] = {}
         self._store = None
+        # resilience journal: stream watermarks are appended on the put
+        # path; compaction runs on the accept loop's idle tick
+        self._journal = journal
         self._sinks: Dict[str, Any] = {}          # worker name -> host
         self._token = token
         self._hello: Optional[Callable[[Dict], Dict]] = None
+        self._infer: Optional[Any] = None
+        # metrics.snapshot endpoint source: the orchestrator points this
+        # at its TelemetrySink (whole-registry sample); unset, the
+        # endpoint serves this server's own registry
+        self.snapshot_provider: Optional[Callable[[], Dict]] = None
         self._shm_threshold = shm_threshold
         # put-stream dedup state, keyed by (chan, stream id); survives the
         # stream's connection so replays after a reconnect are applied at
@@ -234,9 +271,10 @@ class TransportServer(Service):
         self._hello = handler
 
     def set_inference(self, broker: Any) -> None:
-        """The reference installs the ``infer.*`` responder here (the
-        disaggregated inference plane)."""
-        raise NotImplementedError(f"the inference plane {_A6B}")
+        """Install the ``infer.*`` responder (an
+        :class:`~repro_torch.runtime.transport.inference_plane.InferenceBroker`):
+        the shared continuous-batching pool served behind this server."""
+        self._infer = broker
 
     # -- service surface ------------------------------------------------------
     def _thread_targets(self):
@@ -268,6 +306,13 @@ class TransportServer(Service):
             try:
                 conn, _ = self._listener.accept()
             except socket.timeout:
+                if self._journal is not None:
+                    # idle tick: bound how long group-commit records from
+                    # purely local producers can sit in the buffer
+                    self._journal.flush()
+                    if self._journal.should_compact():
+                        self._journal.compact(self._stream_records)
+                        self.metrics.inc("journal_compactions")
                 continue
             except OSError:            # listener closed during shutdown
                 break
@@ -301,6 +346,14 @@ class TransportServer(Service):
         if lane is not None:
             lane.close()
             lane.unlink()
+        if self._journal is not None:
+            # final snapshot so a later resume_journal replays one
+            # compact file instead of the whole log
+            try:
+                self._journal.compact(self._stream_records)
+            except OSError:
+                pass
+            self._journal.close()
 
     def _note_client_shm(self, name: str) -> None:
         with self._client_shm_lock:
@@ -351,6 +404,8 @@ class TransportServer(Service):
                     pending_shm = None
                 if frame is None:
                     break
+                if _fault is not None:
+                    _fault("server.frame")
                 header, body = frame
                 if header.get("shm"):      # request body arrived via SHM
                     self._note_client_shm(header["shm"])
@@ -379,6 +434,11 @@ class TransportServer(Service):
                         resp = {**resp, "shm": pending_shm.name,
                                 "shm_size": len(resp_body)}
                         resp_body = b""
+                if self._journal is not None:
+                    # group-commit boundary: every journaled record this
+                    # reply (or stream-ack batch) depends on must be in
+                    # the page cache before the peer can see the reply
+                    self._journal.flush()
                 self.metrics.inc(
                     "tx_bytes", float(send_frame(conn, resp, resp_body)))
         except (OSError, ValueError, RingError):
@@ -434,12 +494,21 @@ class TransportServer(Service):
             m = h.get("m")
             if m == "chan.put":
                 ok = self._channels[h["chan"]].put(decode_pytree(body))
+                if _tel is not None and h.get("tr") is not None:
+                    _tel.instant("server.apply", cat="transport",
+                                 trace=int(h["tr"]),
+                                 args={"chan": h["chan"]}, flow="step")
                 return {"ok": bool(ok)}, b""
             if m == "chan.put_many":
                 items = decode_pytree(body)
                 chan = self._channels[h["chan"]]
                 verdicts = [bool(v) for v in
                             self._apply_put(chan, items, body)]
+                if _tel is not None and h.get("tr") is not None:
+                    _tel.instant("server.apply", cat="transport",
+                                 trace=int(h["tr"]),
+                                 args={"chan": h["chan"],
+                                       "count": len(items)}, flow="step")
                 return {"ok": all(verdicts),
                         "verdicts": verdicts}, b""
             if m == "ring.open":
@@ -512,11 +581,50 @@ class TransportServer(Service):
                         acks = st.drain_acks()
                         acks[str(seq)] = st.acks.get(seq, [])
                         return {"ok": True, "dup": True, "acks": acks}, b""
-                    items = decode_pytree(body)
-                    chan = self._channels[h["chan"]]
-                    verdicts = [bool(v) for v in
-                                self._apply_put(chan, items, body)]
-                    st.record(seq, verdicts)
+                    if _fault is not None:
+                        _fault("server.stream_apply")
+                    # join the producer's trace: the frame header carries
+                    # its flush span's ids, so this apply slice lands on
+                    # the same trace id in the exported timeline
+                    apply_span = (
+                        _tel.span("server.apply", cat="transport",
+                                  trace=int(h["tr"]), parent=h.get("sp"),
+                                  args={"chan": h["chan"], "seq": seq,
+                                        "count": int(h.get("count", 0))},
+                                  flow="step")
+                        if _tel is not None and h.get("tr") is not None
+                        else contextlib.nullcontext())
+                    with apply_span:
+                        items = decode_pytree(body)
+                        chan = self._channels[h["chan"]]
+                        # a journaled channel fuses the dedup watermark
+                        # into the flush's own record (ONE append per
+                        # frame; items + watermark atomic by
+                        # construction); an unwrapped channel gets a
+                        # standalone watermark append INSIDE st.lock,
+                        # after the apply. Either way the remaining crash
+                        # window — applied, not acked — heals on the data
+                        # path: the producer replays the un-acked frame
+                        # and the recovered watermark dedups it
+                        # exactly-once
+                        meta = (None if self._journal is None else
+                                {"stream": h["stream"], "seq": seq,
+                                 "window": st.window,
+                                 "ack_every": st.ack_every})
+                        fused = (meta is not None
+                                 and hasattr(chan, "put_many_encoded"))
+                        verdicts = [bool(v) for v in (
+                            chan.put_many_encoded(items, body,
+                                                  stream_meta=meta)
+                            if fused
+                            else self._apply_put(chan, items, body))]
+                        st.record(seq, verdicts)
+                        if meta is not None and not fused:
+                            self._journal.append(
+                                "stream", dict(meta, chan=h["chan"],
+                                               verdicts=verdicts))
+                    if _fault is not None:
+                        _fault("server.stream_applied")
                     acks = (st.drain_acks()
                             if len(st.pending_acks) >= st.ack_every
                             else None)
@@ -577,9 +685,23 @@ class TransportServer(Service):
                 self._store.publish(decode_pytree(body, copy=True),
                                     h["version"])
                 return {"ok": True}, b""
-            if m in ("infer.open", "infer.submit", "infer.result",
-                     "trace.dump"):
-                return {"err": f"{m}: the endpoint {_A6B}"}, b""
+            if m in ("infer.open", "infer.submit", "infer.result"):
+                if self._infer is None:
+                    return {"err": "this server hosts no inference "
+                                   "plane"}, b""
+                if m == "infer.open":
+                    return dict(self._infer.handle_open(h)), b""
+                if m == "infer.submit":
+                    self.metrics.inc("infer_submits")
+                    return dict(self._infer.handle_submit(h, body)), b""
+                resp, rbody = self._infer.handle_result(h)
+                if rbody:
+                    # rides the generic reply data plane: want_ring pushes
+                    # the encoded result list through the connection's
+                    # ring, want_shm through a per-message segment
+                    self.metrics.inc("infer_results",
+                                     float(resp.get("count", 0)))
+                return dict(resp), rbody
             if m == "worker.hello":
                 if self._token and h.get("token") != self._token:
                     self.metrics.inc("auth_failures")
@@ -594,8 +716,15 @@ class TransportServer(Service):
                     return {"err": f"unknown worker {h['worker']!r}"}, b""
                 incarnation = int(h.get("incarnation", 0))
                 report = h.get("report", {})
-                if isinstance(report, dict):
-                    report.pop("trace", None)     # a traced child's spans
+                # child-process trace buffers ride the report; fold them
+                # into this process's collector so one trace.dump sees
+                # the whole process tree
+                trace_events = (report.pop("trace", None)
+                                if isinstance(report, dict) else None)
+                if _tel is not None and trace_events:
+                    _tel.extend_foreign(trace_events)
+                    self.metrics.inc("trace_events_folded",
+                                     float(len(trace_events)))
                 host.apply_report(report, incarnation=incarnation)
                 # per-incarnation stop verdict: a superseded or
                 # budget-exhausted incarnation is told to exit even while
@@ -605,16 +734,31 @@ class TransportServer(Service):
                         else host.stop_requested)
                 return {"stop": bool(stop)}, b""
             if m == "server.stats":
+                # counters snapshot + journal state: a chaos harness can
+                # assert monotonicity across a server replacement
                 snap = self.metrics.snapshot()
                 stats = dict(snap.get("counters", {}))
                 stats.update(snap.get("gauges", {}))
+                if self._journal is not None:
+                    stats.update(self._journal.stats())
                 return {"ok": True, "stats": stats}, b""
             if m == "metrics.snapshot":
-                # the server's own registry (the reference serves its
-                # telemetry sink's sample here when one is set: A6b)
+                # remote scrape of the whole registry: the orchestrator
+                # points snapshot_provider at its TelemetrySink sample
+                if self.snapshot_provider is not None:
+                    return {"ok": True,
+                            "sample": dict(self.snapshot_provider())}, b""
                 return {"ok": True, "sample": {
                     "services": {self.name: self.metrics.snapshot()},
                     "health": {self.name: self.health()}}}, b""
+            if m == "trace.dump":
+                # every buffered span this process holds — including
+                # child-process events folded from worker.report payloads
+                if _tel is None:
+                    return {"ok": True, "enabled": False, "events": []}, b""
+                return {"ok": True, "enabled": True,
+                        "events": _tel.drain(
+                            clear=bool(h.get("clear", True)))}, b""
             if m == "ping":
                 return {"ok": True}, b""
             return {"err": f"unknown method {m!r}"}, b""
@@ -623,15 +767,77 @@ class TransportServer(Service):
 
     @staticmethod
     def _apply_put(chan: Any, items: List[Any], body: bytes) -> List[Any]:
-        """Route a decoded flush into ``chan``."""
+        """Route a decoded flush into ``chan``, handing a journaled
+        channel the wire encoding too so it never re-encodes."""
+        pme = getattr(chan, "put_many_encoded", None)
+        if pme is not None:
+            return pme(items, body)
         put_many = getattr(chan, "put_many", None)
         if put_many is not None:
             return put_many(items)
         return [chan.put(x) for x in items]
 
-    def resume_from_journal(self):
-        """The reference adopts a journal directory's state here."""
-        raise NotImplementedError(f"resume_from_journal {_A6B}")
+    # -- resilience: journal capture + recovery -------------------------------
+    def _stream_records(self) -> List[Tuple[str, Dict, bytes]]:
+        """Snapshot every stream's dedup state (compaction capture; safe
+        to run post-rotation — watermarks are idempotent on replay)."""
+        with self._streams_lock:
+            states = list(self._streams.items())
+        records: List[Tuple[str, Dict, bytes]] = []
+        for (chan, stream), st in states:
+            with st.lock:
+                records.append((
+                    "stream_snap",
+                    {"chan": chan, "stream": stream, "seq": st.last_seq,
+                     "acks": {str(k): v for k, v in st.acks.items()},
+                     "window": st.window, "ack_every": st.ack_every}, b""))
+        return records
+
+    def resume_from_journal(self, device="cuda"):
+        """Adopt the journal directory's recovered state: refill hosted
+        channels (without re-journaling — the items are already in the
+        chain this journal continues), rebuild stream dedup watermarks so
+        replayed in-flight windows dedup exactly-once, and republish the
+        newest recovered weights, decoded onto ``device`` (the card
+        unless the caller asks for the CPU). Call after ``add_channel`` /
+        ``set_store`` and before ``start()``. Returns the
+        :class:`~repro_torch.runtime.transport.resilience.RecoveredState`."""
+        if self._journal is None:
+            raise RuntimeError("resume_from_journal needs a journal")
+        device = resolve_device(device)
+        state = recover(self._journal.directory)
+        restored_items = 0
+        for name, chan in self._channels.items():
+            items = state.channel_items(name)
+            if not items:
+                continue
+            restore = getattr(chan, "restore", None)
+            if restore is not None:
+                restored_items += restore(items)
+            else:
+                restored_items += sum(bool(chan.put(x)) for x in items)
+        for (cname, sid), s in state.streams.items():
+            st = self._stream_state(cname, sid, s["window"], s["ack_every"])
+            with st.lock:
+                if s["last_seq"] > st.last_seq:
+                    st.last_seq = s["last_seq"]
+                for k in sorted(s["acks"]):
+                    st.acks[k] = s["acks"][k]
+        if self._store is not None and state.store is not None:
+            if state.store[0] > self._store.version():
+                # re-publish through the store so acquirers see it AND
+                # the attached on_publish hook re-journals it
+                params, version = state.store_params(device)
+                self._store.publish(params, version)
+        self.metrics.inc("journal_recovered_items", float(restored_items))
+        self.metrics.inc("journal_recovered_streams",
+                         float(len(state.streams)))
+        if state.torn_tail:
+            self.metrics.inc("journal_torn_tail")
+        # immediate compaction: the recovered state becomes one snapshot,
+        # so the next crash replays it instead of the whole dead chain
+        self._journal.compact(self._stream_records)
+        return state
 
     def _weights_plan(self, payload: Any, version: int):
         """The encode plan of ``version`` (its leaves on the host), made

@@ -29,8 +29,10 @@ so ``metrics()["services"]`` keeps ONE coherent, monotonically-counting
 entry per worker across restarts, and stale-incarnation reports are
 dropped (and answered with ``stop``) rather than corrupting the bridge.
 
-The reference's elastic autoscaler (``ElasticPolicy``,
-``Supervisor.enable_elastic``) is not ported yet: ROADMAP A6b.
+On top of the restart machine, an elastic autoscaler
+(:class:`ElasticPolicy`, :meth:`Supervisor.enable_elastic`) adds and
+drains worker slots from caller-supplied signals, as the reference's
+does.
 """
 from __future__ import annotations
 
@@ -44,8 +46,9 @@ from repro_torch.runtime.service import Service
 from repro_torch.runtime.transport.remote import (RemoteWorkerSpec,
                                                   _child_entry, spec_to_wire)
 
-__all__ = ["RestartPolicy", "WorkerEndpoint", "SpawnedEndpoint",
-           "ConnectedEndpoint", "SupervisedWorker", "Supervisor"]
+__all__ = ["RestartPolicy", "ElasticPolicy", "WorkerEndpoint",
+           "SpawnedEndpoint", "ConnectedEndpoint", "SupervisedWorker",
+           "Supervisor"]
 
 RESTART_MODES = ("never", "on_failure")
 
@@ -78,6 +81,66 @@ class RestartPolicy:
         return min(self.backoff_initial_s
                    * self.backoff_factor ** max(restarts_in_window - 1, 0),
                    self.backoff_max_s)
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPolicy:
+    """Declarative autoscaling for the supervisor's worker fleet.
+
+    Signals come from a caller-supplied ``signal_fn`` (the orchestrator
+    derives them from state already in ``metrics()["services"]``):
+
+      * ``depth_frac`` — experience-queue depth / capacity. Near 0 the
+        trainer is starving (pops outrun puts): scale UP. Above
+        ``scale_down_depth`` producers are outrunning the trainer and
+        extra workers only feed the drop policy: scale DOWN.
+      * ``staleness`` — published weight version minus the oldest policy
+        version any live worker is acting on. Beyond ``staleness_cap``
+        the fleet is too large for the publish cadence (more workers =
+        more off-policy lag), so it also gates scale-up and forces
+        scale-down.
+      * ``infer_queue_depth`` / ``infer_window_fill`` — inference-tier
+        pressure (the pool's own autoscaling gauges). A tier at/above
+        ``tier_queue_hot`` requests or ``tier_fill_hot`` window fill is
+        *saturated*: demand is outrunning serving capacity, so the
+        autoscaler treats it as an additional scale-up trigger and never
+        scales down while it persists (either threshold at 0 disables
+        that signal).
+
+    Scale-down never kills a worker mid-flight: the slot enters a
+    ``draining`` phase — the stop flag rides the next report reply, the
+    worker body stops its services and ``close()``s its channels (which
+    flushes the PutStream window), and only when the endpoint observes
+    the exit (or ``drain_timeout_s`` lapses) is the slot retired. A
+    drained slot is NOT a failure: no restart budget is charged and no
+    error is surfaced to schedulers."""
+
+    min_workers: int = 1
+    max_workers: int = 4
+    interval_s: float = 2.0        # cooldown between scaling decisions
+    scale_up_depth: float = 0.25   # depth_frac at/below → scale up
+    scale_down_depth: float = 0.9  # depth_frac at/above → scale down
+    staleness_cap: float = 0.0     # 0 = staleness signal unused
+    tier_queue_hot: float = 0.0    # infer queue depth at/above → saturated
+    tier_fill_hot: float = 0.0     # infer window fill at/above → saturated
+    drain_timeout_s: float = 10.0
+
+    def __post_init__(self):
+        if self.min_workers < 0 or self.max_workers < self.min_workers:
+            raise ValueError(
+                f"need 0 <= min_workers <= max_workers, got "
+                f"{self.min_workers}..{self.max_workers}")
+        if not 0.0 <= self.scale_up_depth < self.scale_down_depth <= 1.0:
+            raise ValueError(
+                f"need 0 <= scale_up_depth < scale_down_depth <= 1, got "
+                f"{self.scale_up_depth}/{self.scale_down_depth}")
+        if self.tier_queue_hot < 0:
+            raise ValueError(
+                f"tier_queue_hot must be >= 0, got {self.tier_queue_hot}")
+        if not 0.0 <= self.tier_fill_hot <= 1.0:
+            raise ValueError(
+                f"tier_fill_hot must be in [0, 1], got "
+                f"{self.tier_fill_hot}")
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +278,13 @@ class SupervisedWorker(Service):
         self.lock = threading.Lock()
         self.incarnation = 0               # 0 = nothing launched yet
         self.restarts = 0
-        self.phase = "new"         # new|up|waiting|backoff|done
+        self.phase = "new"         # new|up|waiting|backoff|draining|done
         self.relaunch_at = 0.0
+        # elastic bookkeeping: True for slots the autoscaler added (only
+        # those are eligible for scale-down), drain_deadline bounds how
+        # long a draining worker may take to flush and exit
+        self.elastic = False
+        self.drain_deadline = 0.0
         self.restart_times: List[float] = []
         self._stop_remote = False
         self._remote_error: Optional[str] = None
@@ -318,6 +386,14 @@ class Supervisor(Service):
         self.policy = policy
         self.poll_s = poll_s
         self.slots: List[SupervisedWorker] = []
+        # elastic autoscaling (enable_elastic arms it)
+        self.elastic: Optional[ElasticPolicy] = None
+        self._spec_factory = None
+        self._signal_fn = None
+        self._elastic_mode = "spawn"
+        self._register = None
+        self._elastic_seq = 0
+        self._last_scale_t = 0.0
         server.set_hello_handler(self.handle_hello)
 
     # -- slot construction ----------------------------------------------------
@@ -346,10 +422,24 @@ class Supervisor(Service):
         self.slots.append(slot)
         return slot
 
-    def enable_elastic(self, *args, **kwargs) -> None:
-        """The reference arms its elastic autoscaler here."""
-        raise NotImplementedError(
-            "the elastic autoscaler is not ported yet: ROADMAP A6b")
+    # -- elastic autoscaling ---------------------------------------------------
+    def enable_elastic(self, policy: ElasticPolicy, spec_factory,
+                       signal_fn, *, mode: str = "spawn",
+                       register=None) -> None:
+        """Arm the autoscaler. ``spec_factory(seq)`` builds the spec for a
+        new elastic worker; ``signal_fn()`` returns the current signal
+        dict (``depth_frac``, ``staleness`` — see
+        :class:`ElasticPolicy`); ``register(slot)`` lets the caller put a
+        freshly added slot on its service registry. ``mode`` picks the
+        endpoint lifecycle for scale-ups (``spawn`` or ``connect``)."""
+        if mode not in ("spawn", "connect"):
+            raise ValueError(f"elastic mode {mode!r} not in "
+                             f"('spawn', 'connect')")
+        self.elastic = policy
+        self._spec_factory = spec_factory
+        self._signal_fn = signal_fn
+        self._elastic_mode = mode
+        self._register = register
 
     # -- the worker.hello responder (runs on a server connection thread) ------
     def handle_hello(self, header: Dict) -> Dict:
@@ -401,8 +491,14 @@ class Supervisor(Service):
                 self._launch(slot)
         while not self._stop.is_set():
             now = time.monotonic()
-            for slot in self.slots:
-                self._step(slot, now)
+            # list(): _elastic_step appends from this same thread
+            for slot in list(self.slots):
+                if slot.phase == "draining":
+                    self._drain_step(slot, now)
+                else:
+                    self._step(slot, now)
+            if self.elastic is not None:
+                self._elastic_step(now)
             time.sleep(self.poll_s)
 
     def _launch(self, slot: SupervisedWorker) -> None:
@@ -481,8 +577,118 @@ class Supervisor(Service):
         slot.mark_failed(RuntimeError(
             f"remote worker {slot.name!r} {reason}"))
 
+    # -- elastic steps (supervision thread only) ------------------------------
+    def _elastic_step(self, now: float) -> None:
+        pol = self.elastic
+        if now - self._last_scale_t < pol.interval_s:
+            return
+        try:
+            signals = dict(self._signal_fn() or {})
+        except Exception:              # noqa: BLE001 — a flaky signal
+            return                     # source must not kill supervision
+        active = [s for s in self.slots
+                  if s.error is None and s.phase != "done"]
+        draining = any(s.phase == "draining" for s in active)
+        n = len(active)
+        depth = float(signals.get("depth_frac", 0.5))
+        staleness = float(signals.get("staleness", 0.0))
+        stale = pol.staleness_cap > 0 and staleness > pol.staleness_cap
+        infer_depth = float(signals.get("infer_queue_depth", 0.0))
+        infer_fill = float(signals.get("infer_window_fill", 0.0))
+        # inference-tier pressure: a hot tier means demand is outrunning
+        # serving capacity — an extra scale-up trigger that also pins the
+        # fleet (no scale-down) while the pressure lasts
+        saturated = ((pol.tier_queue_hot > 0
+                      and infer_depth >= pol.tier_queue_hot)
+                     or (pol.tier_fill_hot > 0
+                         and infer_fill >= pol.tier_fill_hot))
+        self.metrics.set_gauge("elastic_workers", float(n))
+        self.metrics.set_gauge("elastic_depth_frac", depth)
+        self.metrics.set_gauge("elastic_staleness", staleness)
+        self.metrics.set_gauge("elastic_infer_queue_depth", infer_depth)
+        self.metrics.set_gauge("elastic_infer_window_fill", infer_fill)
+        self.metrics.set_gauge("elastic_tier_saturated", float(saturated))
+        if draining:
+            return                     # one transition at a time
+        if (n < pol.max_workers and not stale
+                and (depth <= pol.scale_up_depth or saturated)):
+            self._scale_up()
+            self._last_scale_t = now
+        elif (n > pol.min_workers and not saturated
+              and (depth >= pol.scale_down_depth or stale)):
+            self._scale_down(now)
+            self._last_scale_t = now
+
+    def _elastic_add(self, spec: RemoteWorkerSpec) -> SupervisedWorker:
+        """Build the slot for a scale-up (seam: tests override this to
+        inject fake endpoints)."""
+        if self._elastic_mode == "connect":
+            return self.add_connected(spec)
+        return self.add_spawned(spec)
+
+    def _scale_up(self) -> None:
+        self._elastic_seq += 1
+        spec = self._spec_factory(self._elastic_seq)
+        slot = self._elastic_add(spec)
+        slot.elastic = True
+        if self._register is not None:
+            try:
+                self._register(slot)
+            except Exception:          # noqa: BLE001 — registry hiccup
+                pass                   # must not kill supervision
+        with slot.lock:
+            self._launch(slot)
+        self.metrics.inc("scale_ups")
+
+    def _scale_down(self, now: float) -> None:
+        """Begin draining the NEWEST live elastic slot (LIFO keeps the
+        stable core fleet untouched). The worker is told to stop via its
+        next report reply; it flushes its in-flight segments in close()
+        and exits — _drain_step retires the slot when the exit lands."""
+        for slot in reversed(self.slots):
+            if not slot.elastic or slot.error is not None:
+                continue
+            if slot.phase not in ("up", "waiting"):
+                continue
+            with slot.lock:
+                slot.phase = "draining"
+                slot._stop_remote = True
+                slot.drain_deadline = now + self.elastic.drain_timeout_s
+            self.metrics.inc("scale_downs")
+            return
+
+    def _drain_step(self, slot: SupervisedWorker, now: float) -> None:
+        """Retire a draining slot once its worker exited (or the drain
+        deadline passed). Deliberately NOT a failure: no budget charge,
+        no error — schedulers keep running."""
+        with slot.lock:
+            if slot.phase != "draining":
+                return
+            endpoint = slot.endpoint
+            exited = (endpoint.failure() is not None
+                      or (endpoint.mode == "connect"
+                          and endpoint.attached_incarnation is None))
+            if not exited and now < slot.drain_deadline:
+                return
+            endpoint.shutdown(timeout=1.0)
+            slot.phase = "done"
+        self.metrics.inc("drains_completed")
+
+    #: how long ``on_stop`` waits for the spawned workers to exit (a
+    #: straggler is reaped by its slot's ``join``)
+    STOP_GRACE_S = 15.0
+
     def on_stop(self) -> None:
         # raise every slot's cooperative stop flag even if the registry
         # stops the supervisor first — no slot may be relaunched past here
         for slot in self.slots:
             slot._stop_remote = True
+        # each spawned worker learns of the stop from its next report
+        # reply; the orchestrator stops the supervisor after the trainer
+        # and before the server and inference pool, so the workers' last
+        # flushes, requests and reports are still answered while they exit
+        deadline = time.monotonic() + self.STOP_GRACE_S
+        for slot in list(self.slots):
+            proc = slot.process
+            if proc is not None:
+                proc.join(timeout=max(deadline - time.monotonic(), 0.0))

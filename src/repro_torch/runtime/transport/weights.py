@@ -30,9 +30,16 @@ as ``weight_acquire_s`` and kept as the gauge
 ``weight_lane_hits``, one that fell back to the socket body
 ``weight_lane_fallbacks`` (also ``lane_hits`` and ``lane_fallbacks`` on
 the object).
+
+With ``REPRO_TRACE`` set, an acquire records ``weights.wire_acquire`` once
+its tree is on the device (after the synchronize above), and a publish
+records the span ``weights.wire_publish`` around its request, as the
+reference does.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Any, Optional, Tuple
 
@@ -44,7 +51,15 @@ from repro_torch.runtime.transport.channel import (ChannelClosed, WireClient,
 from repro_torch.runtime.transport.codec import decode_pytree, encode_pytree
 from repro_torch.runtime.transport.ring import RingError, ShmRing
 
+# Import-gated tracing (see transport.faults for the idiom).
+if os.environ.get("REPRO_TRACE"):
+    from repro_torch.runtime import telemetry as _tel
+else:  # pragma: no cover - default path
+    _tel = None
+
 __all__ = ["WeightStoreTransport"]
+
+_NULL_CTX = contextlib.nullcontext()
 
 
 class WeightStoreTransport:
@@ -180,10 +195,19 @@ class WeightStoreTransport:
                 if not resp.get("ok"):
                     return None
                 version = int(resp["version"])
+        nbytes = (int(resp["lane_nbytes"]) if params is not None
+                  else len(body or b""))
         if params is None:
             params = decode_pytree(body, device=self.device)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        if _tel is not None:
+            # wire leg of the policy-lag flow (version is the flow id):
+            # a remote pool's fetch shows up on the publish timeline
+            _tel.instant("weights.wire_acquire", cat="weights",
+                         trace=version,
+                         args={"version": version, "bytes": nbytes},
+                         flow="step")
         if self.metrics is not None:
             dt = time.monotonic() - t0
             self.metrics.observe("weight_acquire_s", dt)
@@ -201,8 +225,13 @@ class WeightStoreTransport:
 
     def publish(self, params: Any, version: int) -> None:
         blob = encode_pytree(params)
-        self._client.request({"m": "store.publish", "version": version},
-                             blob, oob=self._use_shm)
+        with (_tel.span("weights.wire_publish", cat="weights",
+                        trace=int(version),
+                        args={"version": int(version),
+                              "bytes": len(blob)}, flow="start")
+              if _tel is not None else _NULL_CTX):
+            self._client.request({"m": "store.publish", "version": version},
+                                 blob, oob=self._use_shm)
         self._state = (-float("inf"), *self._state[1:])
 
     # -- lifecycle ------------------------------------------------------------

@@ -14,11 +14,15 @@ autoregressive compounding error, packaged per eq. 3, and pushed to B_img.
 The reference runs the horizon as one jitted ``lax.scan``; here it is a
 Python loop over the same body. On a CUDA device each step's action sampling
 runs the policy's prefill (K1) and its decode tokens (K2); the world model's
-own products are plain PyTorch. The reference's import-gated ``REPRO_TRACE``
-span comes with the observability slice (ROADMAP A6).
+own products are plain PyTorch. With ``REPRO_TRACE`` set, the worker
+records a ``wm.imagine`` span around each imagination call, as the
+reference does; the call returns numpy results, so the span closes after
+the device work.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Dict, Optional
 
@@ -32,6 +36,14 @@ from repro_torch.models.transformer import FRONTEND_DIM
 from repro_torch.runtime.service import Service
 from repro_torch.wm import denoiser as dn
 from repro_torch.wm import reward as rw
+
+# Import-gated tracing (see transport.faults for the idiom).
+if os.environ.get("REPRO_TRACE"):
+    from repro_torch.runtime import telemetry as _tel
+else:  # pragma: no cover - default path
+    _tel = None
+
+_NULL_CTX = contextlib.nullcontext()
 
 SUCCESS_THRESHOLD = 0.9
 
@@ -169,10 +181,18 @@ class ImaginationWorker(Service):
             tokens = np.stack([s["tokens"] for s in seeds])
             frames = np.stack([s["frame"] for s in seeds]).astype(np.float32)
             steps = np.array([s["step"] for s in seeds], np.int32)
-            with self.metrics.timer("busy_s"):
-                out = self._fn(params, self.wm_params_ref["obs"],
-                               self.wm_params_ref["reward"], self._gen,
-                               tokens, frames, steps)
+            # the imagined batch's trace id: the policy version it was
+            # dreamed under, so wm.imagine lines up with the
+            # weights.publish flow on the Perfetto timeline
+            with (_tel.span("wm.imagine", cat="wm", trace=int(version),
+                            args={"batch": self.batch,
+                                  "horizon": self.wm.imagine_horizon,
+                                  "version": int(version)}, flow="step")
+                  if _tel is not None else _NULL_CTX):
+                with self.metrics.timer("busy_s"):
+                    out = self._fn(params, self.wm_params_ref["obs"],
+                                   self.wm_params_ref["reward"], self._gen,
+                                   tokens, frames, steps)
             self.img_channel.put_many([{
                 "obs_tokens": out["obs_tokens"][i],
                 "frames": out["frames"][i],

@@ -1,6 +1,8 @@
 """Rules the port keeps: it imports neither JAX, nor the JAX package, nor
 ``ml_dtypes`` (checked after importing every module, the transport and
-checkpoint ones included), its copied configs equal the reference's, the
+checkpoint ones included; the telemetry module and the fault injector
+load only when ``REPRO_TRACE`` / ``REPRO_FAULTS`` ask), its copied configs
+equal the reference's, the
 bridge carries bf16 bit-exactly, its entry points default to CUDA, and its
 inference service serves on the CPU across a drain swap."""
 import dataclasses
@@ -61,6 +63,10 @@ missing = [m for m in ("repro_torch.kernels.ops",
                        "repro_torch.runtime.transport.weights",
                        "repro_torch.runtime.transport.remote",
                        "repro_torch.runtime.transport.supervision",
+                       "repro_torch.runtime.transport.resilience",
+                       "repro_torch.runtime.transport.inference_plane",
+                       "repro_torch.runtime.transport.faults",
+                       "repro_torch.runtime.telemetry",
                        "repro_torch.launch",
                        "repro_torch.launch.worker")
            if m not in sys.modules]
@@ -72,6 +78,34 @@ sys.exit(1 if bad or missing else 0)
 def test_port_imports_no_jax_and_no_reference_package():
     env = {"PATH": "/usr/bin:/bin", "HOME": str(ROOT)}
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+_IMPORT_UNGATED = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, "src")
+import repro_torch
+gated = ("repro_torch.runtime.telemetry",
+         "repro_torch.runtime.transport.faults")
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    if m.name not in gated:
+        importlib.import_module(m.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted(m for m in gated if m in sys.modules))
+sys.exit(1 if any(m in sys.modules for m in gated) else 0)
+"""
+
+
+def test_trace_and_fault_modules_load_only_when_gated():
+    """With ``REPRO_TRACE`` and ``REPRO_FAULTS`` unset, importing every
+    other port module (and ``chip_smoke.py``) loads neither the telemetry
+    module nor the fault injector: each hook site is one ``is None``
+    check."""
+    env = {"PATH": "/usr/bin:/bin", "HOME": str(ROOT)}
+    res = subprocess.run([sys.executable, "-c", _IMPORT_UNGATED], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -176,9 +210,23 @@ def test_entry_points_default_to_cuda(tmp_path):
                                 WorldModelTrainer)
     from repro_torch.wm.imagination import make_imagine_fn
     from repro_torch.wm.wm_system import pretrain_world_model
-    from repro_torch.runtime.transport import WeightStoreTransport
+    from repro_torch.runtime.transport import (InferencePlaneService,
+                                               WeightStoreTransport)
     from repro_torch.data import checkpoint
+    from repro_torch.runtime.transport import (TransportJournal,
+                                               TransportServer)
+    from repro_torch.runtime.transport.codec import encode_pytree
+    from repro_torch.runtime.transport.resilience import RecoveredState
     checkpoint.save(str(tmp_path), 1, {"w": np.zeros(2, np.float32)})
+
+    def resume_journal():
+        server = TransportServer(
+            journal=TransportJournal(tmp_path / "journal")).start()
+        try:
+            server.resume_from_journal()
+        finally:
+            server.stop()
+            server.join()
     cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"), layers=2,
                            d_model=64)
     ssm_cfg = tconfigs.reduced(tconfigs.get_config("mamba2-2.7b"), layers=2,
@@ -230,8 +278,13 @@ def test_entry_points_default_to_cuda(tmp_path):
             {"obs": {"w": np.zeros(2, np.float32)},
              "reward": {"w": np.zeros(2, np.float32)}}),
         lambda: WeightStoreTransport(("127.0.0.1", 1)),
+        lambda: InferencePlaneService(cfg, tconfigs.RuntimeConfig(),
+                                      ("127.0.0.1", 1)),
         lambda: checkpoint.restore(str(tmp_path), {"w": torch.empty(
             2, device="meta")}),
+        resume_journal,
+        lambda: RecoveredState(store=(1, encode_pytree(
+            {"w": np.zeros(2, np.float32)}))).store_params(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

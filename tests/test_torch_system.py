@@ -3,7 +3,9 @@ on the CPU: ``TrainerWorker.train_on_batch`` against the JAX package's
 from the same state and batch, the published snapshot that must not alias
 the live params, the ``Prefetcher`` against the reference's, and
 ``AcceRLSystem.run_async`` / ``run_sync`` / ``evaluate`` end to end on
-reduced deepseek-7b, with the branches not ported yet raising; the
+reduced deepseek-7b, the transport's journal, inference plane,
+elastic autoscaler and telemetry sink built (the pipelined executor still
+raising); the
 trainer's checkpoints restoring its state (one more step from the
 restored state bit for bit that from the live one), and ``run_async``
 with a rollout worker in a spawned child process and with one dialed in
@@ -322,27 +324,55 @@ def test_a_failing_step_stops_every_service():
     assert all(s.status == "stopped" for s in system.registry.all())
 
 
-def test_unported_branches_raise(monkeypatch):
+def test_unported_branches_raise(monkeypatch, tmp_path):
+    """The branches that raised before the rest of the transport was
+    ported now build their pieces: the elastic autoscaler armed on the
+    supervisor, the telemetry sink registered (by config and by
+    ``REPRO_TRACE``) and serving ``metrics.snapshot``, the journal
+    wrapping the experience channel and hooked to the store, the host
+    inference plane's broker on the server. ``rt.pipeline`` still raises
+    naming A7, and ``run_wm`` without a world model raises."""
+    from repro_torch.runtime.telemetry import TelemetrySink
+    from repro_torch.runtime.transport import (ElasticPolicy,
+                                               InferenceBroker,
+                                               JournaledChannel)
     tc = tconfigs
+    cfg = tc.reduced(tc.get_config("deepseek-7b"), layers=2, d_model=64)
     base = tc.RuntimeConfig(num_rollout_workers=1)
     tcfg = tc.base.TransportConfig
-    for rt, item in (
-            (dataclasses.replace(base, transport=tcfg(
-                supervision=tc.base.SupervisionConfig(max_workers=2))),
-             "A6b"),
-            (dataclasses.replace(base, telemetry=tc.base.TelemetryConfig(
-                sink=True)), "A6b"),
-            (dataclasses.replace(base, transport=tcfg(
-                remote_rollout_workers=1, journal_dir="journal")), "A6b"),
-            (dataclasses.replace(base, transport=tcfg(
-                remote_rollout_workers=1, inference_plane="host")), "A6b"),
-            (dataclasses.replace(base, pipeline=True), "A7")):
-        cfg = tc.reduced(tc.get_config("deepseek-7b"), layers=2, d_model=64)
-        with pytest.raises(NotImplementedError, match=item):
-            AcceRLSystem(cfg, tc.RLConfig(), rt, device="cpu")
+
+    def build(rt):
+        system = AcceRLSystem(cfg, tc.RLConfig(), rt, device="cpu")
+        system.registry.stop_all()          # never started: close sockets
+        if system.journal is not None:
+            system.journal.close()
+        return system
+
+    system = build(dataclasses.replace(base, transport=tcfg(
+        remote_rollout_workers=1,
+        supervision=tc.base.SupervisionConfig(max_workers=2))))
+    assert isinstance(system.supervisor.elastic, ElasticPolicy)
+    assert system.supervisor.elastic.max_workers == 2
+    system = build(dataclasses.replace(base, telemetry=tc.base.TelemetryConfig(
+        sink=True)))
+    assert isinstance(system.telemetry_sink, TelemetrySink)
+    sample = system.telemetry_sink.sample()
+    assert set(sample) == {"t", "services", "health"}
+    assert "trainer" in sample["services"]
+    system = build(dataclasses.replace(base, transport=tcfg(
+        remote_rollout_workers=1, journal_dir=str(tmp_path / "journal"))))
+    assert isinstance(system.experience, JournaledChannel)
+    assert system.store.on_publish == system.journal.note_publish
+    system = build(dataclasses.replace(base, transport=tcfg(
+        remote_rollout_workers=1, inference_plane="host")))
+    assert isinstance(system.transport_server._infer, InferenceBroker)
+    assert system.remote_hosts[0].spec.inference == "remote"
+    with pytest.raises(NotImplementedError, match="A7"):
+        AcceRLSystem(cfg, tc.RLConfig(),
+                     dataclasses.replace(base, pipeline=True), device="cpu")
     monkeypatch.setenv("REPRO_TRACE", "1")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        AcceRLSystem(cfg, tc.RLConfig(), base, device="cpu")
+    system = build(base)
+    assert isinstance(system.telemetry_sink, TelemetrySink)
     monkeypatch.delenv("REPRO_TRACE")
     with pytest.raises(RuntimeError, match="needs a world model"):
         _system(tc).run_wm(train_steps=1)

@@ -7,8 +7,8 @@ and read by the other; port channels (``SocketChannel``,
 and the reverse, segments equal field for field; the weight wire both
 ways and through the port's lane; ``RestartPolicy``'s decisions on
 scripted exit sequences; the serialized and disk weight transports bit
-for bit; and the fault/trace gates raising. Exact: every comparison is of
-bytes, bits or values."""
+for bit; and the fault/trace gates arming the transport. Exact: every
+comparison is of bytes, bits or values."""
 import ml_dtypes
 import numpy as np
 import pytest
@@ -354,23 +354,51 @@ def test_serialized_and_disk_transports_round_trip_bit_for_bit(tmp_path):
     assert isinstance(got["w"], np.ndarray)
 
 
+_GATED = r"""
+import sys
+sys.path.insert(0, "src")
+from repro_torch.runtime.transport import channel, ring, server
+gated = {"REPRO_FAULTS": ("repro_torch.runtime.transport.faults",
+                          "_fault", (channel, ring, server)),
+         "REPRO_TRACE": ("repro_torch.runtime.telemetry", "_tel",
+                         (channel, server))}[sys.argv[1]]
+mod, attr, users = gated
+assert mod in sys.modules, sorted(sys.modules)
+assert all(getattr(u, attr) is not None for u in users)
+"""
+
+
 @pytest.mark.parametrize("var", ["REPRO_FAULTS", "REPRO_TRACE"])
 def test_unported_gates_raise(monkeypatch, var):
-    monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        ttr.TransportServer()
-    with pytest.raises(NotImplementedError, match="A6b"):
-        ttr.ShmRing.create(1 << 10)
-    monkeypatch.delenv(var)
+    """The gates that raised before the rest of the transport was ported
+    now arm it: with ``var`` set, a fresh process's channel, ring and
+    server bind their fault points (``REPRO_FAULTS``) or trace hooks
+    (``REPRO_TRACE``). A server takes an inference plane, refuses
+    ``resume_from_journal`` without a journal, and a server without a
+    plane answers ``infer.*`` with an error."""
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = {"PATH": "/usr/bin:/bin", "HOME": str(root),
+           var: ("delay@never:nth=999999" if var == "REPRO_FAULTS"
+                 else "1")}
+    res = subprocess.run([sys.executable, "-c", _GATED, var], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=60)
+    assert res.returncode == 0, res.stdout + res.stderr
+    from repro_torch.runtime.transport import InferenceBroker
     server = ttr.TransportServer().start()
     try:
-        with pytest.raises(NotImplementedError, match="A6b"):
-            server.set_inference(object())
-        with pytest.raises(NotImplementedError, match="A6b"):
+        broker = InferenceBroker(object())
+        server.set_inference(broker)
+        assert server._infer is broker
+        server.set_inference(None)
+        with pytest.raises(RuntimeError, match="needs a journal"):
             server.resume_from_journal()
         client = ttr.WireClient(server.address)
-        with pytest.raises(ttr.TransportError, match="A6b"):
-            client.request({"m": "infer.open"})
+        with pytest.raises(ttr.TransportError, match="no inference plane"):
+            client.request({"m": "infer.open", "client": "w0"})
         client.close()
     finally:
         server.stop()

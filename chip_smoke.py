@@ -108,19 +108,33 @@ Phases, each printing one line of its numbers:
      updated, the WM trees an imagination call may hold never written;
      step 1 replayed on the plain route. One ``[wm]`` line with imagined
      steps per second, the real-env-steps-per-update ratio and the rest.
- 12. checkpoint: a ``TrainerWorker`` on openvla-7b at full width and 2
+ 12. pipeline (``[pipeline]`` lines): the pipelined executor
+     (``rt.pipeline``) on the same model: (a) a pipelined ``TrainerWorker``
+     beside a default one from the same seed, three rounds on the training
+     phase's batch, each bit for bit the fused step (params, moments,
+     Welford state, metrics) with K1/K3/K4 launched as a fused step
+     launches them; the bubble, peak micro-grad and live bytes and each
+     round's wall printed; (b) ``run_wm`` with ``rt.pipeline``: phase 11's
+     checks with every WM cycle run by the executor's WM stream and the
+     ``pipeline_*`` metrics; (c) the disjoint layout ``(cuda:0, cpu)``:
+     the policy on the card, a toy WM stage on the CPU, the round bit for
+     bit the fused step; (d) the 16 x 16 plan's bytes per device for
+     full-depth openvla-7b and dbrx-132b (a fake process group in a
+     subprocess, trees on ``meta``) beside the card's 80 GB, and the
+     one-rank NCCL mesh.
+ 13. checkpoint: a ``TrainerWorker`` on openvla-7b at full width and 2
      layers (bf16 params, f32 moments) saves its state after each of two
      steps into the temp dir (the reference's ``.npz`` format); the
      state restored onto a meta template equals the live one bit for bit,
      and one more step from each is bit for bit the same. Save and restore
      seconds and GB/s.
- 13. sync (the paper's Table 8): publish -> acquire of the system phase's
+ 14. sync (the paper's Table 8): publish -> acquire of the system phase's
      weights (3.59 GB of bf16) through the direct, serialized and disk
      transports and over the wire (``WeightStoreTransport`` against a
      ``TransportServer`` through the weight lane, every acquire read from
      the lane), five times each, the acquired tree on the card bit for
      bit; median, p90 and GB/s.
- 14. remote: ``AcceRLSystem`` on the system phase's model with two
+ 15. remote: ``AcceRLSystem`` on the system phase's model with two
      spawned rollout children (four envs each, serving on the card:
      their own CUDA contexts) and no local rollout worker, segments over
      the ring data plane and weights over the lane, ``run_async`` for 3
@@ -130,7 +144,7 @@ Phases, each printing one line of its numbers:
      found, step 1 replayed on the plain route; the children's K1/K2
      launches counted in each child and bridged through its reports, at
      least what its batches need.
- 15. system on granite-moe-1b-a400m at MOE_SYSTEM_LAYERS of its 24
+ 16. system on granite-moe-1b-a400m at MOE_SYSTEM_LAYERS of its 24
      layers (cut from full depth to keep the run in its time limit):
      ``run_async`` for 3
      steps, held as phase 10 holds openvla-7b's, with the moe metrics at
@@ -139,7 +153,7 @@ Phases, each printing one line of its numbers:
      copy at capacity_factor E/k, where no assignment drops: there step 1
      is replayed on the plain route, and that KL held as phase 10 holds
      it.
- 16. plane (after phase 14, whose figures its first line prints beside
+ 17. plane (after phase 15, whose figures its first line prints beside
      its own; ``[plane]``, ``[telemetry]``, ``[journal]`` lines): the
      remote phase's two children with no policy and no CUDA context
      (``inference_plane``): (a) host mode, the parent's pool serving
@@ -237,6 +251,12 @@ PLANE_SMI_PERIOD_S = 1.0          # the plane phase's CUDA-holder sampling
 WM_STEPS = 3
 WM_IMAGINATION_BATCH = 16
 WM_PARITY_TOL = 1e-4
+# The pipeline phase: rounds of the pipelined trainer (openvla-7b at
+# TRAIN_LAYERS, each held bit for bit against the fused step), and the
+# device memory of one H100 that the 16 x 16 plan's bytes are printed
+# beside.
+PIPE_ROUNDS = 3
+H100_BYTES = 80e9
 # Step 1 on the kernel route vs the plain route: the largest relative
 # difference over the loss, every metric and the grad norm (denominators
 # floored at ROUTE_FLOOR). Measured 4.8e-4 on the H100 (adv_mean_raw; the
@@ -3201,20 +3221,14 @@ def phase_wm(dev, smi, counters):
     was rebound. Step 1 (an imagined batch dreamed under v0) is replayed
     on the plain route (``_replay_step1``, which also holds the KL of v0
     against the imagined μ and ω's mean near 1), ω mean above 0.5. One
-    ``[wm]`` line. Returns the run's launches by name."""
-    import gc
-    import torch
+    ``[wm]`` line (``_wm_run``). Returns the run's launches by name and the
+    pre-trained world model."""
     from repro_torch.configs import WMConfig
-    import numpy as np
-    from repro_torch.wm import AcceRLWMSystem
-    from repro_torch.wm.imagination import make_imagine_fn
     from repro_torch.wm.wm_system import pretrain_world_model
     t_phase = time.perf_counter()
-    cfg, rl, rt = _system_config()
+    cfg, _, rt = _system_config()
     wm = WMConfig()
-    n_l, ga, a, h = (TRAIN_LAYERS, rl.grad_accum, cfg.action_dim,
-                     wm.imagine_horizon)
-    ib = WM_IMAGINATION_BATCH
+    a = cfg.action_dim
 
     t0 = time.perf_counter()
     pre = pretrain_world_model(
@@ -3237,6 +3251,31 @@ def phase_wm(dev, smi, counters):
           f"noise: worst leaf at {worst:.3e} of the bar ({worst_key}; bar "
           f"{WM_PARITY_TOL} of each leaf's largest value)")
 
+    launches = _wm_run(dev, smi, counters, pre, rt, "[wm] run_wm")
+    print(f"[wm] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, pre
+
+
+def _wm_run(dev, smi, counters, pre, rt, tag, *, alone=True, check=None):
+    """``AcceRLWMSystem`` on ``_system_config``'s model with runtime config
+    ``rt``, the pre-trained world model ``pre``, one imagination worker
+    (batch WM_IMAGINATION_BATCH) and the pure-imagination diet: ``run_wm``
+    for WM_STEPS steps held as ``phase_wm`` says, then (``alone``) one
+    imagination call timed with the services stopped, one ``tag`` line,
+    and step 1 replayed on the plain route. ``check(system, m)``: more
+    checks on the run (raising), returning text for the line. Returns the
+    run's launches by name."""
+    import gc
+    import torch
+    from repro_torch.configs import WMConfig
+    import numpy as np
+    from repro_torch.wm import AcceRLWMSystem
+    from repro_torch.wm.imagination import make_imagine_fn
+    cfg, rl, _ = _system_config()
+    wm = WMConfig()
+    n_l, ga, a, h = (TRAIN_LAYERS, rl.grad_accum, cfg.action_dim,
+                     wm.imagine_horizon)
+    ib = WM_IMAGINATION_BATCH
     held = {}
 
     def go(system):
@@ -3254,7 +3293,7 @@ def phase_wm(dev, smi, counters):
         return f
 
     system, m, launches, peak, facts = _run_system(
-        dev, counters, "[wm] run_wm",
+        dev, counters, tag,
         lambda: AcceRLWMSystem(
             cfg, rl, rt, wm, wm_params=pre, num_imagination_workers=1,
             imagination_batch=ib, suite="spatial", segment_horizon=8,
@@ -3281,26 +3320,32 @@ def phase_wm(dev, smi, counters):
         problems.append(f"bound WM trees written {changed} or M_obs not "
                         f"rebound")
     if problems:
-        raise AssertionError(f"[wm] run_wm: {problems}")
-    # one imagination call alone, the services stopped: on v0, the WM
-    # trees as the run left them, seeds from B_wm (median of 3 after one)
-    fn = make_imagine_fn(cfg, wm, device=dev)
-    seeds = system.frame_channel.sample(ib)
-    args = (np.stack([x["tokens"] for x in seeds]),
-            np.stack([x["frame"] for x in seeds]).astype(np.float32),
-            np.array([x["step"] for x in seeds], np.int32))
-    gen = torch.Generator(device=dev).manual_seed(1)
-    alone = []
-    for _ in range(4):
-        t0 = time.perf_counter()
-        fn(facts["v0"], system.wm_params["obs"], system.wm_params["reward"],
-           gen, *args)
-        alone.append(time.perf_counter() - t0)
+        raise AssertionError(f"{tag}: {problems}")
+    extra = "" if check is None else check(system, m)
+    alone_note = ""
+    if alone:
+        # one imagination call alone, the services stopped: on v0, the WM
+        # trees as the run left them, seeds from B_wm (median of 3 after
+        # one)
+        fn = make_imagine_fn(cfg, wm, device=dev)
+        seeds = system.frame_channel.sample(ib)
+        args = (np.stack([x["tokens"] for x in seeds]),
+                np.stack([x["frame"] for x in seeds]).astype(np.float32),
+                np.array([x["step"] for x in seeds], np.int32))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            fn(facts["v0"], system.wm_params["obs"],
+               system.wm_params["reward"], gen, *args)
+            times.append(time.perf_counter() - t0)
+        alone_note = (f" (alone, the services stopped: "
+                      f"{statistics.median(times[1:]) * 1e3:.1f} ms)")
     wmt = system.wm_trainer
     n_upd = sum(m["wm_updates"].values())
     lat = service.metrics.series("batch_s")
     wall = m["wall_s"]
-    print(f"[wm] run_wm: {cfg.name} x {n_l} layers, 8 rollout workers, "
+    print(f"{tag}: {cfg.name} x {n_l} layers, 8 rollout workers, "
           f"inference batch 8, 1 imagination worker of batch {ib}, horizon "
           f"{h}, {wm.diffusion_steps} Euler steps, mix_real_fraction "
           f"{m['mix_real_fraction']}, grad_accum {ga} | system built in "
@@ -3308,8 +3353,7 @@ def phase_wm(dev, smi, counters):
           f"steps | imagined steps {m['imagined_steps']} "
           f"({m['imagined_steps'] / wall:.2f}/s) in {calls} calls, busy "
           f"{imaginer.metrics.counter('busy_s') / max(calls, 1) * 1e3:.1f} "
-          f"ms a call (alone, the services stopped: "
-          f"{statistics.median(alone[1:]) * 1e3:.1f} ms) | real env steps "
+          f"ms a call{alone_note} | real env steps "
           f"{m['real_env_steps']}, sps_env "
           f"{m['sps_env']:.2f} | real_env_steps / img_train_steps "
           f"{m['real_env_steps'] / max(m['img_train_steps'], 1):.2f} | "
@@ -3329,20 +3373,263 @@ def phase_wm(dev, smi, counters):
           f"{statistics.median(lat) * 1e3:.1f} ms | swaps "
           f"{service.weight_swaps}, published {facts['published']} | "
           f"launches {launches} | max_memory_allocated {peak / 1e9:.2f} GB "
-          f"| {smi}")
+          f"{extra}| {smi}")
     first, log0 = trainer.first_batch, trainer.metrics_log[0]
     params0 = facts.pop("v0")
-    del system, facts, held, pre, src, trainer, service, imaginer, wmt
+    del system, facts, held, src, trainer, service, imaginer, wmt
     gc.collect()
     torch.cuda.empty_cache()
-    _replay_step1(dev, cfg, rl, "[wm] run_wm", params0, first, log0)
+    _replay_step1(dev, cfg, rl, tag, params0, first, log0)
     if not log0["omega_mean"] > 0.5:
-        raise AssertionError(f"[wm] step 1 omega mean {log0['omega_mean']}")
+        raise AssertionError(f"{tag} step 1 omega mean {log0['omega_mean']}")
     del params0, first
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[wm] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+_PLAN_SCRIPT = r"""
+import json, sys
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import get_config
+from repro_torch.core.train_step import init_train_state
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.optim import zero
+from repro_torch.tree import tree_leaves
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=256)
+mesh = make_production_mesh(device="cpu")
+out = {}
+for arch in sys.argv[1:]:
+    cfg = get_config(arch)
+    st = init_train_state(cfg, 0, mesh=mesh, device="meta")
+    local = lambda t: t.to_local().numel() * t.to_local().element_size()
+    params = sum(local(t) for t in tree_leaves(st.params))
+    count = sum(t.numel() for t in tree_leaves(st.params))
+    out[arch] = {"count": count,
+                 "state": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(st.params)) + 8 * count,
+                 "params": params,
+                 "moments": zero.realized_moments_bytes_per_device(st.opt),
+                 "analytic": zero.moments_bytes_per_device(count, 16, True)}
+print(json.dumps(out))
+"""
+
+
+@contextlib.contextmanager
+def _wm_cycle_threads():
+    """The names of the threads that run ``WorldModelTrainer.train_cycle``
+    while the block runs (the class's method wrapped in the script
+    only)."""
+    import threading
+    from repro_torch.wm.wm_system import WorldModelTrainer
+    cycle = WorldModelTrainer.train_cycle
+    names = []
+
+    def traced(self, batch):
+        names.append(threading.current_thread().name)
+        return cycle(self, batch)
+    WorldModelTrainer.train_cycle = traced
+    try:
+        yield names
+    finally:
+        WorldModelTrainer.train_cycle = cycle
+
+
+def phase_pipeline(dev, smi, counting, pre):
+    """The pipelined executor (``rt.pipeline``) on the card, after
+    ``phase_wm`` (whose pre-trained world model ``pre`` it reuses):
+
+    (a) a ``TrainerWorker`` with ``rt.pipeline`` on openvla-7b at full
+        width and TRAIN_LAYERS layers (grad_accum 2) beside a default one
+        from the same seed, PIPE_ROUNDS rounds on the training phase's
+        batch: each round bit for bit the fused step (params, moments,
+        Welford state, metrics), K1/K3/K4 launched as a fused step
+        launches them; per round the bubble, the peak micro-grad and live
+        bytes and the round's wall;
+    (b) ``AcceRLWMSystem.run_wm`` with ``rt.pipeline`` (``_wm_run``): the
+        world-model phase's checks, every WM cycle run by the executor's
+        WM stream (one a round, none by the WM trainer's own loop), the
+        ``pipeline_*`` keys in ``metrics()``;
+    (c) the disjoint layout ``(cuda:0, cpu)``: the policy on the card, a
+        toy WM stage on the CPU; the round bit for bit the fused step, the
+        state returned on the card;
+    (d) the 16 x 16 plan's bytes per device for full-depth openvla-7b and
+        dbrx-132b (a fake process group of 256 ranks in a subprocess, the
+        trees on ``meta``) beside the card's 80 GB, and the one-rank NCCL
+        mesh of ``make_local_mesh``.
+
+    Returns the launches by path."""
+    import dataclasses
+    import gc
+    import threading
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import RLConfig, RuntimeConfig, get_config
+    from repro_torch.data.checkpoint import _flatten_with_path
+    from repro_torch.data.trajectory import dummy_batch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime import (FifoChannel, TrainerWorker,
+                                     VersionedWeightStore)
+    from repro_torch.runtime import pipeline_exec as pe
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = dataclasses.replace(get_config("openvla-7b"),
+                              num_layers=TRAIN_LAYERS)
+    rl = RLConfig(warmup_steps=1, lr_policy=1e-4)
+    ga = rl.grad_accum
+    per_round = counting(flash_attention=TRAIN_LAYERS * ga,
+                         flash_attention_bwd=TRAIN_LAYERS * ga,
+                         fused_policy_loss_fwd=ga, fused_policy_loss_bwd=ga)
+    want = {k: n for k, (_, n) in per_round.items()}
+    np_batch = dummy_batch(8, 8, 12, cfg.action_dim, cfg.vocab_size,
+                           cfg.action_vocab_size,
+                           num_prefix=cfg.num_prefix_tokens, seed=0)
+
+    # (a) pipelined rounds against the fused step
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    workers = {mode: TrainerWorker(cfg, rl, RuntimeConfig(pipeline=mode),
+                                   FifoChannel(1), VersionedWeightStore(),
+                                   batch_episodes=8, seed=0, device=dev)
+               for mode in (True, False)}
+    pipe, fused = workers[True], workers[False]
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if not _bits_equal(pipe.state, fused.state):
+        raise AssertionError("[pipeline] the two workers' seed-0 states "
+                             "differ")
+    totals = dict.fromkeys(per_round, 0)
+    for r in range(PIPE_ROUNDS):
+        t0 = time.perf_counter()
+        m_fused = fused.train_on_batch(np_batch)
+        t_fused = time.perf_counter() - t0
+        for fn, _ in per_round.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        m_pipe = pipe.train_on_batch(np_batch)
+        t_pipe = time.perf_counter() - t0
+        got = {k: fn.launches for k, (fn, _) in per_round.items()}
+        totals = {k: totals[k] + got[k] for k in totals}
+        ex = pipe.pipeline
+        print(f"[pipeline] (a) round {r + 1}: bubble "
+              f"{ {k: round(v, 4) for k, v in ex.last_bubble.items()} }, "
+              f"peak_grad_bytes {ex.peak_grad_bytes / 1e9:.3f} GB, "
+              f"peak_live_bytes "
+              f"{ {k: round(v / 1e9, 3) for k, v in ex.peak_live_bytes.items()} }"
+              f" GB | wall {t_pipe * 1e3:.1f} ms (the fused step "
+              f"{t_fused * 1e3:.1f} ms), both with a publish | launches "
+              f"{ {k: v for k, v in got.items() if want[k]} } | loss "
+              f"{m_pipe['loss']:.6f}")
+        if got != want:
+            raise AssertionError(f"[pipeline] round {r + 1}: launches {got}"
+                                 f", a fused step makes {want}")
+        if m_pipe != m_fused or not _bits_equal(pipe.state, fused.state):
+            raise AssertionError(f"[pipeline] round {r + 1} differs from "
+                                 f"the fused step: {m_pipe} vs {m_fused}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[pipeline] (a) {cfg.name} x {TRAIN_LAYERS} layers, grad_accum "
+          f"{ga}, {PIPE_ROUNDS} rounds each bit for bit the fused step "
+          f"(params, moments, Welford state, metrics) | both workers built "
+          f"in {t_build:.1f} s | mesh {pipe._mesh} | program "
+          f"{[s.name for s in pipe.program.stages]} | K1/K3/K4 launches "
+          f"{ {k: v for k, v in totals.items() if v} } | "
+          f"max_memory_allocated {peak / 1e9:.2f} GB (two states) | {smi}")
+
+    # (c) the disjoint layout: policy on the card, a toy WM stage on the CPU
+    layout = pe.SubmeshLayout.split((dev, torch.device("cpu")))
+    seen = []
+    ex = pe.PipelineExecutor(pipe.program, layout)
+    ex.set_wm_stage(lambda b: seen.append(
+        (threading.current_thread().name, torch.ones(len(b)).device)),
+        lambda: [0, 1, 2])
+    try:
+        for fn, _ in per_round.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        s_pipe, m_pipe, _ = ex.run_round(pipe.state, np_batch)
+        t_round = time.perf_counter() - t0
+        got = {k: fn.launches for k, (fn, _) in per_round.items()}
+        bubble = dict(ex.last_bubble)
+    finally:
+        ex.close()
+    totals = {k: totals[k] + got[k] for k in totals}
+    s_fused, m_fused = fused._step_fn(fused.state, np_batch)
+    on_card = all(x.device == dev for _, x in _flatten_with_path(s_pipe))
+    print(f"[pipeline] (c) disjoint layout (policy {layout.policy.devices}, "
+          f"wm {layout.wm.devices}): round wall {t_round * 1e3:.1f} ms, "
+          f"bubble { {k: round(v, 4) for k, v in bubble.items()} } | WM "
+          f"stage ran on {seen} | state on the card {on_card} | launches "
+          f"{ {k: v for k, v in got.items() if want[k]} }")
+    if (got != want or not layout.disjoint or not on_card
+            or seen != [("pipeline-wm", torch.device("cpu"))]
+            or not _bits_equal(s_pipe, s_fused)
+            or {k: v.item() for k, v in m_pipe.items()}
+            != {k: v.item() for k, v in m_fused.items()}):
+        raise AssertionError("[pipeline] (c) the disjoint layout's round")
+    out["openvla-7b pipelined training"] = totals
+    for w in workers.values():
+        w.stop()
+    del workers, pipe, fused, s_pipe, s_fused, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the world model as the second stage, in the system
+    _, _, rt = _system_config()
+
+    def check(system, m):
+        wmt, ex = system.wm_trainer, system.trainer.pipeline
+        keys = ("pipeline_rounds", "pipeline_bubble",
+                "pipeline_peak_grad_bytes")
+        interval = wmt.wm.obs_train_interval
+        if (not all(k in m for k in keys) or not wmt.driven
+                or set(threads) != {"pipeline-wm"}
+                or not 1 <= wmt.cycles == len(threads) <= ex.rounds
+                or m["wm_updates"]["obs"] != wmt.cycles // interval):
+            raise AssertionError(
+                f"[pipeline] run_wm: {[(k, m.get(k)) for k in keys]}, "
+                f"driven {wmt.driven}, WM cycles {wmt.cycles} on "
+                f"{sorted(set(threads))}, rounds {ex.rounds}, updates "
+                f"{m['wm_updates']}")
+        return (f"| pipeline_rounds {m['pipeline_rounds']}, "
+                f"pipeline_bubble "
+                f"{ {k: round(v, 4) for k, v in m['pipeline_bubble'].items()} }"
+                f", pipeline_peak_grad_bytes "
+                f"{m['pipeline_peak_grad_bytes'] / 1e9:.3f} GB | WM cycles "
+                f"{wmt.cycles}, every one on the executor's WM stream ")
+    with _wm_cycle_threads() as threads:
+        out["openvla-7b world model, pipelined"] = _wm_run(
+            dev, smi, counting(), pre, dataclasses.replace(rt, pipeline=True),
+            "[pipeline] (b) run_wm", alone=False, check=check)
+
+    # (d) the 16 x 16 plan's bytes per device, and the local mesh
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", _PLAN_SCRIPT, "openvla-7b",
+                          "dbrx-132b"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode:
+        raise AssertionError(f"[pipeline] (d) {res.stdout}{res.stderr}")
+    plan = json.loads(res.stdout.strip().splitlines()[-1])
+    for arch, f in plan.items():
+        total = f["params"] + f["moments"]
+        print(f"[pipeline] (d) {arch} at full depth ({f['count'] / 1e9:.3f}"
+              f" B parameters, params + f32 moments {f['state'] / 1e9:.1f} "
+              f"GB) on "
+              f"the 16 x 16 plan (fake group of 256, meta): per device params "
+              f"{f['params'] / 1e9:.3f} GB, moments {f['moments'] / 1e9:.3f} "
+              f"GB, total {total / 1e9:.3f} GB beside the H100's "
+              f"{H100_BYTES / 1e9:.0f} GB (moments with pure ZeRO over data "
+              f"alone: {f['analytic'] / 1e9:.3f} GB) | "
+              f"{time.perf_counter() - t0:.1f} s")
+    mesh = make_local_mesh()
+    print(f"[pipeline] (d) make_local_mesh(): {mesh} over backend "
+          f"{dist.get_backend()}, world {dist.get_world_size()}")
+    dist.destroy_process_group()
+    print(f"[pipeline] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _bits_equal(a, b) -> bool:
@@ -4575,8 +4862,12 @@ def main() -> int:
                                       async_keys=inproc_keys).items():
         by_path[f"openvla-7b system, {run}"] = launches
     # the world-model mode: imagination on the policy, the WM trainer
-    by_path["openvla-7b world model, run_wm"] = phase_wm(dev, smi,
-                                                         counting())
+    by_path["openvla-7b world model, run_wm"], pre = phase_wm(dev, smi,
+                                                              counting())
+    # the pipelined executor: rounds against the fused step, the WM
+    # trainer as its second stage, a disjoint layout, the 16 x 16 plan
+    by_path.update(phase_pipeline(dev, smi, counting, pre))
+    del pre
     # checkpoints, the weight transports, and rollout workers in their
     # own processes serving on the card
     phase_checkpoint(dev, smi)

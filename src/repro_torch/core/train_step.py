@@ -42,7 +42,9 @@ from repro_torch.models.policy import (
     policy_forward,
     policy_forward_hidden,
 )
-from repro_torch.optim import adamw
+from repro_torch.launch.mesh import num_chips
+from repro_torch.optim import adamw, zero
+from repro_torch.sharding import rules
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
 
@@ -53,14 +55,27 @@ class TrainState(NamedTuple):
     version: torch.Tensor           # i32 — published-policy version counter
 
 
-def init_train_state(cfg: ModelConfig, seed: int = 0, *,
+def init_train_state(cfg: ModelConfig, seed: int = 0, *, mesh=None,
                      device="cuda") -> TrainState:
-    """Random policy params from ``seed`` on ``device``, zero AdamW
-    moments and an empty Welford state. (The reference's ZeRO-2 ``mesh``
-    placement is queue A7 of the port.)"""
+    """Random policy params from ``seed`` on ``device`` (``"meta"`` for a
+    tree that costs no memory), zero AdamW moments and an empty Welford
+    state.
+
+    With ``mesh`` (a ``DeviceMesh`` carrying a ``data`` axis) of more than
+    one device, the params are placed as DTensors under
+    ``sharding.rules.param_specs`` and the f32 Adam moments under
+    ``optim.zero.shard_opt_state`` — ZeRO-2: parameters stay replicated
+    over ``data`` while each moment tensor's largest divisible axis is
+    sharded over it (paper §3.1). On a one-device mesh this is a no-op, as
+    in the reference."""
     dev = resolve_device(device)
     params = init_policy_params(cfg, seed, device=dev)
-    return TrainState(params=params, opt=adamw.init(params),
+    opt = adamw.init(params)
+    if mesh is not None and num_chips(mesh) > 1:
+        pspec = rules.param_specs(cfg, params, mesh)
+        params = rules.place_tree(params, mesh, pspec)
+        opt = zero.shard_opt_state(opt, mesh, param_specs=pspec)
+    return TrainState(params=params, opt=opt,
                       adv_norm=advnorm.init_adv_state(dev),
                       version=torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -212,8 +227,10 @@ def microbatch_grads(params, micro: TrajectoryBatch,
                      rl: RLConfig, remat: bool = False):
     """Grads (in each param's dtype; zeros where a leaf gets none) and
     (metrics, packed adv stats) for one micro-batch against frozen
-    params (eq. 7)."""
-    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    params (eq. 7). Params placed as DTensors enter the forward as their
+    full value (``rules.full_tensor``)."""
+    live = tree_map(
+        lambda p: rules.full_tensor(p).detach().requires_grad_(True), params)
     leaves = [x for _, x in tree_leaves_with_path(live)]
     with torch.enable_grad():
         total, aux = loss_fn(live, micro, adv_state, cfg, rl, remat=remat)

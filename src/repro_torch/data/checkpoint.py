@@ -28,9 +28,11 @@ Two differences from the reference:
 ``restore`` takes a template tree of tensors, or of ``device="meta"``
 tensors for a cold start (the counterpart of the reference's
 ``ShapeDtypeStruct`` template) and puts every leaf on ``device``, the
-card unless the caller asks for the CPU. The reference's ``shardings``
-(re-sharding onto a mesh) waits for the distribution slice, ROADMAP A7,
-and raises.
+card unless the caller asks for the CPU. With ``shardings`` (a tree of
+``sharding.rules.NamedSharding``, one for each leaf of the template) each
+restored leaf is then placed on its mesh as a DTensor, as the reference
+re-shards on load. A placed leaf of the state being saved is written as
+its full value.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.sharding.rules import full_tensor, place
 
 _SEP = "::"
 #: the host dtype of a bf16 leaf's bits (numpy has no bf16 without
@@ -59,6 +62,7 @@ def _to_host(t, staging: Optional[torch.Tensor] = None) -> np.ndarray:
     leaf) when given: the array then views it until the next leaf."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
+    t = full_tensor(t)
     if staging is not None and t.is_cuda:
         n = t.numel() * t.element_size()
         t = staging[:n].view(t.dtype).view(t.shape).copy_(t.detach())
@@ -193,18 +197,22 @@ def restore(directory: str, template: Any, *, step: Optional[int] = None,
     """Restore into the structure of ``template`` (tensors, or meta tensors
     for a cold start). A tensor leaf comes back in the template leaf's
     dtype (bf16 from its bits) on ``device``, the card unless the caller
-    asks for the CPU; a numpy leaf is cast as the reference casts it."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) re-shards onto a device mesh, which is "
-            "not ported yet: ROADMAP A7")
+    asks for the CPU; a numpy leaf is cast as the reference casts it.
+    ``shardings``: a tree of ``NamedSharding`` with ``template``'s leaves;
+    each leaf is placed under its own (``sharding.rules.place``)."""
     device = resolve_device(device)
     d = pathlib.Path(directory)
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {directory}")
+    n_leaves = sum(1 for _ in _flatten_with_path(template))
+    shards = ([sh for _, sh in _flatten_with_path(shardings)]
+              if shardings is not None else [None] * n_leaves)
+    if len(shards) != n_leaves:
+        raise ValueError(f"{len(shards)} shardings for {n_leaves} leaves")
     leaves: List[Any] = []
     with np.load(_path(d, step, ".npz")) as z:
-        for key, tmpl in _flatten_with_path(template):
-            leaves.append(_restore_leaf(key, z[key], tmpl, device))
+        for (key, tmpl), sh in zip(_flatten_with_path(template), shards):
+            leaf = _restore_leaf(key, z[key], tmpl, device)
+            leaves.append(leaf if sh is None else place(leaf, sh))
     return _unflatten(template, iter(leaves))

@@ -24,9 +24,10 @@ from repro_torch.models.value_head import value_head, value_head_init
 def init_policy_params(cfg: ModelConfig, seed: int = 0, *,
                        device="cuda") -> Params:
     """Random policy parameters drawn on ``device`` from a generator seeded
-    with ``seed``."""
+    with ``seed``. On ``"meta"`` the tree has shapes and dtypes only (no
+    draw is made)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     params = transformer.init_params(cfg, gen, device=dev)
     params["value_head"] = value_head_init(

@@ -11,6 +11,12 @@ The port updates ``params``, ``mu`` and ``nu`` IN PLACE, leaf by leaf, to
 keep one copy of the optimizer state on the card (the returned trees share
 those tensors); the reference returns fresh arrays. Temporaries live for
 one leaf at a time.
+
+Moments placed as DTensors over ``data`` (``optim/zero.py``, ZeRO-2) are
+updated slice by slice: each rank applies the same per-element arithmetic
+to its slice of the moments and of the parameter, then the parameter
+slices are all-gathered. The global grad norm is taken on the full f32
+grads before any slicing.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch.optim import zero
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -76,7 +84,7 @@ def update(grads, state: AdamWState, params,
     bc2 = 1.0 - torch.pow(b2, step.float())
     lr_tree = lr if isinstance(lr, dict) else tree_map(lambda _: lr, params)
 
-    def upd(p, g, m, v, lr_leaf):
+    def step_(p, g, m, v, lr_leaf):
         g = g.float()
         if scale is not None:
             g = g * scale
@@ -86,6 +94,12 @@ def update(grads, state: AdamWState, params,
         if weight_decay:
             delta = delta + weight_decay * p.float()
         p.copy_((p.float() - lr_leaf * delta).to(p.dtype))
+
+    def upd(p, g, m, v, lr_leaf):
+        if is_dtensor(m):
+            zero.update_leaf(step_, p, g, m, v, lr_leaf)
+        else:
+            step_(p, g, m, v, lr_leaf)
 
     tree_map(upd, params, grads, state.mu, state.nu, lr_tree)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu), norm

@@ -18,8 +18,9 @@ transports. ``runtime.transport`` carries the channels and the weights
 across the process boundary (remote rollout workers, the shared
 inference tier, the journal, the elastic autoscaler); ``telemetry.py`` is
 the span recorder and the telemetry sink (imported only where
-``REPRO_TRACE`` or a sink asks for it). The step program and the
-pipelined executor are not ported yet (ROADMAP A7).
+``REPRO_TRACE`` or a sink asks for it). ``step_program.py`` is the train
+step as named stages; ``pipeline_exec.py`` runs them from static schedules
+on the policy and world-model submeshes (``rt.pipeline``).
 """
 from repro_torch.runtime.weight_store import (  # noqa: F401
     DirectTransport,

@@ -14,8 +14,8 @@ additional services on the bus and may rewire the trainer's experience
 source.
 
 ``metrics()`` is rebuilt on the per-service metric registries, with the
-reference's keys (its ``pipeline_*`` keys come with the pipelined executor)
-and the full per-service snapshot under ``metrics()["services"]``.
+reference's keys (``pipeline_*`` when the trainer runs the pipelined
+executor) and the full per-service snapshot under ``metrics()["services"]``.
 
 The system runs on ``device`` (default ``"cuda"``; ``"cpu"`` runs the
 plain PyTorch route): the inference pool, the trainer and ``evaluate`` all
@@ -458,6 +458,11 @@ class AcceRLSystem:
             "sync_latency_s": self.store.last_sync_latency_s,
             "services": self.registry.snapshot(),
         }
+        if self.trainer.pipeline is not None:
+            pipe = self.trainer.pipeline
+            m["pipeline_rounds"] = pipe.rounds
+            m["pipeline_bubble"] = dict(pipe.last_bubble)
+            m["pipeline_peak_grad_bytes"] = pipe.peak_grad_bytes
         for attachment in self.attachments:
             attachment.extend_metrics(m, self)
         return m

@@ -16,13 +16,24 @@ modes, same train path:
     drives steps between rollout rounds, reproducing the synchronous
     baseline's cluster barrier without duplicating any training code.
 
-The step is ``core.train_step.make_train_step`` on one device (the
-reference builds it through its step program and a mesh). The port's
-AdamW updates the params in place, so every publish hands the store a
-detached clone of each leaf — a frozen snapshot per version, as the
-reference's immutable arrays are. The clone runs on the trainer thread's
-current stream; every thread of the runtime uses the default stream, so
-stream order makes the copy visible to the inference service.
+Both drive modes build the step through the same IR
+(``runtime/step_program.py``). By default the step is the program's fused
+form on ``device`` (``core.train_step.make_train_step``; no mesh: the
+reference's local mesh is a no-op on one device). With ``rt.pipeline``
+the trainer builds the layout over the local devices of ``device``'s
+type, the policy submesh's ``(n, 1)`` mesh, the program with that mesh,
+the state placed through it (a no-op on one device) and the
+:class:`~repro_torch.runtime.pipeline_exec.PipelineExecutor`;
+``train_on_batch`` then runs a round, and ``set_wm_stage`` attaches the
+world-model trainer as the second stage.
+
+The port's AdamW updates the params in place, so every publish hands the
+store a detached clone of each leaf (of its full value, for a placed
+leaf) — a frozen snapshot per version, as the reference's immutable
+arrays are. The clone runs on the trainer thread's current stream; every
+thread of the runtime uses the default stream (the pipelined policy
+stage's own stream has finished a round before it returns), so stream
+order makes the copy visible to the inference service.
 
 With ``checkpoint_dir`` and ``checkpoint_interval``, the trainer saves
 its whole state (``data/checkpoint.py``, the reference's format) every
@@ -32,9 +43,6 @@ does.
 With ``REPRO_TRACE`` set, collate records ``trainer.collate`` on each
 traced segment's trace (and the segment's age as ``batch_age_s``), and a
 publish records ``weights.publish`` once the store holds the snapshot.
-
-Not ported yet: the pipelined executor (``rt.pipeline``, ROADMAP A7, which
-raises).
 """
 from __future__ import annotations
 
@@ -48,13 +56,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RLConfig, RuntimeConfig
-from repro_torch.core.train_step import init_train_state, make_train_step
+from repro_torch.core.train_step import init_train_state
 from repro_torch.data import checkpoint
 from repro_torch.data.prefetch import Prefetcher
 from repro_torch.data.trajectory import TrajectoryBatch
 from repro_torch.models.transformer import FRONTEND_DIM
 from repro_torch.runtime.service import Service, ServiceState
 from repro_torch.runtime.weight_store import VersionedWeightStore
+from repro_torch.sharding.rules import full_tensor
 from repro_torch.tree import tree_map
 
 # Import-gated tracing (see transport.faults for the idiom).
@@ -119,16 +128,34 @@ class TrainerWorker(Service):
                  batch_episodes: int = 8, seed: int = 0,
                  checkpoint_dir=None, checkpoint_interval: int = 0,
                  name: str = "trainer", device="cuda"):
+        from repro_torch.runtime import step_program
         self.device = resolve_device(device)
-        if rt.pipeline:
-            raise NotImplementedError(
-                "rt.pipeline (the pipelined executor over disjoint device "
-                "sets) is not ported yet: ROADMAP A7")
         super().__init__(name, role="trainer")
         self.cfg, self.rl, self.rt = cfg, rl, rt
         self.store = store
-        self.state = init_train_state(cfg, seed, device=self.device)
-        self._step_fn = make_train_step(cfg, rl, device=self.device)
+        n_micro = rt.pipeline_microbatches or rl.grad_accum
+        if rt.pipeline:
+            from repro_torch.runtime import pipeline_exec
+            self._layout = pipeline_exec.SubmeshLayout.split(
+                pipeline_exec.local_devices(self.device),
+                wm_devices=rt.pipeline_wm_devices)
+            self.device = self._layout.policy.device
+            self._mesh = self._layout.policy.mesh()
+            self.program = step_program.build_train_step_program(
+                cfg, rl, n_micro=n_micro, mesh=self._mesh,
+                device=self.device)
+            self.state = init_train_state(cfg, seed, mesh=self._mesh,
+                                          device=self.device)
+            self.pipeline = pipeline_exec.PipelineExecutor(
+                self.program, self._layout, n_micro=n_micro,
+                metrics=self.metrics)
+            self._step_fn = None
+        else:
+            self.program = step_program.build_train_step_program(
+                cfg, rl, n_micro=n_micro, device=self.device)
+            self.state = init_train_state(cfg, seed, device=self.device)
+            self.pipeline = None
+            self._step_fn = self.program.fused(donate=True)
         self.rewire(source, batch_episodes)
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_interval = checkpoint_interval
@@ -180,7 +207,7 @@ class TrainerWorker(Service):
         shared state (the instant marks the store's commit on the host;
         the clone may still be running on the device)."""
         with torch.no_grad():
-            snapshot = tree_map(lambda p: p.detach().clone(),
+            snapshot = tree_map(lambda p: full_tensor(p).detach().clone(),
                                 self.state.params)
         self.store.publish(snapshot, version)
         if _tel is not None:
@@ -200,12 +227,21 @@ class TrainerWorker(Service):
         self.started_at = time.monotonic()
         self._publish(0)
 
+    def set_wm_stage(self, stage_fn, feed_fn, *, wm_micro: int = 1) -> None:
+        """Attach the world-model trainer as the second pipeline stage
+        (pipeline mode only — see WorldModelAttachment.bind)."""
+        if self.pipeline is None:
+            raise RuntimeError("set_wm_stage requires rt.pipeline")
+        self.pipeline.set_wm_stage(stage_fn, feed_fn, wm_micro=wm_micro)
+
     def stop(self) -> None:
         was_running = bool(self._threads)
         super().stop()
         if was_running:
             self.prefetcher.stop()
             self.join(timeout=10.0)
+        if self.pipeline is not None:
+            self.pipeline.close()
 
     # -- loop -------------------------------------------------------------------
     def _run(self) -> None:
@@ -225,7 +261,11 @@ class TrainerWorker(Service):
             lag = version - _host_float(batch.policy_version, "mean")
             self.metrics.record("policy_lag", lag)
             self.metrics.observe("policy_lag", lag)
-            self.state, metrics = self._step_fn(self.state, batch)
+            if self.pipeline is not None:
+                self.state, metrics, _ = self.pipeline.run_round(
+                    self.state, batch)
+            else:
+                self.state, metrics = self._step_fn(self.state, batch)
             steps = int(self.metrics.inc("steps"))
             self.metrics.inc("samples", _host_float(batch.mask, "sum"))
             if steps % self.rt.weight_sync_interval == 0:

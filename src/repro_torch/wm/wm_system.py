@@ -29,9 +29,9 @@ trajectories (1,000 offline trajectories in Fig. 4b).
 The port's AdamW updates in place, and the reference's WM trainer rebinds
 the shared entries to new trees after each update. So the WM trainer steps
 private copies and rebinds each shared entry to a detached clone after an
-update: a tree an imagination call has read is never written. The pipeline
-executor's drive of the WM trainer (``driven``) comes with the pipelined
-executor (ROADMAP A7).
+update: a tree an imagination call has read is never written. With
+``rt.pipeline`` the trainer's pipeline executor drives the WM trainer as
+its second stage (``driven``).
 """
 from __future__ import annotations
 
@@ -135,15 +135,15 @@ class WorldModelTrainer(Service):
 
     The updates run on private copies of the given trees and moments, and
     each rebind hands the dict a detached clone, so no tree that a reader
-    may hold is written in place (the port's AdamW updates in place)."""
+    may hold is written in place (the port's AdamW updates in place).
+
+    ``driven=True``: cycles come from an external driver (the pipeline
+    executor's WM stage calls ``train_cycle`` on ``sample_batch``'s
+    batches) and this service's own loop idles."""
 
     def __init__(self, wm: WMConfig, wm_params: Dict, opts: Dict,
                  frame_channel, *, batch: int = 32, seed: int = 0,
                  driven: bool = False, device="cuda"):
-        if driven:
-            raise NotImplementedError(
-                "the pipeline executor's WM stage (driven=True) is not "
-                "ported yet: ROADMAP A7")
         super().__init__("wm-trainer", role="wm")
         self.wm = wm
         self.device = resolve_device(device)
@@ -158,6 +158,7 @@ class WorldModelTrainer(Service):
         self.batch = batch
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed + 1234)
+        self.driven = driven
         self._cycle = 0
 
     @property
@@ -207,6 +208,9 @@ class WorldModelTrainer(Service):
 
     def _run(self) -> None:
         while not self._stop.is_set():
+            if self.driven:                     # pipeline-executor drive
+                self._stop.wait(0.05)
+                continue
             batch = self.sample_batch()
             if batch is None:
                 self._stop.wait(0.05)
@@ -279,9 +283,16 @@ class WorldModelAttachment:
         self.img_trainer = trainer
         system.img_trainer = trainer
 
+        # pipeline mode: the WM trainer becomes the second pipeline stage
+        # — the executor drives train_cycle beside the policy's
+        # micro-batches instead of the service's own loop
+        driven = rt.pipeline and trainer.pipeline is not None
         self.wm_trainer = system.registry.register(WorldModelTrainer(
             self.wm, self.wm_params, opts, system.frame_channel,
-            seed=seed, device=dev))
+            seed=seed, driven=driven, device=dev))
+        if driven:
+            trainer.set_wm_stage(self.wm_trainer.train_cycle,
+                                 self.wm_trainer.sample_batch)
         self.imaginers = [
             system.registry.register(ImaginationWorker(
                 i, cfg, self.wm, system.store, self.wm_params,

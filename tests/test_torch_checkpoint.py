@@ -130,9 +130,29 @@ def test_prune_latest_step_and_missing_directory(tmp_path):
                      "ckpt_0000000004.json", "ckpt_0000000004.npz"]
     assert tck.latest_step(str(tmp_path)) == 4
     assert jck.latest_step(str(tmp_path)) == 4
-    with pytest.raises(NotImplementedError, match="A7"):
-        tck.restore(str(tmp_path), state, shardings=object(),
-                    device="cpu")
+    # placed on a one-rank mesh: each leaf a DTensor holding the saved
+    # bits (params over "model", the rest replicated)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.rules import NamedSharding, P, is_dtensor
+    grouped = dist.is_initialized()
+    mesh = make_local_mesh(device="cpu")
+    try:
+        shardings = jax.tree.map(lambda x: NamedSharding(mesh, P()), state)
+        shardings = shardings._replace(params=jax.tree.map(
+            lambda x: NamedSharding(mesh, P(*([None] * (x.dim() - 1)),
+                                            "model")), state.params))
+        placed = tck.restore(str(tmp_path), state, device="cpu",
+                             shardings=shardings)
+        assert all(is_dtensor(x) for x in jax.tree.leaves(placed))
+        _assert_bits_equal(jax.tree.map(lambda x: x.to_local(), placed),
+                           state)
+        with pytest.raises(ValueError, match="shardings for"):
+            tck.restore(str(tmp_path), state, device="cpu",
+                        shardings=shardings.params)
+    finally:
+        if not grouped:
+            dist.destroy_process_group()
     with pytest.raises(ValueError, match="shape"):
         tck.restore(str(tmp_path), state._replace(
             version=torch.zeros(2, dtype=torch.int32)), device="cpu")

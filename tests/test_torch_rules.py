@@ -1,10 +1,10 @@
 """Rules the port keeps: it imports neither JAX, nor the JAX package, nor
-``ml_dtypes`` (checked after importing every module, the transport and
-checkpoint ones included; the telemetry module and the fault injector
-load only when ``REPRO_TRACE`` / ``REPRO_FAULTS`` ask), its copied configs
-equal the reference's, the
-bridge carries bf16 bit-exactly, its entry points default to CUDA, and its
-inference service serves on the CPU across a drain swap."""
+``ml_dtypes`` (checked after importing every module, the transport,
+checkpoint and distribution ones included; the telemetry module and the
+fault injector load only when ``REPRO_TRACE`` / ``REPRO_FAULTS`` ask), its
+copied configs equal the reference's, the bridge carries bf16 bit-exactly,
+its entry points default to CUDA, and its inference service serves on the
+CPU across a drain swap."""
 import dataclasses
 import pathlib
 import subprocess
@@ -68,7 +68,13 @@ missing = [m for m in ("repro_torch.kernels.ops",
                        "repro_torch.runtime.transport.faults",
                        "repro_torch.runtime.telemetry",
                        "repro_torch.launch",
-                       "repro_torch.launch.worker")
+                       "repro_torch.launch.worker",
+                       "repro_torch.launch.mesh",
+                       "repro_torch.sharding",
+                       "repro_torch.sharding.rules",
+                       "repro_torch.optim.zero",
+                       "repro_torch.runtime.step_program",
+                       "repro_torch.runtime.pipeline_exec")
            if m not in sys.modules]
 print(bad, missing)
 sys.exit(1 if bad or missing else 0)
@@ -217,6 +223,8 @@ def test_entry_points_default_to_cuda(tmp_path):
                                                TransportServer)
     from repro_torch.runtime.transport.codec import encode_pytree
     from repro_torch.runtime.transport.resilience import RecoveredState
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime.step_program import build_train_step_program
     checkpoint.save(str(tmp_path), 1, {"w": np.zeros(2, np.float32)})
 
     def resume_journal():
@@ -285,6 +293,11 @@ def test_entry_points_default_to_cuda(tmp_path):
         resume_journal,
         lambda: RecoveredState(store=(1, encode_pytree(
             {"w": np.zeros(2, np.float32)}))).store_params(),
+        lambda: make_local_mesh(),
+        lambda: TrainerWorker(cfg, tconfigs.RLConfig(),
+                              tconfigs.RuntimeConfig(pipeline=True),
+                              FifoChannel(1), VersionedWeightStore()),
+        lambda: build_train_step_program(cfg, tconfigs.RLConfig()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -330,8 +330,9 @@ def test_unported_branches_raise(monkeypatch, tmp_path):
     supervisor, the telemetry sink registered (by config and by
     ``REPRO_TRACE``) and serving ``metrics.snapshot``, the journal
     wrapping the experience channel and hooked to the store, the host
-    inference plane's broker on the server. ``rt.pipeline`` still raises
-    naming A7, and ``run_wm`` without a world model raises."""
+    inference plane's broker on the server. ``rt.pipeline`` builds the
+    pipelined trainer (its executor closed when the system stops), and
+    ``run_wm`` without a world model raises."""
     from repro_torch.runtime.telemetry import TelemetrySink
     from repro_torch.runtime.transport import (ElasticPolicy,
                                                InferenceBroker,
@@ -367,9 +368,16 @@ def test_unported_branches_raise(monkeypatch, tmp_path):
         remote_rollout_workers=1, inference_plane="host")))
     assert isinstance(system.transport_server._infer, InferenceBroker)
     assert system.remote_hosts[0].spec.inference == "remote"
-    with pytest.raises(NotImplementedError, match="A7"):
-        AcceRLSystem(cfg, tc.RLConfig(),
-                     dataclasses.replace(base, pipeline=True), device="cpu")
+    import torch.distributed as dist
+    from repro_torch.runtime.pipeline_exec import PipelineExecutor
+    grouped = dist.is_initialized()
+    system = build(dataclasses.replace(base, pipeline=True))
+    assert isinstance(system.trainer.pipeline, PipelineExecutor)
+    assert system.trainer.program.n_micro == tc.RLConfig().grad_accum
+    with pytest.raises(RuntimeError, match="closed"):
+        system.trainer.pipeline.run_round(system.trainer.state, None)
+    if not grouped:
+        dist.destroy_process_group()
     monkeypatch.setenv("REPRO_TRACE", "1")
     system = build(base)
     assert isinstance(system.telemetry_sink, TelemetrySink)

@@ -153,7 +153,7 @@ hot = ("runtime.rollout", "runtime.trainer", "runtime.experience",
        "runtime.inference", "runtime.transport.channel",
        "runtime.transport.server", "runtime.transport.remote",
        "runtime.transport.weights", "runtime.transport.inference_plane",
-       "wm.imagination")
+       "runtime.pipeline_exec", "wm.imagination")
 bound = {}
 for pkg in ("repro_torch", "repro"):
     for m in hot:

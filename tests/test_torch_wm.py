@@ -25,6 +25,7 @@ dones.
 import dataclasses
 import sys
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -546,9 +547,24 @@ def test_wm_trainer_under_concurrent_imagination_reads():
 
 
 def test_wm_trainer_driven_mode_names_its_roadmap_item():
-    wm = tconfigs.WMConfig(denoiser_d_model=32)
-    params, _ = _wm_trainer(wm)
+    """A driven WM trainer (the pipeline executor's WM stage) never trains
+    from its own loop, though B_wm holds transitions; the driver's
+    ``train_cycle`` does."""
+    wm = tconfigs.WMConfig(denoiser_d_model=32, obs_train_interval=1,
+                           reward_train_interval=1)
+    params, trainer = _wm_trainer(wm)
     opts = {k: adamw.init(v) for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match="A7"):
-        twm.WorldModelTrainer(wm, params, opts, RingChannel(4), driven=True,
-                              device="cpu")
+    driven = twm.WorldModelTrainer(wm, params, opts, trainer.frame_channel,
+                                   batch=4, driven=True, device="cpu")
+    assert driven.sample_batch() is not None
+    driven.start()
+    try:
+        time.sleep(0.3)
+        assert driven.cycles == 0 and driven.updates == {"obs": 0,
+                                                         "reward": 0}
+        driven.train_cycle(driven.sample_batch())
+        assert driven.updates == {"obs": 1, "reward": 1}
+    finally:
+        driven.stop()
+        driven.join(timeout=10.0)
+    assert driven.cycles == 1

@@ -164,11 +164,41 @@ Phases, each printing one line of its numbers:
      "on_failure"``) SIGKILLed mid-episode and respawned on its port,
      every request resolved once, its acquire seconds and the respawn's
      wall printed; (c) (a) again in a process of its own under
-     ``REPRO_TRACE=1``, its dump joining a child's ``rollout.put`` to the
+     ``REPRO_TRACE=1`` at 2 layers (TRACE_LAYERS, cut for the run's time
+     limit), its dump joining a child's ``rollout.put`` to the
      parent's ``server.apply`` and a version's publish, acquire and first
      action; (d) the journal at 2 layers: a crash-consistent copy taken
      mid-run and a new system with ``resume_journal``, the newest publish
      on the card bit for bit and the items as journaled.
+
+ 18. steps (last; ``[steps]`` lines): the step programs of
+     ``repro_torch.launch.steps`` at the production shapes, on openvla-7b
+     at full width (bf16, random weights from a seed). Kernels: K1 (+LSE)
+     and K3 at train_4k's micro-batch (B8 x 4352 positions; the plain
+     versions a batch row at a time), K1 at prefill_32k's B2 x 33,024
+     (against the blockwise route's plain version), K2 at decode_32k's
+     32,768-slot cache (B2) and long_500k's 8,192 window, K4 at N 32,760,
+     each timed beside its plain version, its bound and the library's
+     call. (a) ``seq_train_step`` at train_4k's sequence on TRAIN_LAYERS
+     layers, the global batch cut to 16 (``choose_accum``: 2): step 1 on
+     live behaviour log-probs held against the plain route (metrics, and
+     gradients per leaf and layer), an f32 copy on 2 sequences the
+     witness; three steps on the kernel route (K1, K3 and K4 launches on
+     every layer and micro-batch), a fourth traced, replayed on the plain
+     route; wall, tokens/s and model_flops / (wall x 989e12), peak under
+     70 GB. (b) ``prefill_step`` at full depth on prefill_32k's 32,768
+     tokens + the prefix, B2, into the 32,768-slot ring cache, then four
+     ``serve_step``s scattered and again uniform from the same cache state,
+     bit for bit equal; batch row 0 replayed on the plain route; then
+     long_500k's window (an 8,192-slot ring, B1). (c) ``python -m
+     repro_torch.launch.train --local --steps 3`` and ``python -m
+     repro_torch.launch.serve --local`` in subprocesses, exit 0, their
+     launches counted in the child. (d) ``launch.dryrun`` for openvla-7b
+     and deepseek-7b x train_4k on 16 x 16 (host only, subprocesses started
+     with the phase at the lowest CPU priority, no file written): the
+     reference's record keys,
+     openvla-7b's placed state equal to phase 12(d)'s bytes, the roofline
+     terms beside (a)'s measured step.
 
 Every check raises on failure, so the script exits non-zero. The line
 before the last is a JSON summary of every kernel; the last line is
@@ -246,6 +276,9 @@ REMOTE_WORKERS = 2
 REMOTE_ENVS = 4
 SHM_HEADROOM = 2
 PLANE_SMI_PERIOD_S = 1.0          # the plane phase's CUDA-holder sampling
+# The plane phase's traced run (c) at 2 layers, cut from TRAIN_LAYERS for
+# the run's time limit (its checks are on the trace's joins, not the model)
+TRACE_LAYERS = 2
 # The world-model phase: run_wm's train steps, the imagination batch, and
 # the card-vs-CPU bar of one WM step (of each leaf's largest value, f32).
 WM_STEPS = 3
@@ -3629,7 +3662,7 @@ def phase_pipeline(dev, smi, counting, pre):
           f"{dist.get_backend()}, world {dist.get_world_size()}")
     dist.destroy_process_group()
     print(f"[pipeline] phase wall {time.perf_counter() - t_phase:.1f} s")
-    return out
+    return out, plan
 
 
 def _bits_equal(a, b) -> bool:
@@ -4402,7 +4435,7 @@ def _plane_spawn(dev, smi, counters):
 
 
 def traced_host_plane(path) -> int:
-    """The traced run of ``_plane_host``'s system (started by
+    """The traced run of ``_plane_host``'s system at TRACE_LAYERS (started by
     ``_plane_trace`` as ``chip_smoke.py --traced-host-plane PATH`` with
     ``REPRO_TRACE=1``, which its children inherit): ``run_async`` for
     REMOTE_STEPS steps, the trace dumped to ``path``, one JSON line of the
@@ -4413,7 +4446,8 @@ def traced_host_plane(path) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.runtime import telemetry
     dev = torch.device("cuda", 0)
-    system = _plane_system(dev, *_plane_config("host"))
+    system = _plane_system(dev, *_plane_config("host",
+                                               n_layers=TRACE_LAYERS))
     m = system.run_async(train_steps=REMOTE_STEPS, wall_timeout_s=300.0)
     bad = {k: h for k, h in system.health().items() if not h["healthy"]}
     if bad or m["train_steps"] < REMOTE_STEPS:
@@ -4666,6 +4700,863 @@ def phase_plane(dev, smi, counters, remote):
     return out
 
 
+# --- the step programs at the production shapes (the ``steps`` phase) -------
+# openvla-7b at full width, bf16, random weights from a seed, through
+# repro_torch.launch.steps: (a) seq_train_step at train_4k's sequence (4096
+# tokens + 256 prefix = 4352 positions) on TRAIN_LAYERS layers with the
+# global batch cut from 256 to STEPS_BATCH (choose_accum on the one-rank
+# mesh: 2 micro-batches of 8); (b) prefill_step at full depth on
+# prefill_32k's 32,768 tokens + the prefix, B2, into a 32,768-slot ring
+# cache, then STEPS_DECODE serve_steps scattered and again uniform, then
+# long_500k's window of 8,192; (c) the two CLIs in subprocesses; (d) the dry
+# run of openvla-7b and deepseek-7b x train_4k on 16 x 16 (host only, in
+# subprocesses started with the run).
+STEPS_BATCH = 16
+STEPS_N = 3
+STEPS_PREFILL_BATCH = 2
+STEPS_DECODE = 4
+LONG_PROMPT = 9216                 # + 256 prefix: the 8,192-slot ring wraps
+LONG_DECODE = 3
+DRYRUN_PAIRS = (("openvla-7b", "train_4k"), ("deepseek-7b", "train_4k"))
+# Step 1 of (a), kernel vs plain route, on live behaviour log-probs (the
+# plain route's own + 0.1 N(0, 1)), as phase 5's live step 1: its bounds
+# (LIVE_ROUTE_BOUND over the KL, the value loss, ω's mean, the ratio's mean
+# and the grad norm; LIVE_LEAF_BOUND per gradient leaf and layer, the value
+# head's printed), set before the first run; the loss and the pg loss are
+# printed (near-cancellations on live μ). The f32 witness, one micro-batch
+# of STEPS_WITNESS_BATCH sequences (the f32 copy at the full micro-batch
+# does not leave room under TRAIN_MEM_LIMIT), holds both routes within
+# STEPS_F32_BOUNDS and prints each bf16 route against it.
+STEPS_HELD = ("kl", "value_loss", "omega_mean", "ratio_mean", "grad_norm")
+STEPS_WITNESS_BATCH = 2
+STEPS_F32_BOUNDS = (1e-4, 5e-4)
+# Steps 1-3 from the same seed-0 state on both routes (the same batch, μ of
+# the seed-0 state): KL and grad norm within LIVE_STEPS_BOUND's later bound.
+STEPS_STEPS_BOUND = 0.1
+# (b)'s logits, kernel vs plain route, as phase 3's MODEL_LOGIT_BOUND.
+STEPS_LOGIT_BOUND = MODEL_LOGIT_BOUND
+
+
+def _blockwise(q, k, v, window=None):
+    """The blockwise route's plain version (``dispatch.attention`` on the
+    plain route), in q's dtype."""
+    from repro_torch.launch.steps import ATTN_BLOCK
+    from repro_torch.models.attention import _blockwise_attn
+    return _blockwise_attn(q, k, v, q.shape[-1] ** -0.5, window=window,
+                           block=ATTN_BLOCK).to(q.dtype)
+
+
+def _rows(fn, *xs):
+    """``fn`` over one batch row at a time (a plain version whose [B,H,T,S]
+    scores would not fit at once), its outputs concatenated."""
+    import torch
+    outs = [fn(*(x[i:i + 1] for x in xs)) for i in range(xs[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
+def _steps_kernels(gen, dev, flush):
+    """K1, K2, K3 and K4 at the step programs' shapes, each against its
+    plain version and timed beside it, its bound and the library's call:
+    {kernel name: {shape key: entry}}."""
+    import torch
+    from repro_torch.kernels import gipo_loss as gl
+    from repro_torch.kernels.decode_attention import (_plain_decode,
+                                                      decode_attention,
+                                                      split_layout)
+    from repro_torch.kernels.flash_attention import (_plain_dense,
+                                                     _plain_flash_bwd,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    out = {"flash_attention": {}, "decode_attention": {},
+           "flash_attention_bwd": {}, "fused_policy_loss_fwd": {},
+           "fused_policy_loss_bwd": {}}
+    h, d = 32, 128
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def flash_entry(key, q, k, v, lse, err, plain, plain_name, runs):
+        b, t = q.shape[:2]
+        ms, host_ms = _median_ms(
+            lambda: flash_attention(q, k, v, return_lse=lse), flush=flush)
+        plain_ms, _ = _median_ms(plain, runs=runs, warmup=1, flush=flush)
+        lib_ms, lib, rep_ms = _time_sdpa(q, k, v, flush, is_causal=True)
+        pairs = t * (t + 1) // 2
+        bound_ms, bound_by = _bound(_nbytes(q, k, v, q) + lse * b * t * h * 4,
+                                    4.0 * d * pairs * b * h, "bfloat16")
+        shape = f"B={b} T=S={t} H={h} KV={h} D={d} bf16" \
+            + (" +lse" if lse else "")
+        print(f"[steps] kernels: flash {shape} ({key}): max abs err "
+              f"{err:.3e} | kernel {ms:.4f} ms | plain ({plain_name}) "
+              f"{plain_ms:.4f} ms | {_lib_line(lib, lib_ms, rep_ms)} | bound "
+              f"{bound_ms:.4f} ms ({bound_by}) | host enqueue {host_ms:.4f} "
+              f"ms")
+        out["flash_attention"][key] = dict(
+            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            plain=plain_name, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms, library=lib)
+
+    # K1 + LSE and K3 at train_4k's micro-batch: B8 x 4352; the plain
+    # versions a batch row at a time (a row's [H,T,S] f32 scores: 2.4 GB)
+    b, t = STEPS_BATCH // 2, 4096 + 256
+    q, k, v, do = (rand(b, t, h, d) for _ in range(4))
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    eo, else_ = _rows(lambda *x: _plain_dense(*x, return_lse=True), q, k, v)
+    err = _check_close("[steps] flash train_4k", o, eo, torch.bfloat16)
+    lse_err = (lse - else_).abs().max().item()
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"[steps] flash train_4k: lse err {lse_err}")
+    del eo, else_
+    flash_entry("train_4k", q, k, v, True, err,
+                lambda: _rows(lambda *x: _plain_dense(*x, return_lse=True),
+                              q, k, v), "dense, a row at a time", 2)
+    grads = flash_attention_bwd(q, k, v, o, lse, do)
+    exp = _rows(_plain_flash_bwd, q, k, v, o, lse, do)
+    res = [_check_grad(f"[steps] flash_bwd train_4k {n}", g, e,
+                       torch.bfloat16)
+           for n, g, e in zip(("dq", "dk", "dv"), grads, exp)]
+    del grads, exp
+    ms, host_ms = _median_ms(
+        lambda: flash_attention_bwd(q, k, v, o, lse, do), runs=10,
+        flush=flush)
+    plain_ms, _ = _median_ms(
+        lambda: _rows(_plain_flash_bwd, q, k, v, o, lse, do), runs=2,
+        warmup=1, flush=flush)
+    qt, kt, vt, dot = _lib_layout(q, k, v, do)
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True)
+    lo, llse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    lib_ms, _ = _median_ms(
+        lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, lo, llse, cq, ck, mq, mk, 0.0, True, seed,
+            offset), runs=10, flush=flush)
+    del qt, kt, vt, dot, fwd, lo, llse
+    pairs = t * (t + 1) // 2
+    bound_ms, bound_by = _bound(
+        _nbytes(q, k, v, o, lse, do) + _nbytes(q, k, v),
+                                10.0 * d * pairs * b * h, "bfloat16")
+    shape = f"B={b} T=S={t} H={h} KV={h} D={d} bf16"
+    print(f"[steps] kernels: flash_bwd {shape} (train_4k): max abs err "
+          f"{max(r[0] for r in res):.3e} (beyond the bar's rounding term, of "
+          f"the largest value: {max(r[1] for r in res):.3e}) | kernel "
+          f"{ms:.4f} ms | plain (a row at a time) {plain_ms:.4f} ms | sdpa "
+          f"flash bwd {lib_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) "
+          f"| host enqueue {host_ms:.4f} ms")
+    out["flash_attention_bwd"]["train_4k"] = dict(
+        shape=shape, max_abs_err=max(r[0] for r in res), ms=ms,
+        plain_ms=plain_ms, plain="a row at a time", bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms, library="sdpa flash bwd")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+    # K1 at prefill_32k: B2 x 33,024, against the blockwise route's plain
+    # version (the dense one would hold 140 GB of scores a row)
+    b, t = STEPS_PREFILL_BATCH, 32768 + 256
+    q, k, v = (rand(b, t, h, d) for _ in range(3))
+    o = flash_attention(q, k, v)
+    err = _check_close("[steps] flash prefill_32k", o,
+                       _rows(_blockwise, q, k, v), torch.bfloat16)
+    del o
+    flash_entry("prefill_32k", q, k, v, False, err,
+                lambda: _rows(_blockwise, q, k, v),
+                "blockwise, a row at a time", 1)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # K2 at decode_32k's cache (B2) and long_500k's window (B1)
+    for key, b, s in (("decode_32k", STEPS_PREFILL_BATCH, 32768),
+                      ("long_500k", 1, 8192)):
+        q = rand(b, 1, h, d)
+        k, v = rand(b, s, h, d), rand(b, s, h, d)
+        valid = torch.rand(b, s, generator=gen, device=dev) > 0.3
+        valid[:, 0] = True
+        err = _check_close(f"[steps] decode {key}",
+                           decode_attention(q, k, v, valid),
+                           _plain_decode(q, k, v, valid), torch.bfloat16)
+        e = _time_decode(dict(q=q, k=k, v=v, valid=valid), flush)
+        print(f"[steps] kernels: decode {e['shape']} ({key}, split "
+              f"{split_layout(s)}): max abs err {err:.3e}")
+        out["decode_attention"][key] = dict(e, max_abs_err=err)
+        del q, k, v, valid
+    torch.cuda.empty_cache()
+
+    # K4 at train_4k's micro-batch: N = 8 x 4095 rows
+    n = STEPS_BATCH // 2 * 4095
+    c = _policy_case(gen, dev, n, 4096, 256, torch.bfloat16)
+    args = [c[x] for x in ("h", "w", "tg", "lo", "ad", "mk")]
+    pg, ent, kl, _ = gl.fused_policy_loss(*args, 0.2)
+    epg, eent, ekl, _ = gl.plain_policy_loss(*args, 0.2)
+    rel = max(abs(float(a) - float(b_)) / max(abs(float(b_)), 1e-6)
+              for a, b_ in ((pg, epg), (ent, eent), (kl, ekl)))
+    if not rel <= 1e-3:
+        raise AssertionError(f"[steps] policy loss N={n}: forward rel err "
+                             f"{rel}")
+    dh, dw = gl.policy_loss_bwd(*args, 0.2, c["coefs"])
+    edh, edw = gl._plain_policy_loss_bwd(*args, 0.2, c["coefs"])
+    res = [_check_grad(f"[steps] policy loss N={n} {nm}", x, y,
+                       torch.bfloat16)
+           for nm, x, y in (("dh", dh, edh), ("dw", dw, edw))]
+    if gl.policy_body(c["h"], c["w"]) != "tensor cores":
+        raise AssertionError(f"[steps] policy loss N={n}: not on the "
+                             f"tensor-core body")
+    print(f"[steps] kernels: policy loss N={n} d=4096 Va=256 bf16: forward "
+          f"rel err {rel:.3e} | max abs err dh {res[0][0]:.3e} dw "
+          f"{res[1][0]:.3e}")
+    del dh, dw, edh, edw
+    t = _time_policy(c, flush)
+    for tag in ("fwd", "bwd"):
+        out[f"fused_policy_loss_{tag}"]["train_4k"] = dict(
+            t[tag], max_abs_err=max(rel, res[0][0], res[1][0]))
+    del c, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def _steps_batch(cfg, dev, accum, mb, seed, s):
+    """A micro-batch stack [accum, mb, ...] of ``s`` tokens: token ids over the
+    vocabulary, the prefix's frontend embeddings, rewards N(0, 1), dones at
+    1/64, 10% of the steps masked out; ``behavior_logp`` is filled by
+    ``_live_seq_behaviour``."""
+    import torch
+    from repro_torch.models.transformer import FRONTEND_DIM
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead = (accum, mb)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+    return {
+        "tokens": torch.randint(0, cfg.vocab_size, lead + (s,), generator=gen,
+                                device=dev, dtype=torch.int32),
+        "behavior_logp": torch.zeros(lead + (s,), device=dev),
+        "rewards": torch.randn(lead + (s - 1,), generator=gen, device=dev),
+        "dones": (u(*lead, s - 1) < 1 / 64).float(),
+        "mask": (u(*lead, s - 1) > 0.1).float(),
+        "prefix": torch.randn(lead + (cfg.num_prefix_tokens, FRONTEND_DIM),
+                              generator=gen, device=dev),
+    }
+
+
+def _live_seq_behaviour(cfg, params, batch, gen):
+    """Each micro-batch's behaviour log-probs: the plain route's own
+    log-prob of every next token's action bin, plus 0.1 N(0, 1)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import ATTN_BLOCK
+    from repro_torch.models import transformer
+    out = torch.zeros_like(batch["behavior_logp"])
+    with torch.no_grad(), dispatch.forced("torch"):
+        for i in range(batch["tokens"].shape[0]):
+            tok = batch["tokens"][i]
+            fw = transformer.forward(cfg, params, tok, batch["prefix"][i],
+                                     block=ATTN_BLOCK)
+            p = fw["logits"].shape[1] - tok.shape[1]
+            lp = torch.log_softmax(fw["logits"][:, p:-1], dim=-1)
+            tg = (tok[:, 1:] % cfg.action_vocab_size).long()[..., None]
+            out[i, :, 1:] = lp.gather(-1, tg)[..., 0] + 0.1 * torch.randn(
+                tg.shape[:2], generator=gen, device=tok.device)
+            del fw, lp
+    return out
+
+
+def _seq_step1(cfg, rl, params, adv, batch, mode):
+    """Step 1's grads and metrics on one route: ``steps.seq_grads`` (the
+    grads ``seq_train_step`` updates with) on a batch [accum, mb, ...]."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    accum = batch["tokens"].shape[0]
+    if accum == 1:
+        batch = {k: v[0] for k, v in batch.items()}
+    with dispatch.forced(mode):
+        grads, m, _ = steps.seq_grads(params, batch, adv, cfg=cfg, rl=rl,
+                                      accum=accum)
+    return grads, dict(m, grad_norm=adamw.global_norm(grads))
+
+
+def _compare_seq_step1(label, cfg, rl, params, adv, batch, bounds):
+    """Step 1 on both routes: every gradient leaf but the value head's
+    unused attention-pool projection nonzero on the kernel route; the
+    grads per leaf and layer within ``bounds[1]`` (the value head's
+    printed: its input is detached), STEPS_HELD within ``bounds[0]``, the
+    rest printed. Returns (kernel, plain) metrics."""
+    import torch
+    from repro_torch.tree import tree_leaves_with_path
+    acc, mk = _seq_step1(cfg, rl, params, adv, batch, "cuda")
+    zero = [".".join(p) for p, g in tree_leaves_with_path(acc)
+            if p != ("value_head", "attn_proj") and not bool((g != 0).any())]
+    if zero:
+        raise AssertionError(f"{label} kernel route: leaves with no gradient "
+                             f"{zero}")
+    acc_p, mp = _seq_step1(cfg, rl, params, adv, batch, "torch")
+    diffs = _leaf_grad_diff(
+        *({k: v for k, v in a.items() if k != "value_head"}
+          for a in (acc, acc_p)))
+    value = _leaf_grad_diff(
+        *({"value_head": {k: v for k, v in a["value_head"].items()
+                          if k != "attn_proj"}} for a in (acc, acc_p)))
+    del acc, acc_p
+    held = {k: mk[k] for k in STEPS_HELD}
+    worst, key = _worst_rel(held, {k: mp[k] for k in STEPS_HELD}, label)
+    print(f"[steps] {label} step 1, kernel vs plain route: gradients "
+          f"|g_kernel - g_plain| / |g_plain| per leaf and layer, worst "
+          f"{', '.join(f'{k} {r:.3e}' for r, k in diffs[:3])} (bound "
+          f"{bounds[1]}); value head (input detached) "
+          f"{', '.join(f'{k} {r:.3e}' for r, k in value)} | max rel diff over "
+          f"{', '.join(STEPS_HELD)} {worst:.3e} ({key}; bound {bounds[0]}) | "
+          f"printed: " + ", ".join(
+              f"{k} {float(mk[k]):.6g} vs {float(mp[k]):.6g}"
+              for k in mk if k not in STEPS_HELD)
+          + f" | peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not diffs[0][0] <= bounds[1]:
+        raise AssertionError(f"{label} step 1 gradient of {diffs[0][1]} "
+                             f"differs by {diffs[0][0]}")
+    if not worst <= bounds[0]:
+        raise AssertionError(f"{label} step 1 routes differ: {key} by "
+                             f"{worst}")
+    return mk, mp
+
+
+def _seq_run(dev, cfg, rl, mesh, sspec, batch, accum, mode, counters, *,
+             trace=False):
+    """STEPS_N steps of ``seq_train_step`` on one route from the seed-0
+    state, the launches checked at every step; with ``trace``, one more
+    step under torch.profiler. Returns (metrics a step, walls)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import steps, train
+    state = train.init_state(cfg, mesh, sspec, dev)
+    hist, walls = [], []
+    for i in range(STEPS_N + trace):
+        for fn, _ in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if trace and i == STEPS_N:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with dispatch.forced(mode):
+                    state, m = steps.seq_train_step(
+                        state, batch, cfg=cfg, rl=rl, accum=accum,
+                        grad_shardings=sspec.params)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            busy, _, by_kind = _device_time(prof)
+            print(f"[steps] (a) one more kernel-route step (the 4th), traced: "
+                  f"wall {wall:.1f} ms, device busy {busy:.1f} ms "
+                  f"({100 * busy / wall:.1f}%), idle "
+                  f"{100 * (1 - busy / wall):.1f}% | by kind: {by_kind}"
+                  if busy else f"[steps] (a) traced step: wall {wall:.1f} "
+                  f"ms; device time not measured (no kernels seen)")
+            break
+        with dispatch.forced(mode):
+            state, m = steps.seq_train_step(state, batch, cfg=cfg, rl=rl,
+                                            accum=accum,
+                                            grad_shardings=sspec.params)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = {k: fn.launches for k, (fn, _) in counters.items()}
+        if got != {k: per for k, (_, per) in counters.items()}:
+            raise AssertionError(f"[steps] {mode} step {i + 1}: launches "
+                                 f"{got}")
+        hist.append({k: float(v) for k, v in m.items()})
+        if not all(math.isfinite(v) for v in hist[-1].values()):
+            raise AssertionError(f"[steps] {mode} step {i + 1}: {hist[-1]}")
+    del state
+    torch.cuda.empty_cache()
+    return hist, walls
+
+
+def _steps_train(dev, smi, counting):
+    """(a): ``seq_train_step`` at train_4k's sequence on TRAIN_LAYERS
+    layers, the global batch cut to STEPS_BATCH. Returns the launches of
+    the counted kernel-route steps and the step's roofline figures."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.policy import init_policy_params
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.sharding.rules import mesh_shape
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("openvla-7b"),
+                              num_layers=TRAIN_LAYERS)
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                global_batch=STEPS_BATCH)
+    mesh = make_local_mesh(dev)
+    accum = steps.choose_accum(cfg, shape, mesh)
+    mb = STEPS_BATCH // accum
+    _, _, sspec, _ = steps.train_specs(cfg, shape, mesh, accum=accum)
+    rl = RLConfig(warmup_steps=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_policy_params(cfg, 0, device=dev)
+    from repro_torch.core.advnorm import init_adv_state
+    adv = init_adv_state(dev)
+    batch = _steps_batch(cfg, dev, accum, mb, 3, shape.seq_len)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batch["behavior_logp"] = _live_seq_behaviour(cfg, params, batch, gen)
+    print(f"[steps] (a) openvla-7b x {TRAIN_LAYERS} layers, train_4k "
+          f"sequences ({shape.seq_len} tokens + {cfg.num_prefix_tokens} "
+          f"prefix), global "
+          f"batch {STEPS_BATCH} (train_4k's 256 cut), choose_accum on the "
+          f"one-rank mesh {mesh_shape(mesh)}: {accum} micro-batches of {mb}")
+    if accum != 2:
+        raise AssertionError(f"[steps] choose_accum gave {accum}, not 2")
+    mk, mp = _compare_seq_step1("(a)", cfg, rl, params, adv, batch,
+                                (LIVE_ROUTE_BOUND, LIVE_LEAF_BOUND))
+    del params
+    torch.cuda.empty_cache()
+
+    # the f32 witness: one micro-batch of STEPS_WITNESS_BATCH sequences
+    wb = {k: v[:1, :STEPS_WITNESS_BATCH] for k, v in batch.items()}
+    m16 = {}
+    for tag, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        c = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+        p = init_policy_params(c, 0, device=dev)
+        if tag == "bf16":
+            m16 = {r: _seq_step1(c, rl, p, adv, wb, r)[1]
+                   for r in ("cuda", "torch")}
+        else:
+            m32k, _ = _compare_seq_step1(
+                f"(a) f32 copy, {STEPS_WITNESS_BATCH} sequences", c, rl, p,
+                adv, wb, STEPS_F32_BOUNDS)
+        del p
+        torch.cuda.empty_cache()
+    rows = []
+    for route, m in m16.items():
+        worst, key = _worst_rel({k: m[k] for k in STEPS_HELD},
+                                {k: m32k[k] for k in STEPS_HELD}, "witness")
+        rows.append(f"bf16 {route} route {worst:.3e} ({key})")
+    print(f"[steps] (a) step 1 on {STEPS_WITNESS_BATCH} sequences, each bf16 "
+          f"route against the f32 copy's kernel route (max rel diff over "
+          f"{', '.join(STEPS_HELD)}; printed): {' | '.join(rows)}")
+
+    per_step = dict(flash_attention=2 * TRAIN_LAYERS * accum,
+                    flash_attention_bwd=TRAIN_LAYERS * accum,
+                    fused_policy_loss_fwd=accum, fused_policy_loss_bwd=accum)
+    counters = counting(**per_step)
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist_k, walls = _seq_run(dev, cfg, rl, mesh, sspec, batch, accum, "cuda",
+                             counters, trace=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist_p, walls_p = _seq_run(dev, cfg, rl, mesh, sspec, batch, accum,
+                               "torch", {})
+    rows, over = [], []
+    for i, (a, b) in enumerate(zip(hist_k, hist_p)):
+        rel = {k: abs(a[k] - b[k]) / max(abs(b[k]), ROUTE_FLOOR)
+               for k in ("kl", "grad_norm")}
+        over += [(i + 1, k, r) for k, r in rel.items()
+                 if not r <= STEPS_STEPS_BOUND]
+        rows.append(f"step {i + 1}: loss {a['loss']:.6g} vs {b['loss']:.6g}, "
+                    + ", ".join(f"{k} {a[k]:.6g} vs {b[k]:.6g} (rel "
+                                f"{r:.3e})" for k, r in rel.items())
+                    + f", omega_mean {a['omega_mean']:.4f} vs "
+                    f"{b['omega_mean']:.4f}")
+    print(f"[steps] (a) steps 1-{STEPS_N} from the same seed-0 state, kernel "
+          f"vs plain route (bound {STEPS_STEPS_BOUND} on kl and grad_norm): "
+          f"{' | '.join(rows)}")
+    if over:
+        raise AssertionError(f"[steps] (a) steps differ between routes: "
+                             f"{over}")
+    mf = model_flops(cfg, shape)
+    wall = statistics.median(walls)
+    tokens = STEPS_BATCH * shape.seq_len
+    print(f"[steps] (a) kernel route: step walls "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms (plain route "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls_p)}) | median "
+          f"{wall * 1e3:.1f} ms, {tokens / wall:.0f} tokens/s "
+          f"({STEPS_BATCH} x {shape.seq_len}), model_flops "
+          f"{mf:.4e} / (wall x 989e12) = {mf / (wall * 989e12):.4f} | peak "
+          f"{peak / 1e9:.2f} GB | launches a step {per_step} | {smi}")
+    if not peak < TRAIN_MEM_LIMIT:
+        raise AssertionError(f"[steps] (a) peak memory {peak / 1e9:.1f} GB")
+    print(f"[steps] (a) wall {time.perf_counter() - t_phase:.1f} s")
+    launches = {k: per * STEPS_N for k, (_, per) in counters.items()}
+    return launches, dict(wall_s=wall, model_flops=mf, tokens=tokens,
+                          peak=peak)
+
+
+def _snapshot_slots(cache, slots):
+    """Copies of the k/v/positions slots a decode will write, and the
+    lengths."""
+    return ([x[:, :, slots].clone() for x in (cache.k, cache.v,
+                                              cache.positions)],
+            cache.length.clone())
+
+
+def _restore_slots(cache, snap, slots):
+    import torch
+    parts, length = snap
+    with torch.no_grad():
+        for x, p in zip((cache.k, cache.v, cache.positions), parts):
+            x[:, :, slots] = p
+        cache.length.copy_(length)
+
+
+def _decode_run(cfg, params, cache, tokens, *, window, uniform):
+    """Teacher-forced serve_steps on ``tokens`` [n, B]: the logits a step."""
+    import torch
+    from repro_torch.launch import steps
+    out = []
+    with torch.no_grad():
+        for tok in tokens:
+            logits, cache = steps.serve_step(params, tok, cache, cfg=cfg,
+                                             window=window, uniform=uniform)
+            out.append(logits.float())
+    return torch.stack(out), cache
+
+
+def _steps_serve(dev, smi, counting):
+    """(b): prefill_32k and decode_32k at full depth, then long_500k's
+    window; (c)'s CLIs start before the plain route's replay. Returns the
+    launches by path and the CLIs' processes."""
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import FRONTEND_DIM
+    t_phase = time.perf_counter()
+    cfg = get_config("openvla-7b")
+    nl = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = transformer.init_params(cfg, gen, device=dev)
+    shape = get_shape("prefill_32k")
+    window = steps.long_context_window(cfg, shape)
+    cache_len = steps.effective_cache_len(cfg, shape)
+    b = STEPS_PREFILL_BATCH
+    tokens = torch.randint(0, cfg.vocab_size, (b, shape.seq_len),
+                           generator=gen, device=dev, dtype=torch.int32)
+    prefix = torch.randn(b, cfg.num_prefix_tokens, FRONTEND_DIM,
+                         generator=gen, device=dev)
+    t = shape.seq_len + cfg.num_prefix_tokens
+    launches = {}
+
+    def count(key, **per):
+        counters = counting(**per)
+        for fn, _ in counters.values():
+            fn.launches = 0
+        return counters
+
+    def check(key, counters):
+        got = {k: fn.launches for k, (fn, _) in counters.items()}
+        if got != {k: per for k, (_, per) in counters.items()}:
+            raise AssertionError(f"[steps] (b) {key}: launches {got}")
+        launches[key] = got
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters = count("prefill", flash_attention=nl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        last, cache = steps.prefill_step(params, tokens, prefix, cfg=cfg,
+                                         window=window, cache_len=cache_len)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    check("openvla-7b steps, prefill_32k", counters)
+    ring = cache.attn.positions[0, 0]
+    if not (cache.attn.k.shape[2] == cache_len < t
+            and bool((ring == torch.arange(t - cache_len, t, device=dev)
+                      .roll(t % cache_len)).all())):
+        raise AssertionError(f"[steps] (b) the cache is not the ring of the "
+                             f"last {cache_len} positions")
+    del ring
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError("[steps] (b) prefill logits not finite")
+    toks = [torch.argmax(last, -1).to(torch.int32)]
+    slots = torch.arange(t, t + STEPS_DECODE, device=dev) % cache_len
+    snap = _snapshot_slots(cache.attn, slots)
+    counters = count("decode", decode_attention=nl * STEPS_DECODE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_s = []
+    with torch.no_grad():
+        for i in range(STEPS_DECODE):
+            lg, cache = steps.serve_step(params, toks[-1], cache, cfg=cfg,
+                                         window=window, uniform=False)
+            logits_s.append(lg.float())
+            if i + 1 < STEPS_DECODE:
+                toks.append(torch.argmax(lg, -1).to(torch.int32))
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / STEPS_DECODE
+    check("openvla-7b steps, decode_32k (scatter)", counters)
+    logits_s = torch.stack(logits_s)
+    written = [x[:, :, slots].clone() for x in (cache.attn.k, cache.attn.v,
+                                                cache.attn.positions)]
+    pos_s = cache.attn.positions.clone()
+    _restore_slots(cache.attn, snap, slots)
+    counters = count("decode", decode_attention=nl * STEPS_DECODE)
+    logits_u, cache = _decode_run(cfg, params, cache, toks, window=window,
+                                  uniform=True)
+    check("openvla-7b steps, decode_32k (uniform)", counters)
+    same = (_bits_equal({"l": logits_s}, {"l": logits_u})
+            and all(_bits_equal({"x": a}, {"x": x[:, :, slots]}) for a, x in
+                    zip(written, (cache.attn.k, cache.attn.v,
+                                  cache.attn.positions)))
+            and torch.equal(pos_s, cache.attn.positions))
+    if not same:
+        raise AssertionError("[steps] (b) uniform decode differs from the "
+                             "scatter path")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[steps] (b) openvla-7b full depth ({nl} layers), prefill_32k B{b}"
+          f" x {t} positions into the {cache_len}-slot ring cache "
+          f"({cache.attn.k.numel() * 4 / 1e9:.1f} GB of k/v): "
+          f"{t_prefill:.2f} s, K1 {nl} launches | {STEPS_DECODE} decode_32k "
+          f"serve_steps, scatter and uniform: bit for bit equal (logits, the "
+          f"written slots, every position), {t_decode * 1e3:.1f} ms a token "
+          f"(scatter), K2 {nl} a token | peak {peak / 1e9:.2f} GB | {smi}")
+    del cache, written, pos_s, snap
+    torch.cuda.empty_cache()
+
+    # the plain route on batch row 0: the same prefill and decodes (the
+    # CLIs' processes start meanwhile)
+    clis = _start_clis()
+    try:
+        t0 = time.perf_counter()
+        with dispatch.forced("torch"), torch.no_grad():
+            last_p, cache_p = steps.prefill_step(
+                params, tokens[:1], prefix[:1], cfg=cfg, window=window,
+                cache_len=cache_len)
+            logits_p, cache_p = _decode_run(cfg, params, cache_p,
+                                            [x[:1] for x in toks],
+                                            window=window, uniform=True)
+        gaps = [(last[:1].float() - last_p.float()).abs().max().item()] + [
+            (logits_s[i, :1] - logits_p[i]).abs().max().item()
+            for i in range(STEPS_DECODE)]
+        print(f"[steps] (b) batch row 0 on the plain route "
+              f"({time.perf_counter() - t0:.1f} s): max |logit gap| prefill "
+              f"{gaps[0]:.3e}, decodes "
+              f"{', '.join(f'{g:.3e}' for g in gaps[1:])} "
+              f"(bound {STEPS_LOGIT_BOUND}; logits' scale "
+              f"{last_p.float().abs().max().item():.3f})")
+        if not max(gaps) <= STEPS_LOGIT_BOUND:
+            raise AssertionError(f"[steps] (b) routes' logits differ by "
+                                 f"{max(gaps)}")
+        del cache_p, last, last_p
+        torch.cuda.empty_cache()
+
+        # long_500k's sliding window: an 8,192-slot ring
+        lshape = get_shape("long_500k")
+        lwin = steps.long_context_window(cfg, lshape)
+        llen = steps.effective_cache_len(cfg, lshape)
+        ltok = tokens[:1, :LONG_PROMPT]
+        logits = {}
+        for mode in ("cuda", "torch"):
+            counters = count("long", flash_attention=nl,
+                             decode_attention=nl * LONG_DECODE)
+            with dispatch.forced(mode), torch.no_grad():
+                lp, lc = steps.prefill_step(params, ltok, prefix[:1], cfg=cfg,
+                                            window=lwin, cache_len=llen)
+                lt = [torch.argmax(lp, -1).to(torch.int32)]
+                for _ in range(LONG_DECODE - 1):
+                    lt.append((lt[-1] + 1) % cfg.vocab_size)
+                ld, lc = _decode_run(cfg, params, lc, lt, window=lwin,
+                                     uniform=True)
+            if mode == "cuda":
+                check("openvla-7b steps, long_500k window", counters)
+                if lc.attn.k.shape[2] != llen:
+                    raise AssertionError(f"[steps] (b) window cache "
+                                         f"{lc.attn.k.shape}")
+            logits[mode] = torch.cat([lp.float()[None], ld])
+            del lc
+        gap = (logits["cuda"] - logits["torch"]).abs().max().item()
+        print(f"[steps] (b) long_500k's window {lwin} (cache {llen} slots, "
+              f"ring): prefill B1 x {LONG_PROMPT + cfg.num_prefix_tokens} + "
+              f"{LONG_DECODE} serve_steps, K1 {nl}, K2 {nl} a token | kernel "
+              f"vs plain route max |logit gap| {gap:.3e} (bound "
+              f"{STEPS_LOGIT_BOUND}) | phase (b) wall "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        if not gap <= STEPS_LOGIT_BOUND:
+            raise AssertionError(f"[steps] (b) window logits differ by {gap}")
+        del params
+        torch.cuda.empty_cache()
+    except BaseException:
+        _stop(clis)
+        raise
+    return launches, clis
+
+
+_CLI_SCRIPT = r"""
+import time
+T_START = time.perf_counter()
+import json, runpy, sys
+sys.path.insert(0, "src")
+from repro_torch.kernels import gipo_loss as gl
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
+sys.argv = sys.argv[1:]
+t0 = time.perf_counter()
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+print(f"imports {t0 - T_START:.1f} s, the CLI "
+      f"{time.perf_counter() - t0:.1f} s")
+print(json.dumps({
+    "flash_attention": flash_attention.launches,
+    "flash_attention_bwd": flash_attention_bwd.launches,
+    "decode_attention": decode_attention.launches,
+    "fused_policy_loss_fwd": gl.policy_loss_fwd.launches,
+    "fused_policy_loss_bwd": gl.policy_loss_bwd.launches,
+    "fused_policy_loss_fwd tensor-core body": gl.policy_loss_fwd.tc.launches,
+    "fused_policy_loss_bwd tensor-core body": gl.policy_loss_bwd.tc.launches,
+}))
+"""
+
+
+_CLI_RUNS = (
+    (("repro_torch.launch.train", "--local", "--steps", "3"),
+     dict(flash_attention=12, flash_attention_bwd=6, fused_policy_loss_fwd=3,
+          fused_policy_loss_bwd=3)),
+    (("repro_torch.launch.serve", "--local"), dict(decode_attention=16)))
+
+
+def _start_clis():
+    """(c): ``python -m repro_torch.launch.train --local --steps 3`` and
+    ``python -m repro_torch.launch.serve --local`` on the card, both started
+    now, each in a subprocess whose kernel launches are counted there and
+    printed: the reduced internlm2-1.8b (2 layers, f32) the CLIs run, train
+    with every layer checkpointed (K1 twice a layer, K3 once, K4 once a
+    step), serve 8 tokens from an empty cache (K2 a layer a token)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [(argv, want, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", _CLI_SCRIPT, *argv], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for argv, want in _CLI_RUNS]
+
+
+def _steps_clis(procs, counting):
+    """(c)'s exit codes and launches: the launches by path."""
+    out = {}
+    try:
+        done = [(argv, want, t0, *p.communicate(timeout=300), p.returncode)
+                for argv, want, t0, p in procs]
+    finally:
+        _stop(procs)
+    for argv, want, t0, stdout, stderr, returncode in done:
+        wall = time.perf_counter() - t0
+        if returncode:
+            raise AssertionError(f"[steps] (c) {' '.join(argv)} exited "
+                                 f"{returncode}: {stdout[-2000:]}"
+                                 f"{stderr[-4000:]}")
+        lines = stdout.strip().splitlines()
+        got = json.loads(lines[-1])
+        body = {k: v for k, v in got.items() if "tensor-core" not in k}
+        if body != {k: want.get(k, 0) for k in body}:
+            raise AssertionError(f"[steps] (c) {argv[0]}: launches {got}, "
+                                 f"want {want}")
+        print(f"[steps] (c) python -m {' '.join(argv)}: exit 0, collected "
+              f"{wall:.1f} s after its start | {lines[-2]} | its last lines: "
+              f"{' / '.join(lines[-5:-2])} | launches counted in the child "
+              f"{ {k: v for k, v in got.items() if v} }")
+        out[f"steps, CLI {argv[0]} --local (reduced internlm2-1.8b)"] = {
+            k: got.get(k, 0) for k in counting()}
+    return out
+
+
+def _start_dryruns():
+    """(d)'s two dry runs, host only, each in a process of its own started
+    now, at the lowest CPU priority and on one thread (they run beside the
+    phase's card work): the Popen objects."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    run = ("import os, runpy; os.nice(19); runpy.run_module("
+           "'repro_torch.launch.dryrun', run_name='__main__', alter_sys=True)")
+    return [(arch, shape, subprocess.Popen(
+        [sys.executable, "-c", run, "--one", "--arch", arch, "--shape",
+         shape], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+        for arch, shape in DRYRUN_PAIRS]
+
+
+def _stop(procs):
+    for *_, p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def _steps_dryrun(procs, plan, train_fig, smi):
+    """(d): the dry runs' records: the reference's keys, openvla-7b's
+    placed state equal to phase 12(d)'s bytes, the roofline terms beside
+    (a)'s measured step."""
+    t0 = time.perf_counter()
+    keys = ("arch", "shape", "variant", "mesh", "chips", "kind", "fsdp",
+            "lower_s", "compile_s", "memory", "roofline", "param_count",
+            "active_param_count", "cost_compile_s", "accum")
+    for arch, shape, p in procs:
+        stdout, stderr = p.communicate(timeout=600)
+        if p.returncode:
+            raise AssertionError(f"[steps] (d) dry run {arch} x {shape} "
+                                 f"exited {p.returncode}: {stderr[-4000:]}")
+        rec = json.loads(stdout.strip().splitlines()[-1])
+        missing = [k for k in keys if k not in rec]
+        if missing:
+            raise AssertionError(f"[steps] (d) {arch}: keys {missing} missing")
+        r, m = rec["roofline"], rec["memory"]
+        line = (f"[steps] (d) dry run {arch} x {shape} on {rec['mesh']} (fake "
+                f"group of {rec['chips']}, meta; host only): accum "
+                f"{rec['accum']} | placed state a device: params "
+                f"{rec['param_bytes_per_dev'] / 1e9:.3f} GB, moments "
+                f"{rec['moment_bytes_per_dev'] / 1e9:.3f} GB | the program's "
+                f"peak (MemTracker) {m['temp_size_in_bytes'] / 1e9:.1f} GB + "
+                f"held {m['argument_size_in_bytes'] / 1e9:.3f} GB = "
+                f"{m['total_hbm_bytes'] / 1e9:.1f} GB, fits 80 GB: "
+                f"{rec['fits']} | roofline a device: compute "
+                f"{r['compute_s']:.3f} s, memory {r['memory_s']:.3f} s, "
+                f"collective {r['collective_s']:.3f} s ({r['dominant']}), "
+                f"FLOPs {r['flops']:.4e}, model_flops {r['model_flops']:.4e},"
+                f" useful {r['useful_ratio']:.5f} | run {rec['compile_s']} s "
+                f"+ cost {rec['cost_compile_s']} s")
+        print(line)
+        if arch == "openvla-7b":
+            f = plan["openvla-7b"]
+            if not (abs(rec["param_bytes_per_dev"] - f["params"]) < 1
+                    and abs(rec["moment_bytes_per_dev"] - f["moments"]) < 1):
+                raise AssertionError(f"[steps] (d) placed state {rec} vs "
+                                     f"phase 12(d)'s {f}")
+            rate = train_fig["model_flops"] / train_fig["wall_s"]
+            print(f"[steps] (d) beside (a)'s measured step on the card "
+                  f"({smi}): {train_fig['wall_s'] * 1e3:.1f} ms for "
+                  f"{train_fig['tokens']} tokens at {TRAIN_LAYERS} layers, "
+                  f"{rate:.4e} model FLOP/s | the dry run's step a device "
+                  f"(full depth, the whole global batch on every rank): "
+                  f"FLOPs {r['flops']:.4e}, {r['flops'] / rate:.1f} s at "
+                  f"(a)'s rate against its compute term "
+                  f"{r['compute_s']:.3f} s at the peak")
+    print(f"[steps] (d) collected in {time.perf_counter() - t0:.1f} s after "
+          f"the card's phases")
+
+
+def phase_steps(dev, smi, counting, plan):
+    """The step programs at the production shapes: (a)-(d) above, and the
+    kernels at those shapes (entries for the kernels line)."""
+    import torch
+    t_phase = time.perf_counter()
+    procs = _start_dryruns()
+    try:
+        gen = torch.Generator(device=dev).manual_seed(6)
+        l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        kernels = _steps_kernels(gen, dev, l2.zero_)
+        del l2
+        torch.cuda.empty_cache()
+        launches, fig = _steps_train(dev, smi, counting)
+        by_path = {"openvla-7b steps, train_4k (seq_train_step)": launches}
+        launches, clis = _steps_serve(dev, smi, counting)
+        by_path.update(launches)
+        by_path.update(_steps_clis(clis, counting))
+        _steps_dryrun(procs, plan, fig, smi)
+    finally:
+        _stop(procs)
+    print(f"[steps] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return kernels, by_path
+
+
 def _init_two_versions(dev, cfg):
     import torch
     from repro_torch.models.policy import init_policy_params
@@ -4866,7 +5757,8 @@ def main() -> int:
                                                               counting())
     # the pipelined executor: rounds against the fused step, the WM
     # trainer as its second stage, a disjoint layout, the 16 x 16 plan
-    by_path.update(phase_pipeline(dev, smi, counting, pre))
+    launches, plan = phase_pipeline(dev, smi, counting, pre)
+    by_path.update(launches)
     del pre
     # checkpoints, the weight transports, and rollout workers in their
     # own processes serving on the card
@@ -4892,6 +5784,14 @@ def main() -> int:
                  sync=False, checks=MOE_NO_DROPS,
                  edit=lambda c: _f32_copy(c, drops=False),
                  note=", f32 copy without drops")
+
+    # the step programs at the production shapes, the CLIs and the dry run
+    kernels, launches = phase_steps(dev, smi, counting, plan)
+    by_path.update(launches)
+    for e in entries:
+        for key, extra in kernels.get(e["name"], {}).items():
+            e[key] = extra
+            e["max_abs_err"] = max(e["max_abs_err"], extra["max_abs_err"])
 
     if failures:
         raise AssertionError("steps 1-3 comparisons failed: "

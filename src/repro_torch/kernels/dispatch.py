@@ -8,6 +8,10 @@ it takes. There is no fallback and no environment variable between the two.
 ``dense_attention`` is differentiable: with grad enabled and an input
 that requires it, it runs ``FlashAttentionFn`` (flash forward saving the
 LSE, flash backward), otherwise the forward kernel alone, as in serving.
+``attention`` is the blockwise path of long prompts (``t > block``): the
+same kernels on the card, where ``block`` only bounds the plain route's
+memory (K1 is already O(T·tile)); the reference's online-softmax twin
+``_blockwise_attn`` on the CPU.
 ``policy_head_loss`` is the fused action head + GIPO loss (K4), and
 ``gipo_loss`` the same loss over given logits (K5).
 ``ssd_scan`` is the Mamba2 SSD scan of a fresh sequence (K6 forward, K7
@@ -77,6 +81,23 @@ def dense_attention(q, k, v, *, window: Optional[int] = None):
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, window)
     return flash_attention(q, k, v, causal=True, window=window)
+
+
+def attention(q, k, v, *, window: Optional[int] = None, block: int = 128):
+    """Causal (optionally sliding-window) blockwise attention on projected
+    q/k/v. q: [B,T,H,D]; k/v: [B,S,KV,D] -> [B,T,H,D] in q.dtype.
+
+    A CUDA tensor goes to the flash kernels as ``dense_attention`` sends
+    it (K1, with K3 as its backward). A CPU tensor, or the forced plain
+    route, goes to the reference's ``_blockwise_attn`` (online softmax over
+    KV blocks of ``block``, each checkpointed): the plain route of the long
+    sequences, where the dense plain version would hold [B,H,T,S] f32
+    scores (140 GB a layer for openvla-7b at 33,024 positions)."""
+    if _forced_plain(q) or q.device.type != "cuda":
+        from repro_torch.models.attention import _blockwise_attn
+        return _blockwise_attn(q, k, v, q.shape[-1] ** -0.5, window=window,
+                               block=block).to(q.dtype)
+    return dense_attention(q, k, v, window=window)
 
 
 def policy_head_loss(hidden, w, targets, logp_old, advantages, mask, *,

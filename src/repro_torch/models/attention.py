@@ -4,14 +4,18 @@ KV cache) and single-token decode, as in the reference
 
 The cache may be a ring buffer (``cache_len < t``): slot = pos % cache_len.
 Training and prefill attention go through ``dispatch.dense_attention``
-(differentiable) and decode attention through ``dispatch.decode_attention``:
-the CUDA kernels for CUDA tensors, the plain versions on the CPU.
+(differentiable), or, for ``t > block``, ``dispatch.attention`` (the
+blockwise path: on the CPU the online-softmax twin ``_blockwise_attn``);
+decode attention goes through ``dispatch.decode_attention``: the CUDA
+kernels for CUDA tensors, the plain versions on the CPU.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import dispatch
 from repro_torch.models.layers import Params, apply_rope, stacked_dense_init
@@ -95,35 +99,100 @@ def init_cache(batch: int, cache_len: int, num_kv_heads: int, head_dim: int,
     )
 
 
+def _attend(q, k, v, window: Optional[int], block: Optional[int],
+            dtype) -> torch.Tensor:
+    """The prompt's causal attention: ``t > block`` takes the blockwise
+    path (cast to the activations' dtype, as the reference casts it), the
+    rest the dense one."""
+    if block is not None and q.shape[1] > block:
+        return dispatch.attention(q, k, v, window=window,
+                                  block=block).to(dtype)
+    return dispatch.dense_attention(q, k, v, window=window)
+
+
 def attention_forward(params: Params, x: torch.Tensor, *, rope_theta: float,
                       window: Optional[int] = None,
                       positions: Optional[torch.Tensor] = None,
                       block: Optional[int] = None) -> torch.Tensor:
-    """Full causal self-attention for training / teacher-forced scoring
-    (the reference's dense path). The reference's blockwise path for
-    ``t > block`` is not ported yet and raises."""
+    """Full causal self-attention for training / teacher-forced scoring.
+
+    ``block`` switches to the blockwise path (O(T·block) score memory
+    instead of O(T²)), required for the 4k/32k production shapes:
+    ``dispatch.attention``, the flash kernels on the card, the
+    online-softmax twin ``_blockwise_attn`` on the CPU."""
     b, t, _ = x.shape
-    if block is not None and t > block:
-        raise NotImplementedError(
-            f"blockwise attention (t={t} > block={block}) is not ported yet")
     if positions is None:
         positions = torch.arange(t, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, positions, rope_theta)
-    out = dispatch.dense_attention(q, k, v, window=window)
+    out = _attend(q, k, v, window, block, x.dtype)
     return _out_proj(out, params["wo"])
 
 
+def _block_step(m, l, acc, q, kj, vj, j: int, s: int, scale: float,
+                window: Optional[int]):
+    """One KV block of the online softmax: the reference's scan body."""
+    t, block = q.shape[1], kj.shape[1]
+    qpos = torch.arange(t, device=q.device)[:, None]               # [T, 1]
+    kpos = j * block + torch.arange(block, device=q.device)[None, :]
+    ok = (kpos <= qpos) & (kpos < s)
+    if window is not None:
+        ok &= (qpos - kpos) < window
+    scores = _gqa_scores(q, kj) * scale
+    scores = torch.where(ok[None, None], scores, NEG_INF)      # [B,H,T,blk]
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new[..., None])
+    l_new = l * corr + p.sum(dim=-1)
+    pv = _gqa_combine(p.to(vj.dtype), vj).float()
+    # pv: [B,T,H,D] -> the accumulator's layout [B,H,T,D]
+    acc_new = acc * corr[..., None] + pv.transpose(1, 2)
+    return m_new, l_new, acc_new
+
+
+def _blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, *, window: Optional[int],
+                    block: int) -> torch.Tensor:
+    """Online-softmax attention over KV blocks, the reference's
+    ``_blockwise_attn`` (flash attention's algorithm in plain PyTorch).
+
+    q: [B,T,H,D]; k/v: [B,S,KV,D] -> [B,T,H,D] f32. Causal over absolute
+    positions 0..T-1 (q) vs 0..S-1 (k); S is padded to a multiple of
+    ``block`` (prefix tokens make it ragged). With grad on, each block is
+    checkpointed (the reference's ``jax.checkpoint`` of the scan body): the
+    backward recomputes a block's scores instead of saving them."""
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    if s % block:
+        pad = block - s % block
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    m = torch.full((b, h, t), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, t), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=q.device)
+    remat = torch.is_grad_enabled()
+    for j in range(k.shape[1] // block):
+        kj = k[:, j * block:(j + 1) * block]
+        vj = v[:, j * block:(j + 1) * block]
+        if remat:
+            m, l, acc = checkpoint(_block_step, m, l, acc, q, kj, vj, j, s,
+                                   scale, window, use_reentrant=False)
+        else:
+            m, l, acc = _block_step(m, l, acc, q, kj, vj, j, s, scale,
+                                    window)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]               # [B,H,T,D]
+    return out.transpose(1, 2)                                     # [B,T,H,D]
+
+
 def attention_prefill(params: Params, x: torch.Tensor, *, rope_theta: float,
-                      cache_len: int, window: Optional[int] = None
+                      cache_len: int, window: Optional[int] = None,
+                      block: Optional[int] = None
                       ) -> Tuple[torch.Tensor, KVCache]:
     """Causal attention over the prompt; emits the populated KV cache.
-    (The reference's blockwise ``block`` path is training-only and belongs
-    to a later slice.)"""
+    ``block`` as in ``attention_forward``."""
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, positions, rope_theta)
-    out = dispatch.dense_attention(q, k, v, window=window)
-    out = _out_proj(out, params["wo"])
+    out = _out_proj(_attend(q, k, v, window, block, x.dtype), params["wo"])
 
     pos = positions.expand(b, t).to(torch.int32)
     if cache_len >= t:
@@ -148,13 +217,17 @@ def attention_prefill(params: Params, x: torch.Tensor, *, rope_theta: float,
 
 
 def attention_decode(params: Params, x: torch.Tensor, cache: KVCache, *,
-                     rope_theta: float, window: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, KVCache]:
+                     rope_theta: float, window: Optional[int] = None,
+                     uniform: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """One new token per sequence. x: [B, 1, d].
 
-    The new key/value row is scattered per batch row into slot
-    ``pos % cache_len`` (the reference's scatter variant). The port writes
-    it IN PLACE into ``cache.k``, ``cache.v`` and ``cache.positions`` (the
+    The new key/value row goes into slot ``pos % cache_len`` of each batch
+    row: scattered per row, or with ``uniform=True`` (every sequence at the
+    same position, lockstep serving) into the first row's slot for the
+    whole batch (``index_copy_`` along the slot axis with a one-element
+    index tensor: no host sync), the reference's dynamic-update-slice. With
+    uniform positions the two are bit for bit the same. The port writes IN
+    PLACE into ``cache.k``, ``cache.v`` and ``cache.positions`` (the
     returned cache shares those tensors), where the reference returns
     fresh arrays."""
     b = x.shape[0]
@@ -165,10 +238,16 @@ def attention_decode(params: Params, x: torch.Tensor, cache: KVCache, *,
     v_new = _proj(x, params["wv"])
 
     slot = (pos % cache_len).long()   # ring layout (== pos when S_cache > pos)
-    b_idx = torch.arange(b, device=x.device)
-    cache.k[b_idx, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[b_idx, slot] = v_new[:, 0].to(cache.v.dtype)
-    cache.positions[b_idx, slot] = pos
+    if uniform:
+        s0 = slot[:1]
+        cache.k.index_copy_(1, s0, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(1, s0, v_new.to(cache.v.dtype))
+        cache.positions.index_copy_(1, s0, pos[:, None])
+    else:
+        b_idx = torch.arange(b, device=x.device)
+        cache.k[b_idx, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[b_idx, slot] = v_new[:, 0].to(cache.v.dtype)
+        cache.positions[b_idx, slot] = pos
     pos_c = cache.positions
 
     valid = pos_c >= 0                                       # [B,S]

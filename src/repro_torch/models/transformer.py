@@ -331,41 +331,54 @@ def _feed_forward(kind: str, p: Params, h: torch.Tensor,
     return mlp(p["mlp"], h)
 
 
-def _stack_parts(cls, parts):
-    return cls(*(torch.stack(p) for p in zip(*parts))) if parts else None
+def _fill(stack, i: int, n: int, part):
+    """Layer ``i`` of ``n`` of a cache (a ``KVCache`` or ``SSMState``) into
+    its stacked tree, allocated at the first layer, so the whole cache is
+    never held twice (a 32,768-slot cache of openvla-7b is 17.2 GB a
+    batch row)."""
+    if stack is None:
+        stack = type(part)(*(t.new_empty((n,) + tuple(t.shape))
+                             for t in part))
+    for dst, src in zip(stack, part):
+        dst[i].copy_(src)
+    return stack
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None, *,
             cache_len: Optional[int] = None,
-            window: Optional[int] = None
+            window: Optional[int] = None,
+            block: Optional[int] = None
             ) -> Tuple[Dict[str, torch.Tensor], DecodeCache]:
     """Returns ({"hidden": [B,T,d], "logits": [B,T,Va] f32}, cache).
     ``cache_len`` and ``window`` size the KV caches; an SSM state is the
     state after the prompt and ignores them. Each attention block (each
-    application of the hybrid's shared block) fills its own KV slot."""
+    application of the hybrid's shared block) fills its own KV slot.
+    ``block`` as in ``attention.attention_forward``."""
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
     cache_len = cache_len or x.shape[1]
     eff_len = min(cache_len, window) if window else cache_len
-    caches, states = [], []
-    for kind, p, _ in _schedule(cfg, params):
+    n_attn = (num_shared_applications(cfg) if cfg.arch_type == "hybrid"
+              else cfg.num_layers)
+    kv_stack = ssm_stack = None
+    for kind, p, i in _schedule(cfg, params):
         if kind == "ssm":
             hn = rmsnorm(p["norm"], x, cfg.norm_eps)
             out, st = ssm_lib.ssm_forward(p["ssm"], hn, cfg.d_model, cfg.ssm,
                                           return_state=True)
             x = x + out
-            states.append(st)
+            ssm_stack = _fill(ssm_stack, i, cfg.num_layers, st)
             continue
         hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
         out, kv = attn_lib.attention_prefill(
             p["attn"], hn, rope_theta=cfg.rope_theta, cache_len=eff_len,
-            window=window)
+            window=window, block=block)
         x = x + out
         hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
         x = x + _feed_forward(kind, p, hn, cfg)
-        caches.append(kv)
-    cache = DecodeCache(attn=_stack_parts(KVCache, caches),
-                        ssm=_stack_parts(SSMState, states))
+        kv_stack = _fill(kv_stack, i, n_attn, kv)
+        del kv
+    cache = DecodeCache(attn=kv_stack, ssm=ssm_stack)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = action_head(params["action_head"], x)
     return {"hidden": x, "logits": logits}, cache
@@ -376,12 +389,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
-           cache: DecodeCache, *, window: Optional[int] = None
+           cache: DecodeCache, *, window: Optional[int] = None,
+           uniform: bool = False
            ) -> Tuple[Dict[str, torch.Tensor], DecodeCache]:
     """token: [B] or [B,1] int -> logits [B, 1, Va]. Updates the cache in
     place: each attention block's k/v/positions slot (see
-    ``attention_decode``; the hybrid's application i writes slot i) and
-    each Mamba2 layer's conv tail and SSM state."""
+    ``attention_decode``, also for ``uniform``; the hybrid's application i
+    writes slot i) and each Mamba2 layer's conv tail and SSM state."""
     if token.ndim == 1:
         token = token[:, None]
     x = embed(params["embed"], token).to(_dtype(cfg.compute_dtype))
@@ -401,7 +415,8 @@ def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
         kv = KVCache(kvs.k[i], kvs.v[i], kvs.positions[i], kvs.length[i])
         hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
         out, kv = attn_lib.attention_decode(
-            p["attn"], hn, kv, rope_theta=cfg.rope_theta, window=window)
+            p["attn"], hn, kv, rope_theta=cfg.rope_theta, window=window,
+            uniform=uniform)
         x = x + out
         hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
         x = x + _feed_forward(kind, p, hn, cfg)

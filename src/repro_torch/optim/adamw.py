@@ -14,7 +14,8 @@ one leaf at a time.
 
 Moments placed as DTensors over ``data`` (``optim/zero.py``, ZeRO-2) are
 updated slice by slice: each rank applies the same per-element arithmetic
-to its slice of the moments and of the parameter, then the parameter
+to its slice of the moments, the parameter and the gradient (a full
+tensor, or a DTensor placed as the parameter is), then the parameter
 slices are all-gathered. The global grad norm is taken on the full f32
 grads before any slicing.
 """
@@ -25,7 +26,7 @@ from typing import Callable, Dict, NamedTuple, Tuple, Union
 import torch
 
 from repro_torch.optim import zero
-from repro_torch.sharding.rules import is_dtensor
+from repro_torch.sharding.rules import full_tensor, is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -52,9 +53,13 @@ def warmup_schedule(base_lr: float, warmup_steps: int) -> Callable:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The norm over every leaf; a DTensor leaf's sum of squares is taken
+    over its full value (``full_tensor`` of the scalar: an all-reduce where
+    it is sharded)."""
     total = 0
     for x in tree_leaves(tree):
-        total = total + x.float().square().sum()
+        sq = x.float().square().sum()
+        total = total + (sq.full_tensor() if is_dtensor(sq) else sq)
     return torch.sqrt(total)
 
 
@@ -99,7 +104,7 @@ def update(grads, state: AdamWState, params,
         if is_dtensor(m):
             zero.update_leaf(step_, p, g, m, v, lr_leaf)
         else:
-            step_(p, g, m, v, lr_leaf)
+            step_(p, full_tensor(g), m, v, lr_leaf)
 
     tree_map(upd, params, grads, state.mu, state.nu, lr_tree)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu), norm

@@ -132,25 +132,30 @@ def update_leaf(step: Callable, p, g, m, v, lr) -> None:
     """ZeRO-2 for one leaf whose moments ``m``, ``v`` are DTensors:
     ``step(p_part, g_part, m_local, v_local, lr)`` (the per-element AdamW
     arithmetic, in place) on this rank's region of the moments, with the
-    matching region of the full gradient ``g`` and of the parameter ``p``
-    (a tensor or a DTensor); then the updated parameter regions are
-    all-gathered (as bits) over the mesh dim that shards the moments but
-    not the parameter, so every rank holds the whole updated parameter
-    (its own placement of it)."""
+    matching region of the gradient ``g`` and of the parameter ``p`` (each
+    a full tensor, or a DTensor whose local region holds the moments'
+    region, as one placed like the parameter does); then the updated
+    parameter regions are all-gathered (as bits) over the mesh dim that
+    shards the moments but not the parameter, so every rank holds the whole
+    updated parameter (its own placement of it)."""
     import torch.distributed as dist
     mesh = m.device_mesh
     shape = tuple(m.shape)
     mshape, moff = local_region(shape, mesh, m.placements)
-    if is_dtensor(p):
-        p_loc = p.to_local()
-        p_plc = p.placements
-        _, poff = local_region(shape, p.device_mesh, p_plc)
-    else:
-        p_loc, p_plc, poff = p, None, (0,) * len(shape)
-    rel = tuple(a - b for a, b in zip(moff, poff))
-    p_part = region(p_loc, mshape, rel)
-    step(p_part, region(full_tensor(g), mshape, moff), m.to_local(),
-         v.to_local(), lr)
+
+    def local(x):
+        """(local tensor, placements or None, offset of its region)."""
+        if is_dtensor(x):
+            _, off = local_region(shape, x.device_mesh, x.placements)
+            return x.to_local(), x.placements, off
+        return x, None, (0,) * len(shape)
+
+    def part(loc, off):
+        return region(loc, mshape, tuple(a - b for a, b in zip(moff, off)))
+    p_loc, p_plc, poff = local(p)
+    g_loc, _, goff = local(g)
+    p_part = part(p_loc, poff)
+    step(p_part, part(g_loc, goff), m.to_local(), v.to_local(), lr)
     extra = [(i, pl) for i, pl in enumerate(m.placements)
              if pl.is_shard() and (p_plc is None or p_plc[i] != pl)]
     if not extra:

@@ -380,6 +380,11 @@ def place_tree(tree, mesh, specs):
                     specs)
 
 
+def spec_tree(shardings):
+    """The spec tree of a tree of ``NamedSharding``s."""
+    return tree_map(lambda s: s.spec, shardings)
+
+
 def is_dtensor(x) -> bool:
     """``x`` is a DTensor (none exists before ``torch.distributed.tensor``
     is imported, so the plain path imports nothing)."""
@@ -398,3 +403,8 @@ def full_tensor(x):
            for m, p in enumerate(x.placements)):
         return x.to_local()
     return x.full_tensor()
+
+
+def full_tree(tree):
+    """:func:`full_tensor` over a tree."""
+    return tree_map(full_tensor, tree)

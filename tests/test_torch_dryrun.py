@@ -1,0 +1,185 @@
+"""The roofline and the dry run (``repro_torch.roofline.analysis``,
+``repro_torch.launch.dryrun``) against the JAX package, on the CPU.
+
+  * The roofline's arithmetic (``model_flops`` for every arch x shape,
+    ``combine_layer_delta``, ``roofline_from_terms`` with the reference's
+    constants, ``collective_bytes`` on a record against the reference's
+    parse of the same collectives in HLO text) equals the reference's.
+  * ``terms_from_program``: the FLOPs of a reduced dense prefill step equal
+    the analytic count of its products; the layer-delta extrapolation from
+    1 and 2 layers equals the 4-layer program's count (FLOPs and bytes).
+  * ``lower_one`` on reduced configs on a fake group of 256 ranks (a
+    subprocess: the group is process-global) returns the reference's record
+    keys (those of ``experiments/dryrun/16x16/deepseek-7b__train_4k.json``
+    for a train, and the reference's ``state_bytes_per_dev`` for a decode),
+    the placed state's bytes, and the collectives the placed step issues.
+"""
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro.launch import mesh as jmesh
+from repro.roofline import analysis as janalysis
+import repro_torch.configs as tconfigs
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import transformer as ttransformer
+from repro_torch.roofline import analysis as tanalysis
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+TERMS = [
+    {"flops": 3.0e12, "bytes": 2.0e11,
+     "coll": {"all-gather": 1.0e9, "all-reduce": 4.0e8, "reduce-scatter": 0.0,
+              "all-to-all": 0.0, "collective-permute": 2.0e6},
+     "counts": {"all-gather": 10, "all-reduce": 3, "reduce-scatter": 0,
+                "all-to-all": 0, "collective-permute": 1}},
+    {"flops": 5.5e12, "bytes": 3.1e11,
+     "coll": {"all-gather": 1.8e9, "all-reduce": 4.0e8, "reduce-scatter": 0.0,
+              "all-to-all": 0.0, "collective-permute": 1.0e6},
+     "counts": {"all-gather": 19, "all-reduce": 3, "reduce-scatter": 0,
+                "all-to-all": 0, "collective-permute": 1}},
+]
+
+
+def test_model_flops_equal_reference():
+    for arch in jconfigs.list_archs():
+        for js, ts in zip(jconfigs.INPUT_SHAPES, tconfigs.INPUT_SHAPES):
+            assert tanalysis.model_flops(tconfigs.get_config(arch), ts) == \
+                janalysis.model_flops(jconfigs.get_config(arch), js)
+
+
+@pytest.mark.parametrize("n_units", [1.0, 32.0, 6.5])
+def test_combine_and_roofline_equal_reference(n_units, monkeypatch):
+    want = janalysis.combine_layer_delta(*TERMS, n_units)
+    got = tanalysis.combine_layer_delta(*TERMS, n_units)
+    assert got == want
+    for name in ("PEAK_FLOPS_BF16", "HBM_BW", "ICI_BW"):
+        monkeypatch.setattr(tanalysis, name, getattr(jmesh, name))
+    for arch, shape in (("deepseek-7b", "train_4k"),
+                        ("openvla-7b", "decode_32k")):
+        w = janalysis.roofline_from_terms(
+            want, jconfigs.get_config(arch), jconfigs.get_shape(shape), 256,
+            scale=4)
+        g = tanalysis.roofline_from_terms(
+            got, tconfigs.get_config(arch), tconfigs.get_shape(shape), 256,
+            scale=4)
+        assert g.as_dict() == w.as_dict()
+
+
+def test_roofline_uses_the_h100_constants():
+    t = tanalysis.roofline_from_terms(TERMS[0], tconfigs.get_config(
+        "deepseek-7b"), tconfigs.get_shape("train_4k"), 1)
+    assert t.compute_s == TERMS[0]["flops"] / 989e12
+    assert t.memory_s == TERMS[0]["bytes"] / 3.35e12
+    assert t.collective_s == t.coll_bytes / 50e9
+
+
+def test_collective_bytes_equal_reference_parse():
+    record = [("all-gather", 100), ("all-reduce", 8), ("all-gather", 4),
+              ("collective-permute", 12)]
+    hlo = "\n".join([
+        "%ag = f32[25]{0} all-gather(f32[5]{0} %p), dimensions={0}",
+        "%ar = f32[2]{0} all-reduce(f32[2]{0} %q), to_apply=%add",
+        "%ag2 = s8[4]{0} all-gather(s8[1]{0} %r), dimensions={0}",
+        "%cp = s32[3]{0} collective-permute(s32[3]{0} %s)",
+    ])
+    assert tanalysis.collective_bytes(record) == \
+        janalysis.collective_bytes(hlo)
+
+
+def _prefill_terms(cfg, b, t):
+    params = ttransformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+    tokens = torch.zeros((b, t), dtype=torch.int32)
+    with torch.no_grad():
+        return tanalysis.terms_from_program(
+            tsteps.prefill_step, params, tokens, None, cfg=cfg, window=None,
+            cache_len=t, block=None)
+
+
+def test_program_flops_equal_the_analytic_count():
+    """Reduced deepseek-7b (MHA, no prefix): per layer the q/k/v/o
+    projections, the scores and the value product over all T x T pairs
+    (the dense plain route), the SwiGLU's three products; then the head."""
+    cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"), layers=2,
+                           d_model=64)
+    b, t = 2, 40
+    h, kv, d, dm = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    per_layer = (2 * b * t * dm * d * (2 * h + 2 * kv)
+                 + 2 * 2 * b * t * t * h * d
+                 + 3 * 2 * b * t * dm * cfg.d_ff)
+    want = cfg.num_layers * per_layer + 2 * b * t * dm * cfg.action_vocab_size
+    terms = _prefill_terms(cfg, b, t)
+    assert terms["flops"] == want
+    assert terms["bytes"] > 0
+    assert terms["counts"] == dict.fromkeys(tanalysis.COLLECTIVE_OPS, 0)
+
+
+def test_layer_delta_equals_the_full_programs_count():
+    cfg = tconfigs.reduced(tconfigs.get_config("deepseek-7b"), layers=4,
+                           d_model=64)
+    one, two, four = (_prefill_terms(dataclasses.replace(cfg, num_layers=n),
+                                     2, 24) for n in (1, 2, 4))
+    got = tanalysis.combine_layer_delta(one, two, 4.0)
+    assert got["flops"] == four["flops"]
+    assert got["bytes"] == four["bytes"]
+
+
+_LOWER = r"""
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch import dryrun
+out = {}
+for arch, shape in (("deepseek-7b", "train_4k"), ("openvla-7b", "decode_32k")):
+    out[shape] = dryrun.lower_one(
+        arch, shape, cfg=reduced(get_config(arch), layers=2, d_model=64))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def records():
+    res = subprocess.run([sys.executable, "-c", _LOWER], cwd=ROOT,
+                         env={"PATH": "/usr/bin:/bin", "HOME": str(ROOT)},
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_lower_one_train_record_has_the_reference_keys(records):
+    want = json.loads((ROOT / "experiments" / "dryrun" / "16x16" /
+                       "deepseek-7b__train_4k.json").read_text())
+    rec = records["train_4k"]
+    assert set(want) <= set(rec)
+    for key in ("memory", "roofline"):
+        assert set(want[key]) == set(rec[key])
+    assert set(want["roofline"]["coll_by_kind"]) == \
+        set(rec["roofline"]["coll_by_kind"])
+    assert (rec["mesh"], rec["chips"], rec["kind"], rec["accum"]) == \
+        ("16x16", 256, "train", 1)
+    # the placed state (params over model, moments also over data) and the
+    # collectives of the placed step: the params gathered whole, the
+    # updated slices all-gathered over data, the grad norm's all-reduces
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] > rec["param_bytes_per_dev"] \
+        + rec["moment_bytes_per_dev"] > 0
+    assert mem["total_hbm_bytes"] == mem["argument_size_in_bytes"] \
+        + mem["temp_size_in_bytes"]
+    counts = rec["roofline"]["coll_by_kind"]["counts"]
+    assert counts["all-gather"] > 0 and counts["all-reduce"] > 0
+    assert rec["roofline"]["flops"] > rec["roofline"]["model_flops"] / 256
+    assert "not split over data" in rec["program"]
+
+
+def test_lower_one_decode_record(records):
+    rec = records["decode_32k"]
+    assert rec["kind"] == "decode" and "accum" not in rec
+    assert rec["state_bytes_per_dev"] > 0
+    assert rec["roofline"]["model_flops"] == 2.0 * rec[
+        "active_param_count"] * 128

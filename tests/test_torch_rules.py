@@ -74,7 +74,13 @@ missing = [m for m in ("repro_torch.kernels.ops",
                        "repro_torch.sharding.rules",
                        "repro_torch.optim.zero",
                        "repro_torch.runtime.step_program",
-                       "repro_torch.runtime.pipeline_exec")
+                       "repro_torch.runtime.pipeline_exec",
+                       "repro_torch.launch.steps",
+                       "repro_torch.launch.train",
+                       "repro_torch.launch.serve",
+                       "repro_torch.launch.dryrun",
+                       "repro_torch.roofline",
+                       "repro_torch.roofline.analysis")
            if m not in sys.modules]
 print(bad, missing)
 sys.exit(1 if bad or missing else 0)
@@ -225,6 +231,7 @@ def test_entry_points_default_to_cuda(tmp_path):
     from repro_torch.runtime.transport.resilience import RecoveredState
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.runtime.step_program import build_train_step_program
+    from repro_torch.launch import serve, train
     checkpoint.save(str(tmp_path), 1, {"w": np.zeros(2, np.float32)})
 
     def resume_journal():
@@ -298,6 +305,8 @@ def test_entry_points_default_to_cuda(tmp_path):
                               tconfigs.RuntimeConfig(pipeline=True),
                               FifoChannel(1), VersionedWeightStore()),
         lambda: build_train_step_program(cfg, tconfigs.RLConfig()),
+        lambda: train.main(["--local", "--steps", "1"]),
+        lambda: serve.main(["--local"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -156,7 +156,8 @@ Phases, each printing one line of its numbers:
  17. plane (after phase 15, whose figures its first line prints beside
      its own; ``[plane]``, ``[telemetry]``, ``[journal]`` lines): the
      remote phase's two children with no policy and no CUDA context
-     (``inference_plane``): (a) host mode, the parent's pool serving
+     (``inference_plane``), at WIRE_LAYERS too: (a) host mode, the
+     parent's pool serving
      every request over the server's ``infer.*`` endpoints, 3 steps held
      as phase 10's with K1/K2 counted in the parent alone, nvidia-smi's
      compute processes and the children's memory maps sampled through
@@ -164,14 +165,24 @@ Phases, each printing one line of its numbers:
      "on_failure"``) SIGKILLed mid-episode and respawned on its port,
      every request resolved once, its acquire seconds and the respawn's
      wall printed; (c) (a) again in a process of its own under
-     ``REPRO_TRACE=1`` at 2 layers (TRACE_LAYERS, cut for the run's time
-     limit), its dump joining a child's ``rollout.put`` to the
+     ``REPRO_TRACE=1``, its dump joining a child's ``rollout.put`` to the
      parent's ``server.apply`` and a version's publish, acquire and first
      action; (d) the journal at 2 layers: a crash-consistent copy taken
      mid-run and a new system with ``resume_journal``, the newest publish
      on the card bit for bit and the items as journaled.
 
- 18. steps (last; ``[steps]`` lines): the step programs of
+ 18. spmd (``[spmd]`` lines): the placed step programs split over a mesh
+     (``sharding/spmd.py``) on two ranks sharing the one card, each a
+     spawned process, a gloo rank (NCCL takes one rank a device): openvla-7b
+     at full width and SPMD_LAYERS layers, an f32 copy and bf16, on the
+     meshes 2 x 1 (the batch split over data, ranks with unequal mask
+     counts) and 1 x 2 (attention, the MLP and the embedding split over
+     model): one ``seq_train_step`` (accum 2), one prefill and three
+     decodes each, held against the one-rank program run first in the same
+     child from the same params and batch (f32 within SPMD_F32_BOUND of
+     the largest value, bf16 within LIVE_ROUTE_BOUND / LIVE_LEAF_BOUND);
+     each child's K1-K4 launches, peak memory and walls printed.
+ 19. steps (last; ``[steps]`` lines): the step programs of
      ``repro_torch.launch.steps`` at the production shapes, on openvla-7b
      at full width (bf16, random weights from a seed). Kernels: K1 (+LSE)
      and K3 at train_4k's micro-batch (B8 x 4352 positions; the plain
@@ -276,9 +287,13 @@ REMOTE_WORKERS = 2
 REMOTE_ENVS = 4
 SHM_HEADROOM = 2
 PLANE_SMI_PERIOD_S = 1.0          # the plane phase's CUDA-holder sampling
-# The plane phase's traced run (c) at 2 layers, cut from TRAIN_LAYERS for
-# the run's time limit (its checks are on the trace's joins, not the model)
-TRACE_LAYERS = 2
+# The plane phase at 2 layers, cut from TRAIN_LAYERS for the run's time
+# limit: its checks are on the wire, the children, the tiers, the trace's
+# joins and the launch counts, not on the model's depth. The remote phase
+# stays at TRAIN_LAYERS: each child must pull every version but the last,
+# which a 2-layer trainer publishes faster than a child pulls (one run at 2
+# layers read versions 0, 1, 3 of 0-3).
+WIRE_LAYERS = 2
 # The world-model phase: run_wm's train steps, the imagination batch, and
 # the card-vs-CPU bar of one WM step (of each leaf's largest value, f32).
 WM_STEPS = 3
@@ -479,12 +494,13 @@ MOE_LEAF_BOUND = 4.0
 MOE_STEPS_BOUND = [dict.fromkeys(STEP_KEYS, 0.2)] * 2 + [
     dict.fromkeys(STEP_KEYS, 0.6)]
 MOE_LIVE_STEPS_BOUND = [{"entropy": 5e-3, "grad_norm": 0.5}] * 3
-# granite's three system runs (phase 15) at 12 of its 24 layers, for the
-# run's time alone: at full depth they took ~104 s on one H100, and the
-# whole run went past 900 s with the plane phase added. At 24 layers the f32
-# no-drop replay held its bounds in 3 of 3 runs of a separate call, its
-# closest router boundary gap printed (ROADMAP C8)
-MOE_SYSTEM_LAYERS = 12
+# granite's three system runs (phase 16) at 6 of its 24 layers, for the
+# run's time alone: at full depth they took ~104 s on one H100, at 12
+# layers 40.7-72.0 s, and the whole run went past 1,180 s on a slow host
+# with the spmd phase added. At 24 layers the f32 no-drop replay
+# held its bounds in 3 of 3 runs of a separate call, its closest router
+# boundary gap printed (ROADMAP C8)
+MOE_SYSTEM_LAYERS = 6
 MOE_F32_BOUNDS = (6e-3, 0.1, [{"loss": 1e-4, "kl": 1e-4, "entropy": 1e-5,
                                "grad_norm": 6e-4}, {}, {}])
 
@@ -4106,7 +4122,7 @@ def phase_remote(dev, smi, counters, inproc_keys):
     return launches, figures
 
 
-def _plane_config(plane, n_layers=TRAIN_LAYERS, **transport):
+def _plane_config(plane, n_layers=WIRE_LAYERS, **transport):
     """The plane phase's system: the system phase's model at ``n_layers``
     layers, no local rollout worker, REMOTE_WORKERS spawned rollout
     children of REMOTE_ENVS envs on the ring data plane, served by the
@@ -4211,7 +4227,7 @@ def _plane_host(dev, smi, counters, remote):
     import gc
     import torch
     cfg, rl, rt = _plane_config("host")
-    n_l, ga, a = TRAIN_LAYERS, rl.grad_accum, cfg.action_dim
+    n_l, ga, a = WIRE_LAYERS, rl.grad_accum, cfg.action_dim
     seen = {"children": set(), "listed": set(), "opened": set(),
             "samples": 0}
 
@@ -4314,7 +4330,8 @@ def _plane_spawn(dev, smi, counters):
     import torch
     from repro_torch.configs.base import SupervisionConfig
     from repro_torch.models.policy import init_policy_params
-    params = init_policy_params(_system_config()[0], 0, device=dev)
+    params = init_policy_params(_system_config(n_layers=WIRE_LAYERS)[0], 0,
+                                device=dev)
     lane, _ = _lane_bytes(sum(x.numel() * x.element_size()
                               for x in _leaves(params)))
     del params
@@ -4324,7 +4341,7 @@ def _plane_spawn(dev, smi, counters):
         reconnect_backoff_s=0.05, supervision=SupervisionConfig(
             restart="on_failure", max_restarts=2, backoff_initial_s=0.1,
             backoff_max_s=1.0))
-    n_l, ga, a = TRAIN_LAYERS, rl.grad_accum, cfg.action_dim
+    n_l, ga, a = WIRE_LAYERS, rl.grad_accum, cfg.action_dim
     kill = {}
 
     def go(system):
@@ -4435,7 +4452,7 @@ def _plane_spawn(dev, smi, counters):
 
 
 def traced_host_plane(path) -> int:
-    """The traced run of ``_plane_host``'s system at TRACE_LAYERS (started by
+    """The traced run of ``_plane_host``'s system at WIRE_LAYERS (started by
     ``_plane_trace`` as ``chip_smoke.py --traced-host-plane PATH`` with
     ``REPRO_TRACE=1``, which its children inherit): ``run_async`` for
     REMOTE_STEPS steps, the trace dumped to ``path``, one JSON line of the
@@ -4447,7 +4464,7 @@ def traced_host_plane(path) -> int:
     from repro_torch.runtime import telemetry
     dev = torch.device("cuda", 0)
     system = _plane_system(dev, *_plane_config("host",
-                                               n_layers=TRACE_LAYERS))
+                                               n_layers=WIRE_LAYERS))
     m = system.run_async(train_steps=REMOTE_STEPS, wall_timeout_s=300.0)
     bad = {k: h for k, h in system.health().items() if not h["healthy"]}
     if bad or m["train_steps"] < REMOTE_STEPS:
@@ -4698,6 +4715,371 @@ def phase_plane(dev, smi, counters, remote):
     _plane_journal(dev, smi)
     print(f"[plane] phase wall {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# --- the placed step programs on two ranks sharing the card (``spmd``) ------
+# openvla-7b at full width (d 4096, 32 heads, vocab 32,000) and SPMD_LAYERS
+# layers, an f32 copy and bf16, from one seed: each of two spawned
+# processes is a gloo rank (NCCL takes one rank a device; gloo stages CUDA
+# tensors through the host) on the one card, over a FileStore. On the
+# meshes 2 x 1 (the batch split over data) and 1 x 2 (tensor parallelism
+# over model) each rank runs one seq_train_step (accum SPMD_ACCUM), one
+# prefill_step and SPMD_DECODES serve_steps on its rows and shards, held
+# against the one-rank program it runs first on the card from the same
+# params and batch: the f32 copy's metrics, first moments (the clipped
+# grads) and logits each within SPMD_F32_BOUND of their largest value
+# (PERF.md's f32 bar), the updated params by test_torch_steps.py's AdamW
+# rule (0.1 lr an element, 2 lr where the moment is within that bar of 0);
+# bf16 within the steps phase's LIVE_ROUTE_BOUND (metrics, logits of their
+# largest) and LIVE_LEAF_BOUND (moments and params, each leaf and layer,
+# |a - b| / |b| in Frobenius norm). The batch's second data rank's rows
+# keep about 40% of the first's mask entries. The behaviour log-probs are
+# the one-rank kernel route's own + 0.1 N(0, 1), so ω's mean stays above
+# 0.5. Two processes sharing one card's SMs say nothing of a mesh's speed.
+SPMD_LAYERS = 2
+SPMD_BATCH = 4                     # accum 2 x 2 rows: one a data rank
+SPMD_ACCUM = 2
+SPMD_SEQ = 128
+SPMD_PROMPT = 12
+SPMD_DECODES = 3
+SPMD_MESHES = ((2, 1), (1, 2))
+SPMD_F32_BOUND = 1e-4
+SPMD_TIMEOUT_S = 300
+
+_SPMD_SCRIPT = r"""
+import time
+T_START = time.perf_counter()
+import dataclasses, json, math, sys
+import torch, torch.distributed as dist
+sys.path.insert(0, "src")
+from repro_torch.configs import get_config, get_shape
+from repro_torch.configs.base import RLConfig
+from repro_torch.core.advnorm import init_adv_state
+from repro_torch.kernels import gipo_loss as gl
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
+from repro_torch.launch import steps, train
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import transformer
+from repro_torch.models.policy import init_policy_params
+from repro_torch.optim import adamw
+from repro_torch.sharding import rules, spmd
+from repro_torch.tree import tree_leaves_with_path
+
+store, rank = sys.argv[1], int(sys.argv[2])
+a = json.loads(sys.argv[3])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2)
+T_READY = time.perf_counter()
+COUNTED = {"flash_attention": flash_attention,
+           "decode_attention": decode_attention,
+           "flash_attention_bwd": flash_attention_bwd,
+           "fused_policy_loss_fwd": gl.policy_loss_fwd,
+           "fused_policy_loss_bwd": gl.policy_loss_bwd,
+           "fused_policy_loss_fwd tensor-core body": gl.policy_loss_fwd.tc,
+           "fused_policy_loss_bwd tensor-core body": gl.policy_loss_bwd.tc}
+ACC, SEQ, BATCH = a["accum"], a["seq"], a["batch"]
+
+
+def zero():
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def counts():
+    return {k: fn.launches for k, fn in COUNTED.items()}
+
+
+def make_batch(cfg):
+    g = torch.Generator(device=dev).manual_seed(17)
+    mb = BATCH // ACC
+    lead = (ACC, mb)
+    mask = (torch.rand(lead + (SEQ - 1,), generator=g, device=dev)
+            > 0.1).float()
+    keep = (torch.rand(lead + (SEQ - 1,), generator=g, device=dev)
+            < 0.4).float()
+    mask[:, mb // 2:] *= keep[:, mb // 2:]
+    return {
+        "tokens": torch.randint(0, cfg.vocab_size, lead + (SEQ,),
+                                generator=g, device=dev, dtype=torch.int32),
+        "behavior_logp": torch.zeros(lead + (SEQ,), device=dev),
+        "rewards": torch.randn(lead + (SEQ - 1,), generator=g, device=dev),
+        "dones": (torch.rand(lead + (SEQ - 1,), generator=g, device=dev)
+                  < 1 / 64).float(),
+        "mask": mask,
+        "prefix": torch.randn(lead + (cfg.num_prefix_tokens, 1024),
+                              generator=g, device=dev),
+    }, g
+
+
+def behaviour(cfg, params, b, g):
+    out = torch.zeros_like(b["behavior_logp"])
+    with torch.no_grad():
+        for i in range(ACC):
+            tok = b["tokens"][i]
+            fw = transformer.forward(cfg, params, tok, b["prefix"][i])
+            p = fw["logits"].shape[1] - SEQ
+            lp = torch.log_softmax(fw["logits"][:, p:-1].float(), dim=-1)
+            tg = (tok[:, 1:] % cfg.action_vocab_size).long()[..., None]
+            out[i, :, 1:] = lp.gather(-1, tg)[..., 0] + 0.1 * torch.randn(
+                tg.shape[:2], generator=g, device=dev)
+    return out
+
+
+def serve(cfg, params, tokens, prefix, decode):
+    out = []
+    logits, cache = steps.prefill_step(
+        params, tokens, prefix, cfg=cfg, window=None,
+        cache_len=cfg.num_prefix_tokens + tokens.shape[1] + len(decode))
+    out.append(logits.float())
+    for tok in decode:
+        logits, cache = steps.serve_step(params, tok, cache, cfg=cfg,
+                                         window=None)
+        out.append(logits.float())
+    return torch.stack(out)
+
+
+def leaf_worst(got, ref, mesh, f32):
+    # each local leaf (each layer of a stacked one) against the one-rank
+    # leaf's same region: f32 |a - b| over the leaf's largest |b|; bf16
+    # |a - b| / |b| in Frobenius norm
+    want = dict(tree_leaves_with_path(ref))
+    worst, where = 0.0, None
+    for path, x in tree_leaves_with_path(got):
+        full = want[path]
+        shape, off = rules.local_region(tuple(full.shape), mesh,
+                                        x.placements)
+        b, l = rules.region(full, shape, off).float(), x.to_local().float()
+        layers = range(b.shape[0]) if path[0] == "layers" else [None]
+        for i in layers:
+            bi, li = (b, l) if i is None else (b[i], l[i])
+            if f32:
+                r = float((li - bi).abs().max()) / max(
+                    float(full.float().abs().max()), 1e-30)
+            else:
+                r = float(torch.linalg.vector_norm(li - bi)
+                          / torch.linalg.vector_norm(bi).clamp_min(1e-30))
+            if not math.isfinite(r) or r > worst:
+                worst, where = r, ".".join(path) + (
+                    "" if i is None else f"[{i}]")
+            if not math.isfinite(r):
+                return float("nan"), where
+    return worst, where
+
+
+def params_worst(got, ref, ref_mu, mesh, lr, bar):
+    # f32: each element's move from the one-rank params over what AdamW's
+    # first step allows (test_torch_steps.py's rule): 0.1 lr where the
+    # one-rank first moment is past ``bar`` of its leaf's largest value,
+    # 2 lr where it is within (a step moves an element by about lr
+    # whatever its gradient's size, its sign by the gradient's)
+    want, mus = dict(tree_leaves_with_path(ref)), dict(
+        tree_leaves_with_path(ref_mu))
+    worst, where = 0.0, None
+    for path, x in tree_leaves_with_path(got):
+        shape, off = rules.local_region(tuple(want[path].shape), mesh,
+                                        x.placements)
+        b = rules.region(want[path], shape, off).float()
+        mu = rules.region(mus[path], shape, off).float()
+        big = mu.abs() > bar * float(mus[path].abs().max())
+        held = torch.where(big, 0.1 * lr, 2 * lr)
+        r = float(((x.to_local().float() - b).abs() / held).max())
+        if not math.isfinite(r) or r > worst:
+            worst, where = r, ".".join(path)
+    return worst, where
+
+
+def metric_worst(got, ref, floor):
+    worst, where = 0.0, None
+    for k, v in ref.items():
+        r = abs(float(got[k]) - v) / max(abs(v), floor)
+        if not math.isfinite(float(got[k])) or r > worst:
+            worst, where = r, k
+    return worst, where
+
+
+report = {"rank": rank, "imports_s": T_READY - T_START, "runs": []}
+for label, dtype in (("f32 copy", "float32"), ("bf16", "bfloat16")):
+    cfg = dataclasses.replace(get_config("openvla-7b"),
+                              num_layers=a["layers"], param_dtype=dtype,
+                              compute_dtype=dtype)
+    f32 = dtype == "float32"
+    bound_m, bound_l = (a["f32"], a["f32"]) if f32 else (a["route"],
+                                                         a["leaf"])
+    rl = RLConfig(warmup_steps=1)
+    b, g = make_batch(cfg)
+    params = init_policy_params(cfg, 0, device=dev)
+    b["behavior_logp"] = behaviour(cfg, params, b, g)
+    t0 = time.perf_counter()
+    st = steps.SeqTrainState(params, adamw.init(params), init_adv_state(dev))
+    st, m = steps.seq_train_step(st, b, cfg=cfg, rl=rl, accum=ACC)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    ref_m = {k: float(v) for k, v in m.items()}
+    ref_mu, ref_p = st.opt.mu, st.params
+    del st, params
+    gs = torch.Generator(device=dev).manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, a["prompt"]),
+                           generator=gs, device=dev, dtype=torch.int32)
+    prefix = torch.randn((BATCH, cfg.num_prefix_tokens, 1024), generator=gs,
+                         device=dev)
+    decode = torch.randint(0, cfg.vocab_size, (a["decodes"], BATCH),
+                           generator=gs, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        ref_logits = serve(cfg, init_policy_params(cfg, 0, device=dev),
+                           tokens, prefix, decode)
+    torch.cuda.empty_cache()
+    for d, mdl in a["meshes"]:
+        mesh = make_mesh(d, mdl, device="cuda")
+        shape = dataclasses.replace(get_shape("train_4k"), global_batch=BATCH,
+                                    seq_len=SEQ)
+        _, _, sspec, _ = steps.train_specs(cfg, shape, mesh, accum=ACC)
+        state = train.init_state(cfg, mesh, sspec, dev)
+        lay = spmd.layout(cfg, state.params)
+        rows = spmd.rows(b, mesh, dim=1)
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = steps.seq_train_step(state, rows, cfg=cfg, rl=rl,
+                                        accum=ACC,
+                                        grad_shardings=sspec.params)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        train_counts = counts()
+        mw = metric_worst(m, ref_m, 1e-3)
+        lw = leaf_worst(state.opt.mu, ref_mu, mesh, f32)
+        pw = (params_worst(state.params, ref_p, ref_mu, mesh, rl.lr_policy,
+                           a["f32"]) if f32
+              else leaf_worst(state.params, ref_p, mesh, False))
+        del state
+        p0 = init_policy_params(cfg, 0, device=dev)
+        placed = rules.place_tree(p0, mesh, rules.param_specs(cfg, p0, mesh))
+        del p0
+        data = spmd.DataAxes(mesh)
+        sl = slice(data.index * BATCH // data.size,
+                   (data.index + 1) * BATCH // data.size)
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = serve(cfg, placed, tokens[sl], prefix[sl], decode[:, sl])
+        torch.cuda.synchronize()
+        serve_wall = time.perf_counter() - t0
+        serve_counts = counts()
+        want = ref_logits[:, sl]
+        gw = float((got - want).abs().max()) / float(want.abs().max())
+        del placed
+        torch.cuda.empty_cache()
+        run = dict(label=label, mesh=f"{d}x{mdl}", tp=lay.tensor_parallel(),
+                   data_split=lay.data is not None,
+                   metrics=mw, leaves=lw, params=pw, logits=gw,
+                   train_counts=train_counts, serve_counts=serve_counts,
+                   one_rank_wall_s=one_wall, train_wall_s=train_wall,
+                   serve_wall_s=serve_wall,
+                   omega_mean=float(m["omega_mean"]),
+                   ref_omega_mean=ref_m["omega_mean"])
+        report["runs"].append(run)
+        bad = [n for n, (v, bound) in (
+            ("metrics", (mw[0], bound_m)), ("moments", (lw[0], bound_l)),
+            ("params", (pw[0], 1.0 if f32 else bound_l)),
+            ("logits", (gw, bound_m))) if not v <= bound]
+        if bad:
+            print(json.dumps(report))
+            raise AssertionError(f"rank {rank} {label} {d}x{mdl}: {bad}: "
+                                 f"{run}")
+    del ref_mu, ref_p, ref_logits
+    torch.cuda.empty_cache()
+report["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+report["wall_s"] = time.perf_counter() - T_START
+dist.barrier()
+dist.destroy_process_group()
+print(json.dumps(report))
+"""
+
+
+def phase_spmd(dev, smi, counting):
+    """The placed step programs on two gloo ranks sharing the card (the
+    block above): each child's checks, its K1-K4 launches on each mesh's
+    train step and serving, its peak memory and walls printed; each
+    child's launches for the kernels line. A child that fails fails the
+    run."""
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
+    args = json.dumps(dict(
+        layers=SPMD_LAYERS, batch=SPMD_BATCH, accum=SPMD_ACCUM,
+        seq=SPMD_SEQ, prompt=SPMD_PROMPT, decodes=SPMD_DECODES,
+        meshes=SPMD_MESHES, f32=SPMD_F32_BOUND, route=LIVE_ROUTE_BOUND,
+        leaf=LIVE_LEAF_BOUND))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="2")
+    procs = [(r, subprocess.Popen(
+        [sys.executable, "-c", _SPMD_SCRIPT, os.path.join(tmp, "store"),
+         str(r), args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for r in range(2)]
+    try:
+        done = [(r, *p.communicate(timeout=SPMD_TIMEOUT_S), p.returncode)
+                for r, p in procs]
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, out, err, code in done:
+        if code:
+            raise AssertionError(f"[spmd] rank {r} exited {code}: "
+                                 f"{out[-3000:]}{err[-5000:]}")
+    by_path = {}
+    for r, out, _, _ in done:
+        rep = json.loads(out.strip().splitlines()[-1])
+        total = dict.fromkeys(counting(), 0)
+        for run in rep["runs"]:
+            tc, sc = run["train_counts"], run["serve_counts"]
+            for k in total:
+                total[k] += tc.get(k, 0) + sc.get(k, 0)
+            want_t = dict(flash_attention=2 * SPMD_LAYERS * SPMD_ACCUM,
+                          flash_attention_bwd=SPMD_LAYERS * SPMD_ACCUM,
+                          fused_policy_loss_fwd=SPMD_ACCUM,
+                          fused_policy_loss_bwd=SPMD_ACCUM)
+            want_s = dict(flash_attention=SPMD_LAYERS,
+                          decode_attention=SPMD_LAYERS * SPMD_DECODES)
+            for name, got, want in (("train", tc, want_t),
+                                    ("serving", sc, want_s)):
+                body = {k: v for k, v in got.items() if "tensor-core" not in k}
+                if body != {k: want.get(k, 0) for k in body}:
+                    raise AssertionError(f"[spmd] rank {r} {run['label']} "
+                                         f"{run['mesh']} {name}: launches "
+                                         f"{got}, want {want}")
+            mesh = run["mesh"]
+            print(f"[spmd] rank {r}, {run['label']}, mesh {mesh} (data x "
+                  f"model; split over data: {run['data_split']}, tensor "
+                  f"parallel: {run['tp'] or 'none'}) vs the one-rank program"
+                  f": metrics {run['metrics'][0]:.3e} ({run['metrics'][1]}),"
+                  f" first moments {run['leaves'][0]:.3e} "
+                  f"({run['leaves'][1]}), params {run['params'][0]:.3e} "
+                  f"({run['params'][1]}{'; of the AdamW rule' if 'f32' in run['label'] else ''}), prefill + {SPMD_DECODES} decode "
+                  f"logits {run['logits']:.3e} | ω mean "
+                  f"{run['omega_mean']:.4f} (one rank "
+                  f"{run['ref_omega_mean']:.4f}) | launches: train "
+                  f"{ {k: v for k, v in run['train_counts'].items() if v} }, "
+                  f"serving {run['serve_counts']['flash_attention']} K1 + "
+                  f"{run['serve_counts']['decode_attention']} K2 | walls: "
+                  f"one-rank step {run['one_rank_wall_s'] * 1e3:.1f} ms, "
+                  f"this step {run['train_wall_s'] * 1e3:.1f} ms, serving "
+                  f"{run['serve_wall_s'] * 1e3:.1f} ms")
+        print(f"[spmd] rank {r}: imports + group {rep['imports_s']:.1f} s, "
+              f"wall {rep['wall_s']:.1f} s, peak "
+              f"{rep['peak_gb']:.2f} GB (two processes share the card's "
+              f"SMs: these walls say nothing of a mesh's speed) | {smi}")
+        by_path[f"openvla-7b spmd, rank {r} (2 x 1 and 1 x 2)"] = total
+    print(f"[spmd] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return by_path
 
 
 # --- the step programs at the production shapes (the ``steps`` phase) -------
@@ -5525,7 +5907,8 @@ def _steps_dryrun(procs, plan, train_fig, smi):
                   f"({smi}): {train_fig['wall_s'] * 1e3:.1f} ms for "
                   f"{train_fig['tokens']} tokens at {TRAIN_LAYERS} layers, "
                   f"{rate:.4e} model FLOP/s | the dry run's step a device "
-                  f"(full depth, the whole global batch on every rank): "
+                  f"(full depth, the rank's rows and shards of the split "
+                  f"program): "
                   f"FLOPs {r['flops']:.4e}, {r['flops'] / rate:.1f} s at "
                   f"(a)'s rate against its compute term "
                   f"{r['compute_s']:.3f} s at the peak")
@@ -5613,7 +5996,14 @@ def main() -> int:
             per.setdefault(f"{k} tensor-core body", per.get(k, 0))
         return {k: (fn, per.get(k, 0)) for k, fn in wrappers.items()}
 
+    def mark(label):
+        """Where the run stands as a phase group starts (the walls of
+        host-bound phases move with the host: PERF.md)."""
+        print(f"[smoke] {label} at {time.perf_counter() - t_main:.1f} s",
+              flush=True)
+
     name, smi = phase_device()
+    mark("kernels")
     entries = phase_kernels(dev)
     by_path, failures = {}, []
 
@@ -5621,6 +6011,7 @@ def main() -> int:
     cfg = get_config("openvla-7b")
     nl, a = cfg.num_layers, cfg.action_dim
     params0, params1 = _init_two_versions(dev, cfg)
+    mark("openvla-7b")
     phase_model(dev, cfg, params0, obs_len=12, bound=MODEL_LOGIT_BOUND,
                 counters=counting(flash_attention=nl,
                                   decode_attention=nl * a))
@@ -5645,6 +6036,7 @@ def main() -> int:
     cfg = get_config("mamba2-2.7b")
     nl = cfg.num_layers
     params0, params1 = _init_two_versions(dev, cfg)
+    mark("mamba2-2.7b")
     phase_model(dev, cfg, params0, obs_len=SSM_OBS, bound=SSM_LOGIT_BOUND,
                 f32_bound=SSM_F32_LOGIT_BOUND, counters=counting(ssd_scan=nl))
     phase_model(dev, cfg, params0, obs_len=SSM_ENV_OBS,
@@ -5679,6 +6071,7 @@ def main() -> int:
     params0, params1 = _init_two_versions(dev, cfg)
     per_batch = counting(flash_attention=n_app, ssd_scan=nl,
                          decode_attention=n_app * a)
+    mark("zamba2-1.2b")
     phase_model(dev, cfg, params0, obs_len=SSM_OBS, bound=HYB_LOGIT_BOUND,
                 f32_bound=HYB_F32_LOGIT_BOUND, counters=per_batch)
     phase_model(dev, cfg, params0, obs_len=SSM_ENV_OBS,
@@ -5707,6 +6100,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the kernel-ops entry point, the one path that runs K5
+    mark("kernel ops")
     by_path["kernel-ops entry point"] = phase_ops(dev, cfg, counting(
         flash_attention=2, gipo_head_loss_fwd=2, gipo_head_loss_bwd=1,
         fused_policy_loss_fwd=1, fused_policy_loss_bwd=1, ssd_scan=1))
@@ -5715,6 +6109,7 @@ def main() -> int:
     # granite-moe-1b-a400m (moe): one MoE layer on the card against the
     # CPU, then serving and training at full width and full depth
     t_moe = time.perf_counter()
+    mark("granite-moe")
     phase_moe_layer(dev)
     cfg = get_config(MOE_ARCH)
     nl, a = cfg.num_layers, cfg.action_dim
@@ -5749,31 +6144,39 @@ def main() -> int:
 
     # the asynchronous system: rollouts, serving and training on one card
     inproc_keys = set()
+    mark("system")
     for run, launches in phase_system(dev, smi, counting(),
                                       async_keys=inproc_keys).items():
         by_path[f"openvla-7b system, {run}"] = launches
     # the world-model mode: imagination on the policy, the WM trainer
+    mark("wm")
     by_path["openvla-7b world model, run_wm"], pre = phase_wm(dev, smi,
                                                               counting())
     # the pipelined executor: rounds against the fused step, the WM
     # trainer as its second stage, a disjoint layout, the 16 x 16 plan
+    mark("pipeline")
     launches, plan = phase_pipeline(dev, smi, counting, pre)
     by_path.update(launches)
     del pre
     # checkpoints, the weight transports, and rollout workers in their
     # own processes serving on the card
+    mark("checkpoint")
     phase_checkpoint(dev, smi)
+    mark("sync")
     phase_sync(dev, smi)
+    mark("remote")
     launches, remote = phase_remote(dev, smi, counting(), inproc_keys)
     by_path["openvla-7b remote rollout workers, run_async"] = launches
     # the shared inference tier: rollout children that never touch the
     # card, served from the parent's pool and from a spawned tier that
     # survives a SIGKILL; the trace across processes; the journal
+    mark("plane")
     for run, launches in phase_plane(dev, smi, counting(), remote).items():
         by_path[f"openvla-7b inference plane, {run}"] = launches
     # the system on granite-moe-1b-a400m, then the witness of its
     # served-μ gap: an f32 copy, and one without drops (MOE above)
     nl = MOE_SYSTEM_LAYERS
+    mark("granite systems")
     for run, launches in phase_system(dev, smi, counting(), arch=MOE_ARCH,
                                       n_layers=nl, sync=False,
                                       checks=MOE).items():
@@ -5785,6 +6188,10 @@ def main() -> int:
                  edit=lambda c: _f32_copy(c, drops=False),
                  note=", f32 copy without drops")
 
+    mark("spmd")
+    # the placed step programs: two gloo ranks sharing the card
+    by_path.update(phase_spmd(dev, smi, counting))
+    mark("steps")
     # the step programs at the production shapes, the CLIs and the dry run
     kernels, launches = phase_steps(dev, smi, counting, plan)
     by_path.update(launches)

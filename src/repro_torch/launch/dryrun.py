@@ -23,13 +23,15 @@ and ``cost_analysis()``. The port measures the program it runs instead:
     to the full depth and, for trains, by ``accum`` (one micro-batch is
     measured, as the reference measures one).
 
-The records keep the reference's keys. Where the port's program differs
-from the reference's GSPMD program, the ``program`` field says how: the
-batch is not split over ``data`` (every rank computes the whole global
-batch), there is no tensor parallelism over ``model`` (each parameter is
-gathered whole), and attention and the loss are counted on their plain
-PyTorch versions (the card runs K1–K4 on the same products). The dry run
-does not estimate what the port does not run.
+The records keep the reference's keys. The program is the split one of
+``sharding/spmd.py``: each rank takes its rows of the batch (``spmd.rows``,
+where ``spmd.splits`` puts the batch on the data axes), the dense family
+runs attention, the MLP and the embedding on the rank's shards over
+``model``, and every other leaf is gathered whole. The ``program`` field
+says, per arch and shape, what ran (``spmd.program``): the split, the
+tensor-parallel blocks and the gathered leaves; attention and the loss
+are counted on their plain PyTorch versions (the card runs K1–K4 on the
+same products). The dry run does not estimate what the port does not run.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \
@@ -37,7 +39,9 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 
 Results land in experiments/dryrun_torch/<mesh>/<arch>__<shape>.json;
-cached pairs are skipped (--force recomputes).
+cached pairs are skipped (--force recomputes). ``--table`` prints the
+saved records beside the reference's deepseek-7b x train_4k record
+(``experiments/dryrun/<mesh>/``).
 """
 from __future__ import annotations
 
@@ -65,31 +69,13 @@ from repro_torch.roofline.analysis import (
     roofline_from_terms,
     terms_from_program,
 )
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, spmd
 from repro_torch.sharding.rules import FSDP_PARAM_THRESHOLD
 from repro_torch.tree import tree_map_with_path
 
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 OUT_DIR = ROOT / "experiments" / "dryrun_torch"
 DEVICE_BYTES = 80e9                    # one NVIDIA H100 80GB
-
-PROGRAM = {
-    "train": "eager seq_train_step on every rank: the whole global batch "
-             "(not split over data), each parameter gathered whole "
-             "(full_tensor; no tensor parallelism over model), grads placed "
-             "as the params, ZeRO-2 moments updated slice by slice and the "
-             "slices all-gathered over data; attention (blockwise) and the "
-             "fused loss counted on their plain versions",
-    "prefill": "eager prefill_step on every rank: the whole batch, each "
-               "parameter gathered whole (no tensor parallelism over "
-               "model), the emitted cache whole; attention counted on its "
-               "plain blockwise version",
-    "decode": "eager serve_step on every rank: the whole batch against the "
-              "whole cache (not split over data or model), each parameter "
-              "gathered whole; decode attention counted on its plain "
-              "version",
-}
-
 
 def fake_group(world: int) -> None:
     """A fake process group of ``world`` ranks in this process (rank 0),
@@ -220,9 +206,12 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     fsdp = cfg.param_count() > FSDP_PARAM_THRESHOLD
     extra: Dict = {}
 
+    row_tokens = shape.seq_len + cfg.num_prefix_tokens
+
     def build_train(c: ModelConfig, accum: int, surrogate: bool):
         # surrogate cost programs run ONE micro-batch (scaled by ``accum``
-        # afterwards); the production program runs the full window
+        # afterwards); the production program runs the full window. Each
+        # rank is given its rows of every micro-batch.
         eff_shape = dataclasses.replace(
             shape, global_batch=shape.global_batch // max(accum, 1)) \
             if surrogate else shape
@@ -235,9 +224,14 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             opt=state.opt._replace(
                 mu=_place(state.opt.mu, sspec.opt.mu, mesh),
                 nu=_place(state.opt.nu, sspec.opt.nu, mesh)))
+        split = spmd.splits(c, mesh, eff_shape.global_batch // use_accum,
+                            row_tokens)
+        batch = spmd.rows(batch, mesh, dim=1 if use_accum > 1 else 0,
+                          split=split)
         fn = functools.partial(
             steps.seq_train_step, cfg=c, rl=rl, accum=use_accum,
-            grad_shardings=sspec.opt.mu if zero2_grads else sspec.params)
+            grad_shardings=sspec.opt.mu if zero2_grads else sspec.params,
+            data_split=split)
         held = _sharded_bytes(state, sspec) + _tree_bytes(batch)
         if not surrogate:
             extra["param_bytes_per_dev"] = _sharded_bytes(state.params,
@@ -245,35 +239,41 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             extra["moment_bytes_per_dev"] = (
                 _sharded_bytes(state.opt.mu, sspec.opt.mu)
                 + _sharded_bytes(state.opt.nu, sspec.opt.nu))
-        return fn, (placed, batch), held
+        desc = spmd.program(c, spmd.layout(c, placed.params), placed.params,
+                            "train", split)
+        return fn, (placed, batch), held, desc
 
     def build_prefill(c: ModelConfig, surrogate: bool):
         sp = steps.prefill_specs(c, shape, mesh, fsdp=fsdp)
         sh = sp["shardings"]
-
-        def fn(params, tokens, prefix):
-            return steps.prefill_step(rules.full_tree(params), tokens, prefix, cfg=c,
-                                      window=sp["window"],
-                                      cache_len=sp["cache_len"])
+        split = spmd.splits(c, mesh, shape.global_batch, row_tokens)
+        fn = functools.partial(steps.prefill_step, cfg=c,
+                               window=sp["window"],
+                               cache_len=sp["cache_len"], data_split=split)
         params = _place(sp["params"], sh["params"], mesh)
+        tokens = spmd.rows(sp["tokens"], mesh, split=split)
+        prefix = spmd.rows(sp["prefix"], mesh, split=split)
         held = _sharded_bytes(sp["params"], sh["params"]) + _tree_bytes(
-            {"t": sp["tokens"], **({"p": sp["prefix"]}
-                                   if sp["prefix"] is not None else {})})
-        return fn, (params, sp["tokens"], sp["prefix"]), held
+            {"t": tokens, **({"p": prefix} if prefix is not None else {})})
+        desc = spmd.program(c, spmd.layout(c, params), params, "prefill",
+                            split)
+        return fn, (params, tokens, prefix), held, desc
 
     def build_serve(c: ModelConfig, surrogate: bool):
         sp = steps.serve_specs(c, shape, mesh, fsdp=fsdp,
                                seq_shard=cache_seqshard)
         sh = sp["shardings"]
-
-        def fn(params, token, cache):
-            return steps.serve_step(rules.full_tree(params), token, cache, cfg=c,
-                                    window=sp["window"],
-                                    uniform=uniform_decode)
+        split = spmd.splits(c, mesh, shape.global_batch, 1)
+        fn = functools.partial(steps.serve_step, cfg=c, window=sp["window"],
+                               uniform=uniform_decode, data_split=split)
         params = _place(sp["params"], sh["params"], mesh)
+        lay = spmd.layout(c, params)
+        token = spmd.rows(sp["token"], mesh, split=split)
+        cache = spmd.local_cache(sp["cache"], lay, split=split)
         held = (_sharded_bytes(sp["params"], sh["params"])
-                + _tree_bytes(sp["cache"]) + _tree_bytes({"t": sp["token"]}))
-        return fn, (params, sp["token"], sp["cache"]), held
+                + _tree_bytes(cache) + _tree_bytes({"t": token}))
+        desc = spmd.program(c, lay, params, "decode", split)
+        return fn, (params, token, cache), held, desc
 
     from repro_torch.kernels import dispatch
     t0 = time.time()
@@ -285,7 +285,7 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                  "decode": build_serve}[shape.kind]
 
         # --- (a) production program: the memory-fit proof ---------------
-        fn, args, held = build(cfg, False)
+        fn, args, held, program = build(cfg, False)
         t_lower = time.time() - t0
         peak = _peak_bytes(fn, *args)
         t_compile = time.time() - t0 - t_lower
@@ -332,12 +332,12 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "active_param_count": cfg.active_param_count(),
         **extra,
         "fits": mem["total_hbm_bytes"] <= DEVICE_BYTES,
-        "program": PROGRAM[shape.kind],
+        "program": program,
     }
 
 
 def _call(built):
-    fn, args, _ = built
+    fn, args, *_ = built
     return (fn,) + tuple(args)
 
 
@@ -395,6 +395,37 @@ def run_and_save(arch: str, shape_name: str, *, multi_pod: bool,
     return rec
 
 
+def table(multi_pod: bool = False) -> None:
+    """The saved records of a mesh, one line each, beside the reference's
+    deepseek-7b x train_4k record: fit, bytes and FLOPs a device, the
+    useful ratio, collective bytes by kind."""
+    tag = "2x16x16" if multi_pod else "16x16"
+    ref_path = ROOT / "experiments" / "dryrun" / tag / \
+        "deepseek-7b__train_4k.json"
+    recs = [("reference deepseek-7b__train_4k",
+             json.loads(ref_path.read_text()))]
+    recs += [(p.stem, json.loads(p.read_text()))
+             for p in sorted((OUT_DIR / tag).glob("*.json"))]
+    ref_flops = recs[0][1]["roofline"]["flops"]
+    print(f"{'record (' + tag + ')':44s} {'fits':>5s} {'GB/dev':>8s} "
+          f"{'FLOPs/dev':>10s} {'x ref':>6s} {'useful':>7s} "
+          f"{'all-gather GB':>13s} {'all-reduce GB':>13s} {'other GB':>8s}")
+    for name, r in recs:
+        if "error" in r:
+            print(f"{name:44s} error: {r['error'][:60]}")
+            continue
+        rf, mem = r["roofline"], r["memory"]
+        coll = rf["coll_by_kind"]
+        other = sum(v for k, v in coll.items()
+                    if k not in ("all-gather", "all-reduce", "counts"))
+        fits = r.get("fits", mem["total_hbm_bytes"] <= DEVICE_BYTES)
+        print(f"{name:44s} {str(fits):>5s} "
+              f"{mem['total_hbm_bytes'] / 1e9:8.2f} {rf['flops']:10.4e} "
+              f"{rf['flops'] / ref_flops:6.3f} {rf['useful_ratio']:7.4f} "
+              f"{coll['all-gather'] / 1e9:13.2f} "
+              f"{coll['all-reduce'] / 1e9:13.2f} {other / 1e9:8.2f}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ASSIGNED_ARCHS + ["openvla-7b"])
@@ -403,11 +434,17 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--variant", default="baseline", choices=list(VARIANTS))
+    ap.add_argument("--table", action="store_true",
+                    help="print the saved records beside the reference's "
+                         "deepseek-7b x train_4k record")
     ap.add_argument("--one", action="store_true",
                     help="run one pair in this process and print its record "
                          "as JSON on the last line (no file)")
     args = ap.parse_args(argv)
 
+    if args.table:
+        table(args.multi_pod)
+        return
     if args.one:
         print(json.dumps(lower_one(args.arch, args.shape,
                                    multi_pod=args.multi_pod,

@@ -59,6 +59,21 @@ def make_local_mesh(device="cuda"):
                             mesh_dim_names=("data", "model"))
 
 
+def make_mesh(data: int, model: int, device="cuda"):
+    """A ``data`` x ``model`` mesh, axes (``data``, ``model``), over the
+    process group the caller started (``data * model`` ranks; the ranks of
+    one ``model`` group are consecutive). On one card several ranks may
+    share the device, as gloo ranks (NCCL takes one rank a device)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    if not dist.is_initialized() or dist.get_world_size() != data * model:
+        raise RuntimeError(f"a {data} x {model} mesh needs a process group "
+                           f"of {data * model} ranks: start it first")
+    return init_device_mesh(dev.type, (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
 def num_chips(mesh) -> int:
     """Devices in a ``DeviceMesh`` or an ``AbstractMesh``."""
     from repro_torch.sharding.rules import mesh_shape

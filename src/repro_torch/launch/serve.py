@@ -6,7 +6,9 @@ KV/state cache, as in the reference ``repro/launch/serve.py``.
 
 Runs on the card unless ``--device cpu``. ``--local`` reduces the config
 and runs on the local one-rank mesh; without it the production mesh needs
-a process group of 256 ranks (512 with ``--multi-pod``) started first.
+a process group of 256 ranks (512 with ``--multi-pod``) started first,
+and each rank decodes its rows against its part of the cache
+(``sharding.spmd``: its rows, and on the dense family its KV heads).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from repro_torch.configs import ASSIGNED_ARCHS, get_config, get_shape, reduced
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
                                      num_chips)
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, spmd
+from repro_torch.tree import tree_map_with_path
 
 
 def parser() -> argparse.ArgumentParser:
@@ -69,22 +72,30 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = transformer.init_params(cfg, gen, device=dev)
-    cache = transformer.init_decode_cache(cfg, shape.global_batch, cache_len,
-                                          window=window, device=dev)
+    batch, split = shape.global_batch, True
     if num_chips(mesh) > 1:
-        # the params placed under their specs; decode reads the full value
-        # of each (no tensor parallelism in the port), and the cache stays
-        # whole on every rank (the port splits no batch). On one device
-        # placement is a no-op.
-        params = rules.full_tree(rules.place_tree(
-            params, mesh, rules.spec_tree(sh["params"])))
-    token = torch.zeros((shape.global_batch,), dtype=torch.int32,
-                        device=dev)
+        # the params placed under their specs; each rank its rows and its
+        # part of the cache (built on ``meta``, then made on the device).
+        # On one device placement is a no-op.
+        params = rules.place_tree(params, mesh, rules.spec_tree(sh["params"]))
+        split = spmd.splits(cfg, mesh, batch, 1)
+        whole = transformer.init_decode_cache(cfg, batch, cache_len,
+                                              window=window, device="meta")
+        cache = tree_map_with_path(
+            lambda path, x: torch.full(
+                x.shape, -1 if path[-1] == "positions" else 0,
+                dtype=x.dtype, device=dev),
+            spmd.local_cache(whole, spmd.layout(cfg, params), split=split))
+        batch = (cache.attn or cache.ssm).length.shape[1]   # its rows
+    else:
+        cache = transformer.init_decode_cache(cfg, batch, cache_len,
+                                              window=window, device=dev)
+    token = torch.zeros((batch,), dtype=torch.int32, device=dev)
     with torch.no_grad():
         for i in range(args.tokens):
             t0 = time.perf_counter()
             logits, cache = steps.serve_step(params, token, cache, cfg=cfg,
-                                             window=window)
+                                             window=window, data_split=split)
             token = torch.argmax(logits, -1).to(torch.int32)
             first = int(token[0])              # waits for the step
             print(f"decode {i}: token[0]={first} "

@@ -11,14 +11,30 @@ in the reference ``repro/launch/steps.py`` (DESIGN.md §5):
 
 The spec builders return the trees (on ``meta``) and their
 ``sharding.rules.NamedSharding``s, so the dry run and the launchers share
-one program. The reference jits each step with in/out shardings; the port
-runs it eagerly on the tensors it is given (DTensors where a mesh of more
-than one device placed them). Its placed step computes the whole global
-batch on every rank (the batch is not split over ``data``) and takes the
-full value of each parameter (``rules.full_tensor``): no tensor
-parallelism over ``model``. The reference's ``unroll`` and
-``act_sharding`` (scan unrolling and a GSPMD layout pin) have no
-counterpart in an eager loop and are not taken.
+one program. The reference jits each step with in/out shardings and GSPMD
+splits it; the port runs it eagerly on the tensors it is given, and where
+a mesh of more than one device placed the parameters (DTensors) each rank
+runs its part of the split program (``sharding/spmd.py``):
+
+  * the batch is the rank's rows (``spmd.rows``; ``data_split=False``
+    where every rank is given the whole batch: long_500k's B = 1, or a MoE
+    batch whose capacity groups straddle the ranks, ``spmd.splits``); each
+    loss term is weighted by the rank's mask count over the global
+    micro-batch's, and the grads, metrics and advantage stats are
+    all-reduced over the data axes;
+  * on the dense family (dense, vlm, audio) attention runs on the rank's
+    heads, the MLP on its ``d_ff`` columns and the embedding on its
+    vocabulary rows (Megatron's layout: an all-reduce after each
+    row-parallel product and on each sublayer input's gradient); prefill
+    and decode take and emit the rank's KV heads of the cache
+    (``rules.cache_specs``);
+  * every other leaf sharded over the mesh is gathered whole before use and
+    its grad cut back to the rank's region; the grads then go to ZeRO-2 as
+    DTensors placed as the parameters.
+
+A one-device program (plain tensors) issues no collective. The reference's
+``unroll`` and ``act_sharding`` (scan unrolling and a GSPMD layout pin)
+have no counterpart in an eager loop and are not taken.
 """
 from __future__ import annotations
 
@@ -35,7 +51,7 @@ from repro_torch.launch.mesh import num_chips
 from repro_torch.models import transformer
 from repro_torch.models.layers import Params
 from repro_torch.optim import adamw, zero
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, spmd
 from repro_torch.sharding.rules import P, NamedSharding
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
@@ -64,22 +80,36 @@ def _value_mlp(vh: Params, hidden: torch.Tensor,
     return (x @ vh["mlp_w2"] + vh["mlp_b2"])[..., 0]          # [B, S]
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy where it starts off a 16-byte boundary: K4 takes
+    rows that start on one, and a view of a micro-batch's (or a rank's
+    single) rows starts wherever the elements before it put it."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def seq_loss_fn(params, batch: Dict[str, torch.Tensor], adv_state,
                 cfg: ModelConfig, rl: RLConfig, *, remat: bool = True,
-                block: Optional[int] = ATTN_BLOCK):
+                block: Optional[int] = ATTN_BLOCK, split=None, weight=None):
     """Token-level GIPO over a [B, S] sequence with JIT value recomputation.
 
     batch: tokens [B,S] i32, behavior_logp [B,S] f32, rewards [B,S-1] f32,
     dones [B,S-1] f32, mask [B,S-1] f32, prefix (optional [B,P,F]).
     Tokens are unified ids; a token's action-bin id is ``token mod Va``
     (the slimmed head scores only the action vocabulary, App. D.1).
-    Returns (total, (metrics, packed adv stats))."""
+    Returns (total, (metrics, packed adv stats)).
+
+    In a placed program ``split`` is the forward's ``spmd.Split`` and
+    ``weight`` this rank's share of the global micro-batch's masked means
+    (``spmd.weights``): the masked means and their metrics are scaled by
+    it, and a MoE backbone's aux terms (the global batch's on every data
+    rank) by one over the data axes' size, so that the ranks' totals and
+    metrics sum to the reference's."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     fused = rl.fused_loss and rl.algo == "gipo"
     out = transformer.forward(cfg, params, tokens, batch.get("prefix"),
                               window=cfg.sliding_window, remat=remat,
-                              block=block, head=not fused)
+                              block=block, head=not fused, split=split)
     # next-token factorization: logits[:, t] scores tokens[:, t+1]
     p = out["hidden"].shape[1] - s          # prefix length
     hidden = out["hidden"][:, p:]
@@ -99,10 +129,11 @@ def seq_loss_fn(params, batch: Dict[str, torch.Tensor], adv_state,
     if fused:
         # action head + GIPO/entropy/KL fused on hidden states (K4): no
         # [B,S,Va] logits or log-softmax in device memory
+        rows = [_aligned(x.reshape(n)) for x, n in (
+            (hidden[:, :-1], (b * (s - 1), -1)), (targets, -1),
+            (logp_old, -1), (adv_n, -1), (mask, -1))]
         pg, _ent, kl, pg_m = dispatch.policy_head_loss(
-            hidden[:, :-1].reshape(b * (s - 1), -1),
-            params["action_head"]["w"], targets.reshape(-1),
-            logp_old.reshape(-1), adv_n.reshape(-1), mask.reshape(-1),
+            rows[0], params["action_head"]["w"], *rows[1:],
             sigma=rl.gipo_sigma)
         pg_m = {k: v.detach() for k, v in pg_m.items()}
     else:
@@ -120,26 +151,31 @@ def seq_loss_fn(params, batch: Dict[str, torch.Tensor], adv_state,
                                      rl.ppo_clip)
         kl = gipo.kl_penalty(logp_new[..., None], logp_old[..., None], mask)
     v_loss = gipo.value_loss(values[:, :-1], returns.detach(), mask)
+    if weight is not None:
+        pg, v_loss, kl = pg * weight, v_loss * weight, kl * weight
+        pg_m = {k: v * weight for k, v in pg_m.items()}
     total = pg + rl.value_coef * v_loss + rl.kl_coef * kl
     if cfg.arch_type == "moe":
-        total = total + out["aux"]["load_balance"] + out["aux"]["router_z"]
+        aux = out["aux"]["load_balance"] + out["aux"]["router_z"]
+        if split is not None and split.data is not None:
+            aux = aux / split.data.size
+        total = total + aux
     metrics = {"loss": total, "pg_loss": pg, "value_loss": v_loss,
                "kl": kl, **pg_m}
     metrics = {k: v.detach() for k, v in metrics.items()}
     return total, (metrics, stats.detach())
 
 
-def _seq_grads(params, batch, adv_state, *, cfg: ModelConfig, rl: RLConfig,
-               remat: bool, block: Optional[int]):
-    """Grads of one micro-batch (in each param's dtype; zeros where a leaf
-    gets none, as ``jax.grad`` gives) against frozen params. Params placed
-    as DTensors enter the forward as their full value."""
-    live = tree_map(
-        lambda p: rules.full_tensor(p).detach().requires_grad_(True), params)
+def _seq_grads(live, batch, adv_state, *, cfg: ModelConfig, rl: RLConfig,
+               remat: bool, block: Optional[int], split=None, weight=None):
+    """Grads of one micro-batch with respect to the ``live`` leaves
+    (detached tensors that require grad; in each leaf's dtype, zeros where
+    a leaf gets none, as ``jax.grad`` gives) against frozen params."""
     leaves = tree_leaves(live)
     with torch.enable_grad():
         total, aux = seq_loss_fn(live, batch, adv_state, cfg, rl,
-                                 remat=remat, block=block)
+                                 remat=remat, block=block, split=split,
+                                 weight=weight)
         got = torch.autograd.grad(total, leaves, allow_unused=True)
     by_id = {id(x): g if g is not None else torch.zeros_like(x)
              for x, g in zip(leaves, got)}
@@ -148,36 +184,58 @@ def _seq_grads(params, batch, adv_state, *, cfg: ModelConfig, rl: RLConfig,
 
 def _constrain(grads, shardings):
     """The reference's ``with_sharding_constraint`` on the grads: each grad
-    under its sharding (``rules.place``: this rank's region of the full
-    grad every rank holds, no collective). On a one-device mesh there is
-    nothing to cut, as in ``init_train_state``."""
+    under its sharding, no collective. A placed program's grad (a DTensor
+    placed as its parameter) is cut to the sharding's region
+    (``spmd.recut``); a full grad is placed (``rules.place``). On a
+    one-device mesh there is nothing to cut, as in ``init_train_state``."""
     def put(g, sh):
         if num_chips(sh.mesh) == 1:
             return g
+        if rules.is_dtensor(g):
+            return spmd.recut(g, sh)
         return rules.place(g, sh)
     return tree_map(put, grads, shardings)
 
 
+def _micro_batches(batch, accum: int):
+    return [batch] if accum == 1 else [
+        {k: v[i] for k, v in batch.items()} for i in range(accum)]
+
+
 def seq_grads(params, batch, adv_state, *, cfg: ModelConfig, rl: RLConfig,
               remat: bool = True, block: Optional[int] = ATTN_BLOCK,
-              accum: int = 1):
+              accum: int = 1, data_split: bool = True):
     """The grads ``seq_train_step`` updates with, its metrics and its
     summed advantage stats: ``accum`` sequential micro-batch passes (App.
     C.1: contiguous slicing, params frozen within the accumulation window).
 
     With ``accum > 1`` every batch leaf carries a leading [accum]
     micro-batch axis; grads are accumulated in f32 as ``a + g / accum``,
-    the metrics are the last micro-batch's and the stats are summed."""
+    the metrics are the last micro-batch's and the stats are summed.
+
+    With params placed as DTensors this is the rank's part of the split
+    program (the module's docstring): the grads come out as DTensors placed
+    as the params (f32), the metrics and stats as the global batch's."""
     kw = dict(cfg=cfg, rl=rl, remat=remat, block=block)
-    if accum == 1:
-        grads, (metrics, stats) = _seq_grads(params, batch, adv_state, **kw)
-        return grads, metrics, stats
+    lay = spmd.layout(cfg, params)
+    if lay is None:
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        if accum == 1:
+            grads, (metrics, stats) = _seq_grads(live, batch, adv_state,
+                                                 **kw)
+            return grads, metrics, stats
+        split = weights = None
+    else:
+        live = spmd.live_params(params, lay, requires_grad=True)
+        split = lay.run(data_split)
+        weights = spmd.weights(batch["mask"], accum, split.data)
     grads = None
     stats = torch.zeros((3,), dtype=torch.float32,
                         device=batch["tokens"].device)
-    for i in range(accum):
-        mbatch = {k: v[i] for k, v in batch.items()}
-        g, (metrics, s) = _seq_grads(params, mbatch, adv_state, **kw)
+    for i, mbatch in enumerate(_micro_batches(batch, accum)):
+        g, (metrics, s) = _seq_grads(
+            live, mbatch, adv_state, split=split,
+            weight=None if weights is None else weights[i], **kw)
         if grads is None:
             grads = tree_map(lambda x: torch.zeros(
                 x.shape, dtype=torch.float32, device=x.device), g)
@@ -185,20 +243,32 @@ def seq_grads(params, batch, adv_state, *, cfg: ModelConfig, rl: RLConfig,
             tree_map(lambda a, x: a.add_(x.float() / accum), grads, g)
         stats = stats + s
         del g
-    return grads, metrics, stats
+    if lay is None:
+        return grads, metrics, stats
+    if split.data is not None:
+        metrics, stats = spmd.sum_metrics(metrics, stats, split.data)
+        with torch.no_grad():
+            tree_map(split.data.sum_, grads)
+    return spmd.place_grads(grads, params, lay), metrics, stats
 
 
 def seq_train_step(state: SeqTrainState, batch, *, cfg: ModelConfig,
                    rl: RLConfig, remat: bool = True,
                    block: Optional[int] = ATTN_BLOCK, accum: int = 1,
-                   grad_shardings=None) -> Tuple[SeqTrainState, Dict]:
+                   grad_shardings=None,
+                   data_split: bool = True) -> Tuple[SeqTrainState, Dict]:
     """One optimizer step = ``accum`` sequential micro-batch passes
     (``seq_grads``), then the warmup lr, AdamW and the Welford update
     (single deferred stats aggregation). The params and AdamW moments are
-    updated in place (``adamw.update``)."""
+    updated in place (``adamw.update``).
+
+    With params placed as DTensors, ``batch`` is this rank's rows
+    (``spmd.rows``) unless ``data_split`` is False (every rank given the
+    whole batch); the module's docstring says what each rank runs."""
     grads, metrics, stats = seq_grads(state.params, batch, state.adv_norm,
                                       cfg=cfg, rl=rl, remat=remat,
-                                      block=block, accum=accum)
+                                      block=block, accum=accum,
+                                      data_split=data_split)
     if grad_shardings is not None:
         grads = _constrain(grads, grad_shardings)
     lr = adamw.warmup_schedule(rl.lr_policy, rl.warmup_steps)(state.opt.step)
@@ -233,21 +303,40 @@ def choose_accum(cfg: ModelConfig, shape: ShapeConfig, mesh,
     return accum
 
 
+def _serving(cfg: ModelConfig, params, data_split: bool):
+    """(live params, split) of a serving program: placed params as the
+    rank's live leaves and its ``spmd.Split``; plain ones as they are."""
+    lay = spmd.layout(cfg, params)
+    if lay is None:
+        return params, None
+    return spmd.live_params(params, lay), lay.run(data_split)
+
+
 def prefill_step(params, tokens, prefix, *, cfg: ModelConfig,
                  window: Optional[int], cache_len: int,
-                 block: Optional[int] = ATTN_BLOCK):
-    out, cache = transformer.prefill(cfg, params, tokens, prefix,
+                 block: Optional[int] = ATTN_BLOCK, data_split: bool = True):
+    """The prompt pass: (last position's logits [B, Va], decode cache). With
+    params placed as DTensors, ``tokens`` and ``prefix`` are the rank's rows
+    (``data_split`` as in ``seq_train_step``), the logits come out whole
+    over the action vocabulary on every model rank, and the cache holds
+    the rank's rows and, where attention is split over ``model``, its KV
+    heads (``spmd.local_cache`` of the whole one)."""
+    live, split = _serving(cfg, params, data_split)
+    out, cache = transformer.prefill(cfg, live, tokens, prefix,
                                      cache_len=cache_len, window=window,
-                                     block=block)
+                                     block=block, split=split)
     return out["logits"][:, -1], cache
 
 
 def serve_step(params, token, cache, *, cfg: ModelConfig,
-               window: Optional[int], uniform: bool = False):
+               window: Optional[int], uniform: bool = False,
+               data_split: bool = True):
     """One token against ``cache``, updated in place (``transformer.decode``;
-    ``uniform`` as in ``attention.attention_decode``)."""
-    out, cache = transformer.decode(cfg, params, token, cache, window=window,
-                                    uniform=uniform)
+    ``uniform`` as in ``attention.attention_decode``). Placed params take
+    the rank's tokens and cache, as ``prefill_step`` emits them."""
+    live, split = _serving(cfg, params, data_split)
+    out, cache = transformer.decode(cfg, live, token, cache, window=window,
+                                    uniform=uniform, split=split)
     return out["logits"][:, -1], cache
 
 

@@ -2,10 +2,11 @@
 ``repro/launch/train.py``.
 
 It runs ``seq_train_step`` over the production mesh (a process group of
-256 ranks, 512 with ``--multi-pod``, started by the caller); ``--local``
-runs the same program on the local one-rank mesh with a reduced config —
-the code path is identical, only the mesh and scale differ. Runs on the
-card unless ``--device cpu``.
+256 ranks, 512 with ``--multi-pod``, started by the caller), each rank fed
+only its rows of the batch (``sharding.spmd.rows``); ``--local`` runs the
+same program on the local one-rank mesh with a reduced config — the code
+path is identical, only the mesh and scale differ. Runs on the card unless
+``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
         --shape train_4k --steps 3 --local
@@ -60,7 +61,7 @@ from repro_torch.configs.base import RLConfig
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
                                      num_chips)
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, spmd
 
 #: ``--kernel-dispatch`` (the reference's names) -> ``dispatch.set_mode``
 DISPATCH_MODES = {"auto": None, "pallas": "cuda", "jnp": "torch"}
@@ -194,12 +195,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
           f"{accum} | params {cfg.param_count() / 1e6:.1f}M")
 
     state = init_state(cfg, mesh, sspec, dev)
-    batch = synthetic_batch(cfg, batch_structs, dev)
+    split = spmd.splits(cfg, mesh, shape.global_batch // accum,
+                        shape.seq_len + cfg.num_prefix_tokens)
+    batch = synthetic_batch(cfg, batch_structs, dev, mesh=mesh, accum=accum,
+                            split=split)
     for i in range(args.steps):
         t0 = time.perf_counter()
         state, metrics = steps.seq_train_step(
             state, batch, cfg=cfg, rl=rl, accum=accum,
-            grad_shardings=sspec.params)
+            grad_shardings=sspec.params, data_split=split)
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         print(f"step {i}: loss {loss:.4f} gnorm {gnorm:.2f} "
               f"({time.perf_counter() - t0:.2f}s)")
@@ -225,9 +229,13 @@ def init_state(cfg, mesh, sspec, dev) -> steps.SeqTrainState:
                                adv_norm=init_adv_state(dev))
 
 
-def synthetic_batch(cfg, batch_structs, dev):
+def synthetic_batch(cfg, batch_structs, dev, *, mesh=None, accum: int = 1,
+                    split: bool = True):
     """The reference's synthetic batch: integer leaves drawn in
-    [0, vocab), float leaves 0.1 × a standard normal, from seed 0."""
+    [0, vocab), float leaves 0.1 × a standard normal, from seed 0. With
+    ``mesh``, the global batch is drawn on the host and only the rank's
+    rows (``spmd.rows``; all of them where ``split`` is False) go to
+    ``dev``."""
     rng = np.random.default_rng(0)
     out = {}
     for k, v in batch_structs.items():
@@ -236,8 +244,10 @@ def synthetic_batch(cfg, batch_structs, dev):
             a = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
         else:
             a = rng.standard_normal(shape).astype(np.float32) * 0.1
-        out[k] = torch.from_numpy(a).to(dev)
-    return out
+        out[k] = torch.from_numpy(a)
+    if mesh is not None:
+        out = spmd.rows(out, mesh, dim=1 if accum > 1 else 0, split=split)
+    return {k: v.to(dev) for k, v in out.items()}
 
 
 def _run_pipeline(args, dev) -> None:

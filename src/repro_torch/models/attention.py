@@ -8,6 +8,12 @@ Training and prefill attention go through ``dispatch.dense_attention``
 blockwise path: on the CPU the online-softmax twin ``_blockwise_attn``);
 decode attention goes through ``dispatch.decode_attention``: the CUDA
 kernels for CUDA tensors, the plain versions on the CPU.
+
+``tp`` (a ``sharding.spmd.TensorParallel``, or ``None``) runs a layer on
+the rank's heads in a tensor-parallel step program: ``wq``/``wk``/``wv``
+hold its query and KV heads (``_proj`` reads the count from the weight),
+``wo`` its rows of them, the output's partial sums are all-reduced, and
+the KV cache holds the rank's KV heads.
 """
 from __future__ import annotations
 
@@ -113,7 +119,7 @@ def _attend(q, k, v, window: Optional[int], block: Optional[int],
 def attention_forward(params: Params, x: torch.Tensor, *, rope_theta: float,
                       window: Optional[int] = None,
                       positions: Optional[torch.Tensor] = None,
-                      block: Optional[int] = None) -> torch.Tensor:
+                      block: Optional[int] = None, tp=None) -> torch.Tensor:
     """Full causal self-attention for training / teacher-forced scoring.
 
     ``block`` switches to the blockwise path (O(T·block) score memory
@@ -123,9 +129,11 @@ def attention_forward(params: Params, x: torch.Tensor, *, rope_theta: float,
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)[None, :]
+    if tp is not None:
+        x = tp.enter(x)
     q, k, v = _project_qkv(params, x, positions, rope_theta)
-    out = _attend(q, k, v, window, block, x.dtype)
-    return _out_proj(out, params["wo"])
+    out = _out_proj(_attend(q, k, v, window, block, x.dtype), params["wo"])
+    return out if tp is None else tp.reduce(out)
 
 
 def _block_step(m, l, acc, q, kj, vj, j: int, s: int, scale: float,
@@ -185,14 +193,18 @@ def _blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_prefill(params: Params, x: torch.Tensor, *, rope_theta: float,
                       cache_len: int, window: Optional[int] = None,
-                      block: Optional[int] = None
+                      block: Optional[int] = None, tp=None
                       ) -> Tuple[torch.Tensor, KVCache]:
     """Causal attention over the prompt; emits the populated KV cache.
-    ``block`` as in ``attention_forward``."""
+    ``block`` and ``tp`` as in ``attention_forward``."""
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :]
+    if tp is not None:
+        x = tp.enter(x)
     q, k, v = _project_qkv(params, x, positions, rope_theta)
     out = _out_proj(_attend(q, k, v, window, block, x.dtype), params["wo"])
+    if tp is not None:
+        out = tp.reduce(out)
 
     pos = positions.expand(b, t).to(torch.int32)
     if cache_len >= t:
@@ -218,7 +230,8 @@ def attention_prefill(params: Params, x: torch.Tensor, *, rope_theta: float,
 
 def attention_decode(params: Params, x: torch.Tensor, cache: KVCache, *,
                      rope_theta: float, window: Optional[int] = None,
-                     uniform: bool = False) -> Tuple[torch.Tensor, KVCache]:
+                     uniform: bool = False,
+                     tp=None) -> Tuple[torch.Tensor, KVCache]:
     """One new token per sequence. x: [B, 1, d].
 
     The new key/value row goes into slot ``pos % cache_len`` of each batch
@@ -233,6 +246,8 @@ def attention_decode(params: Params, x: torch.Tensor, cache: KVCache, *,
     b = x.shape[0]
     cache_len = cache.k.shape[1]
     pos = cache.length                                       # [B]
+    if tp is not None:
+        x = tp.enter(x)
     q = apply_rope(_proj(x, params["wq"]), pos[:, None], rope_theta)
     k_new = apply_rope(_proj(x, params["wk"]), pos[:, None], rope_theta)
     v_new = _proj(x, params["wv"])
@@ -256,5 +271,7 @@ def attention_decode(params: Params, x: torch.Tensor, cache: KVCache, *,
     valid &= pos_c <= pos[:, None]
     out = dispatch.decode_attention(q, cache.k, cache.v, valid)
     out = _out_proj(out, params["wo"])
+    if tp is not None:
+        out = tp.reduce(out)
     return out, KVCache(k=cache.k, v=cache.v, positions=pos_c,
                         length=pos + 1)

@@ -2,6 +2,10 @@
 
 Plain functions over plain-dict parameter trees, as in the reference
 (``repro/models/layers.py``); keys match the reference's tree paths.
+
+``tp`` (a ``sharding.spmd.TensorParallel``, or ``None``) runs a layer on
+the rank's shards of a tensor-parallel step program: the MLP on its
+``d_ff`` columns, the embedding on its vocabulary rows.
 """
 from __future__ import annotations
 
@@ -79,16 +83,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # SwiGLU MLP
 # --------------------------------------------------------------------------
 
-def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU; under ``tp`` on the rank's ``d_ff`` columns (``w_gate``,
+    ``w_up``) and rows (``w_down``), the partial sums all-reduced."""
+    if tp is not None:
+        x = tp.enter(x)
     gate = F.silu(x @ params["w_gate"])
-    return (gate * (x @ params["w_up"])) @ params["w_down"]
+    out = (gate * (x @ params["w_up"])) @ params["w_down"]
+    return out if tp is None else tp.reduce(out)
 
 
 # --------------------------------------------------------------------------
 # Embedding + slimmed action head
 # --------------------------------------------------------------------------
 
-def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+def embed(params: Params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Table rows; under ``tp`` the table is the rank's vocabulary rows
+    (``TensorParallel.embed``)."""
+    if tp is not None:
+        return tp.embed(params["table"], tokens)
     return params["table"][tokens]
 
 

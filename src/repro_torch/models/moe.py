@@ -105,36 +105,56 @@ def _group_dispatch(params: Params, xg: torch.Tensor, cfg: MoEConfig,
 
 
 def moe_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
-                group_tokens: int = GROUP_TOKENS
+                group_tokens: int = GROUP_TOKENS, data=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, T, d] -> (out [B, T, d], aux losses). The B·T tokens form
     ``g = max(B·T // group_tokens, 1)`` equal groups; where B·T is not a
     multiple of g the reference's reshape fails, and so does this (a
-    ``ValueError``: padding would route differently)."""
+    ``ValueError``: padding would route differently).
+
+    ``data`` (a ``sharding.spmd.DataAxes``, or ``None``): ``x`` is this
+    rank's rows of a batch split over the data axes. The groups are then
+    the global batch's (a ``ValueError`` where one would straddle two
+    ranks), and the aux terms are the global batch's: the token means
+    summed over the data axes."""
     b, t, d = x.shape
     n = b * t
-    g = max(n // group_tokens, 1)
-    if n % g:
+    n_all = n * (data.size if data is not None else 1)
+    g = max(n_all // group_tokens, 1)
+    if n_all % g:
+        ranks = f" x {data.size} ranks" if data is not None else ""
         raise ValueError(
-            f"moe_forward: {b} x {t} = {n} tokens do not split into {g} "
-            f"equal groups (group_tokens {group_tokens}, {n} % {g} = "
-            f"{n % g})")
-    ng = n // g
+            f"moe_forward: {b} x {t}{ranks} = {n_all} tokens do not split "
+            f"into {g} equal groups (group_tokens {group_tokens}, "
+            f"{n_all} % {g} = {n_all % g})")
+    ng = n_all // g
+    if n % ng:
+        raise ValueError(f"moe_forward: groups of {ng} tokens straddle the "
+                         f"data ranks' {n} tokens each")
     cap = capacity(ng, cfg)
-    out, logits, keep = _group_dispatch(params, x.reshape(g, ng, d), cfg,
-                                        cap)
+    out, logits, keep = _group_dispatch(params, x.reshape(n // ng, ng, d),
+                                        cfg, cap)
 
     e = cfg.num_experts
     logits2 = logits.reshape(n, e)
     probs2 = torch.softmax(logits2, dim=-1)
     top1 = probs2.argmax(dim=-1)
-    me = probs2.mean(dim=0)
-    ce = F.one_hot(top1, e).float().mean(dim=0)
+    onehot = F.one_hot(top1, e).float()
+    lse2 = torch.logsumexp(logits2, dim=-1).square()
+    if data is None:
+        me, ce = probs2.mean(dim=0), onehot.mean(dim=0)
+        router_z = lse2.mean()
+        dropped = 1.0 - keep.float().mean()
+    else:
+        me = data.sum(probs2.sum(dim=0)) / n_all
+        ce = data.sum_(onehot.sum(dim=0)) / n_all
+        router_z = data.sum(lse2.sum()) / n_all
+        dropped = 1.0 - data.sum_(keep.float().sum()) / (
+            keep.numel() * data.size)
     load_balance = e * (me * ce).sum()
-    router_z = torch.logsumexp(logits2, dim=-1).square().mean()
     aux = {
         "load_balance": cfg.load_balance_coef * load_balance,
         "router_z": cfg.router_z_coef * router_z,
-        "dropped_frac": 1.0 - keep.float().mean(),
+        "dropped_frac": dropped,
     }
     return out.reshape(b, t, d), aux

@@ -21,6 +21,14 @@ stacks attention + ``moe`` blocks (``models/moe.py``: GShard capacity
 dispatch, the router in f32); ``forward`` returns the layers' summed
 load-balance and router-z terms and their mean dropped share in ``aux``,
 while prefill and decode drop them, as the reference does.
+
+``split`` (a ``sharding.spmd.Split``, or ``None``) runs an entry point in
+a placed step program on the rank's part: attention on its heads, the MLP
+on its ``d_ff`` columns and the embedding on its vocabulary rows where
+those are split over ``model`` (the dense family), a MoE block's groups
+and aux terms over the global batch where the batch is split over the
+data axes. The parameters given are then the rank's live leaves
+(``spmd.live_params``).
 """
 from __future__ import annotations
 
@@ -166,9 +174,16 @@ def _attn_blocks_init(gen, cfg: ModelConfig, n: int, d_ff: int, dtype,
 # Embedding of (prefix, tokens)
 # ---------------------------------------------------------------------------
 
+def _part(split, kind: str):
+    """``split``'s tensor-parallel group for ``kind`` ("attn", "mlp",
+    "vocab"), or its data axes ("data"); ``None`` without a split."""
+    return None if split is None else getattr(split, kind)
+
+
 def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-    x = embed(params["embed"], tokens)
+                 prefix_embeds: Optional[torch.Tensor],
+                 split=None) -> torch.Tensor:
+    x = embed(params["embed"], tokens, _part(split, "vocab"))
     if prefix_embeds is not None:
         proj = prefix_embeds.to(x.dtype) @ params["prefix_proj"]["w"]
         x = torch.cat([proj, x], dim=1)
@@ -183,33 +198,36 @@ _ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
 
 
 def _attn_sublayer(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                   window: Optional[int], block: Optional[int]
+                   window: Optional[int], block: Optional[int], split=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x + attention(norm(x)), and that sum normed for the block's MLP."""
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
     x = x + attn_lib.attention_forward(
-        p["attn"], h, rope_theta=cfg.rope_theta, window=window, block=block)
+        p["attn"], h, rope_theta=cfg.rope_theta, window=window, block=block,
+        tp=_part(split, "attn"))
     return x, rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
 
 
 def _attn_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                        window: Optional[int],
-                        block: Optional[int]) -> torch.Tensor:
-    x, h = _attn_sublayer(p, x, cfg, window, block)
-    return x + mlp(p["mlp"], h)
+                        window: Optional[int], block: Optional[int],
+                        split=None) -> torch.Tensor:
+    x, h = _attn_sublayer(p, x, cfg, window, block, split)
+    return x + mlp(p["mlp"], h, _part(split, "mlp"))
 
 
 def _moe_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                       window: Optional[int], block: Optional[int]
+                       window: Optional[int], block: Optional[int],
+                       split=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    x, h = _attn_sublayer(p, x, cfg, window, block)
-    out, aux = moe_lib.moe_forward(p["moe"], h, cfg.moe)
+    x, h = _attn_sublayer(p, x, cfg, window, block, split)
+    out, aux = moe_lib.moe_forward(p["moe"], h, cfg.moe,
+                                   data=_part(split, "data"))
     return x + out, aux
 
 
 def _ssm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                       window: Optional[int],
-                       block: Optional[int]) -> torch.Tensor:
+                       window: Optional[int], block: Optional[int],
+                       split=None) -> torch.Tensor:
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     return x + ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm)
 
@@ -256,7 +274,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None, *,
             window: Optional[int] = None, remat: bool = False,
             block: Optional[int] = None,
-            head: bool = True) -> Dict[str, Any]:
+            head: bool = True, split=None) -> Dict[str, Any]:
     """Returns {"hidden": [B,S,d], "logits": [B,S,Va] f32 or None, "aux"}.
 
     ``head=False`` skips the action head (``logits`` is None): the
@@ -268,15 +286,15 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     layout pin) have no counterpart in an eager single-device loop and are
     not taken. ``aux`` holds the moe terms (``_sum_aux``), floats 0 for
     the other arch types."""
-    x = embed_inputs(cfg, params, tokens, prefix_embeds)
+    x = embed_inputs(cfg, params, tokens, prefix_embeds, split)
     auxs = []
     for kind, p, _ in _schedule(cfg, params):
         block_fn = _BLOCK_FORWARD[kind]
         if remat:
-            x = checkpoint(block_fn, p, x, cfg, window, block,
+            x = checkpoint(block_fn, p, x, cfg, window, block, split,
                            use_reentrant=False)
         else:
-            x = block_fn(p, x, cfg, window, block)
+            x = block_fn(p, x, cfg, window, block, split)
         if kind == "moe":
             x, aux = x
             auxs.append(aux)
@@ -322,13 +340,14 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
 # ---------------------------------------------------------------------------
 
 def _feed_forward(kind: str, p: Params, h: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, split=None) -> torch.Tensor:
     """An attention block's MLP on its normed input: SwiGLU, or for a moe
     block the MoE layer with its aux terms dropped, as the reference's
     prefill and decode drop them."""
     if kind == "moe":
-        return moe_lib.moe_forward(p["moe"], h, cfg.moe)[0]
-    return mlp(p["mlp"], h)
+        return moe_lib.moe_forward(p["moe"], h, cfg.moe,
+                                   data=_part(split, "data"))[0]
+    return mlp(p["mlp"], h, _part(split, "mlp"))
 
 
 def _fill(stack, i: int, n: int, part):
@@ -348,14 +367,14 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None, *,
             cache_len: Optional[int] = None,
             window: Optional[int] = None,
-            block: Optional[int] = None
+            block: Optional[int] = None, split=None
             ) -> Tuple[Dict[str, torch.Tensor], DecodeCache]:
     """Returns ({"hidden": [B,T,d], "logits": [B,T,Va] f32}, cache).
     ``cache_len`` and ``window`` size the KV caches; an SSM state is the
     state after the prompt and ignores them. Each attention block (each
     application of the hybrid's shared block) fills its own KV slot.
     ``block`` as in ``attention.attention_forward``."""
-    x = embed_inputs(cfg, params, tokens, prefix_embeds)
+    x = embed_inputs(cfg, params, tokens, prefix_embeds, split)
     cache_len = cache_len or x.shape[1]
     eff_len = min(cache_len, window) if window else cache_len
     n_attn = (num_shared_applications(cfg) if cfg.arch_type == "hybrid"
@@ -372,10 +391,10 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
         out, kv = attn_lib.attention_prefill(
             p["attn"], hn, rope_theta=cfg.rope_theta, cache_len=eff_len,
-            window=window, block=block)
+            window=window, block=block, tp=_part(split, "attn"))
         x = x + out
         hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-        x = x + _feed_forward(kind, p, hn, cfg)
+        x = x + _feed_forward(kind, p, hn, cfg, split)
         kv_stack = _fill(kv_stack, i, n_attn, kv)
         del kv
     cache = DecodeCache(attn=kv_stack, ssm=ssm_stack)
@@ -390,7 +409,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
            cache: DecodeCache, *, window: Optional[int] = None,
-           uniform: bool = False
+           uniform: bool = False, split=None
            ) -> Tuple[Dict[str, torch.Tensor], DecodeCache]:
     """token: [B] or [B,1] int -> logits [B, 1, Va]. Updates the cache in
     place: each attention block's k/v/positions slot (see
@@ -398,7 +417,8 @@ def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
     writes slot i) and each Mamba2 layer's conv tail and SSM state."""
     if token.ndim == 1:
         token = token[:, None]
-    x = embed(params["embed"], token).to(_dtype(cfg.compute_dtype))
+    x = embed(params["embed"], token,
+              _part(split, "vocab")).to(_dtype(cfg.compute_dtype))
     kvs, st = cache.attn, cache.ssm
     kv_lengths, ssm_lengths = [], []
     for kind, p, i in _schedule(cfg, params):
@@ -416,10 +436,10 @@ def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
         hn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
         out, kv = attn_lib.attention_decode(
             p["attn"], hn, kv, rope_theta=cfg.rope_theta, window=window,
-            uniform=uniform)
+            uniform=uniform, tp=_part(split, "attn"))
         x = x + out
         hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-        x = x + _feed_forward(kind, p, hn, cfg)
+        x = x + _feed_forward(kind, p, hn, cfg, split)
         kv_lengths.append(kv.length)
     new_cache = DecodeCache(
         attn=None if kvs is None else KVCache(

@@ -16,8 +16,9 @@ Moments placed as DTensors over ``data`` (``optim/zero.py``, ZeRO-2) are
 updated slice by slice: each rank applies the same per-element arithmetic
 to its slice of the moments, the parameter and the gradient (a full
 tensor, or a DTensor placed as the parameter is), then the parameter
-slices are all-gathered. The global grad norm is taken on the full f32
-grads before any slicing.
+slices are all-gathered. The global grad norm is taken on the f32 grads
+before any slicing (``global_norm``: a DTensor grad's squares summed over
+the mesh dims that shard it).
 """
 from __future__ import annotations
 
@@ -53,13 +54,32 @@ def warmup_schedule(base_lr: float, warmup_steps: int) -> Callable:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """The norm over every leaf; a DTensor leaf's sum of squares is taken
-    over its full value (``full_tensor`` of the scalar: an all-reduce where
-    it is sharded)."""
+    """The norm over every leaf, its squares added in leaf order. A DTensor
+    leaf's sum of squares is its local shard's, all-reduced over the mesh
+    dims of more than one rank that shard it (the leaves that share those
+    dims in one all-reduce), so each element counts once: a leaf split
+    over ``model`` sums there, a replicated one does not."""
+    import torch.distributed as dist
+    sq, pending = [], {}
+    for i, x in enumerate(tree_leaves(tree)):
+        if not is_dtensor(x):
+            sq.append(x.float().square().sum())
+            continue
+        sq.append(x.to_local().float().square().sum())
+        mesh = x.device_mesh
+        dims = tuple(m for m, p in enumerate(x.placements)
+                     if p.is_shard() and mesh.size(m) > 1)
+        if dims:
+            pending.setdefault((id(mesh), dims), (mesh, []))[1].append(i)
+    for (_, dims), (mesh, idx) in pending.items():
+        buf = torch.stack([sq[i] for i in idx])
+        for m in dims:
+            dist.all_reduce(buf, group=mesh.get_group(m))
+        for j, i in enumerate(idx):
+            sq[i] = buf[j]
     total = 0
-    for x in tree_leaves(tree):
-        sq = x.float().square().sum()
-        total = total + (sq.full_tensor() if is_dtensor(sq) else sq)
+    for s in sq:
+        total = total + s
     return torch.sqrt(total)
 
 

@@ -10,11 +10,12 @@ largest divisible axis; a leaf whose parameter is already placed over
 
 The moments are DTensors under those specs. ``adamw.update`` takes them
 through :func:`update_leaf`: each rank updates its slice of the moments
-and of the parameter from the full f32 gradient, and the updated
-parameter slices are all-gathered over ``data``. Every rank computes the
-full gradients of the whole batch (the batch is not split over ``data``),
-so the gradient reduce-scatter of the reference's GSPMD layout has no
-counterpart: each rank reads its slice of gradients it already holds.
+and of the parameter from the f32 gradient, and the updated parameter
+slices are all-gathered over ``data`` (over no mesh dim of one rank).
+In the placed step programs (``sharding/spmd.py``) each rank computes the
+gradients of its rows and they are all-reduced over ``data``: the
+reference's record shows all-reduce and no reduce-scatter, and each rank
+reads its slice of the summed gradients it holds.
 """
 from __future__ import annotations
 
@@ -124,10 +125,6 @@ def realized_moments_bytes_per_device(opt) -> int:
     return local
 
 
-_SAME_SIZE_INT = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
-                  8: torch.int64}
-
-
 def update_leaf(step: Callable, p, g, m, v, lr) -> None:
     """ZeRO-2 for one leaf whose moments ``m``, ``v`` are DTensors:
     ``step(p_part, g_part, m_local, v_local, lr)`` (the per-element AdamW
@@ -135,8 +132,8 @@ def update_leaf(step: Callable, p, g, m, v, lr) -> None:
     matching region of the gradient ``g`` and of the parameter ``p`` (each
     a full tensor, or a DTensor whose local region holds the moments'
     region, as one placed like the parameter does); then the updated
-    parameter regions are all-gathered (as bits) over the mesh dim that
-    shards the moments but not the parameter, so every rank holds the whole
+    parameter regions are all-gathered (a copy, bit for bit) over the mesh
+    dim that shards the moments but not the parameter, so every rank holds the whole
     updated parameter (its own placement of it)."""
     import torch.distributed as dist
     mesh = m.device_mesh
@@ -157,17 +154,18 @@ def update_leaf(step: Callable, p, g, m, v, lr) -> None:
     p_part = part(p_loc, poff)
     step(p_part, part(g_loc, goff), m.to_local(), v.to_local(), lr)
     extra = [(i, pl) for i, pl in enumerate(m.placements)
-             if pl.is_shard() and (p_plc is None or p_plc[i] != pl)]
+             if pl.is_shard() and mesh.size(i) > 1
+             and (p_plc is None or p_plc[i] != pl)]
     if not extra:
         return
     if len(extra) > 1:
         raise ValueError(f"moments {m.placements} shard over more mesh "
                          f"dims than the parameter {p_plc} plus one")
     (i, pl), = extra
-    bits = p_part.contiguous().view(_SAME_SIZE_INT[p_part.element_size()])
-    parts = [torch.empty_like(bits) for _ in range(mesh.size(i))]
-    dist.all_gather(parts, bits, group=mesh.get_group(i))
-    whole = torch.cat(parts, dim=pl.dim).view(p_loc.dtype)
+    part = p_part.contiguous()
+    parts = [torch.empty_like(part) for _ in range(mesh.size(i))]
+    dist.all_gather(parts, part, group=mesh.get_group(i))
+    whole = torch.cat(parts, dim=pl.dim)
     if whole.shape != p_loc.shape:
         raise ValueError(f"gathered {tuple(whole.shape)} for a parameter "
                          f"shard of {tuple(p_loc.shape)}")

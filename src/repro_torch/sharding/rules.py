@@ -403,8 +403,3 @@ def full_tensor(x):
            for m, p in enumerate(x.placements)):
         return x.to_local()
     return x.full_tensor()
-
-
-def full_tree(tree):
-    """:func:`full_tensor` over a tree."""
-    return tree_map(full_tensor, tree)

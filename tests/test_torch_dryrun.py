@@ -12,7 +12,14 @@
     subprocess: the group is process-global) returns the reference's record
     keys (those of ``experiments/dryrun/16x16/deepseek-7b__train_4k.json``
     for a train, and the reference's ``state_bytes_per_dev`` for a decode),
-    the placed state's bytes, and the collectives the placed step issues.
+    the placed state's bytes, and the collectives the placed step issues
+    (all-gather and all-reduce only). The split program: each rank's FLOPs
+    against the whole program's (the same step on one device, the global
+    batch, counted in the same subprocess): within 10% of its 1/256 where
+    heads, ``d_ff`` and vocab divide 16 (reduced deepseek-7b at 16 heads,
+    d 256, 4 layers: every block split over model), and between its 1/256
+    and its 1/16 at the reduced configs' 4 heads, where attention is
+    gathered whole on every model rank.
 """
 import dataclasses
 import json
@@ -131,14 +138,37 @@ def test_layer_delta_equals_the_full_programs_count():
 
 
 _LOWER = r"""
-import json, sys
+import dataclasses, functools, json, sys
 sys.path.insert(0, "src")
-from repro_torch.configs import get_config, reduced
-from repro_torch.launch import dryrun
-out = {}
-for arch, shape in (("deepseek-7b", "train_4k"), ("openvla-7b", "decode_32k")):
-    out[shape] = dryrun.lower_one(
-        arch, shape, cfg=reduced(get_config(arch), layers=2, d_model=64))
+import torch
+from repro_torch.configs import get_config, get_shape, reduced
+from repro_torch.configs.base import RLConfig
+from repro_torch.kernels import dispatch
+from repro_torch.launch import dryrun, steps
+from repro_torch.roofline.analysis import terms_from_program
+from repro_torch.sharding.rules import AbstractMesh
+
+
+def whole(cfg, shape):
+    # the same step on one device over the global batch (plain meta trees)
+    state, batch, _, _ = steps.train_specs(
+        cfg, get_shape(shape), AbstractMesh((1, 1), ("data", "model")))
+    fn = functools.partial(steps.seq_train_step, cfg=cfg, rl=RLConfig())
+    with dispatch.forced("torch"), torch.no_grad():
+        return terms_from_program(fn, state, batch)["flops"]
+
+
+small = reduced(get_config("deepseek-7b"), layers=2, d_model=64)
+tp = dataclasses.replace(reduced(get_config("deepseek-7b"), layers=4,
+                                 d_model=256),
+                         num_heads=16, num_kv_heads=16, head_dim_override=16)
+out = {"train_4k": dryrun.lower_one("deepseek-7b", "train_4k", cfg=small),
+       "decode_32k": dryrun.lower_one(
+           "openvla-7b", "decode_32k",
+           cfg=reduced(get_config("openvla-7b"), layers=2, d_model=64)),
+       "train_4k_tp": dryrun.lower_one("deepseek-7b", "train_4k", cfg=tp)}
+out["whole"] = {"train_4k": whole(small, "train_4k"),
+                "train_4k_tp": whole(tp, "train_4k")}
 print(json.dumps(out))
 """
 
@@ -173,8 +203,32 @@ def test_lower_one_train_record_has_the_reference_keys(records):
         + mem["temp_size_in_bytes"]
     counts = rec["roofline"]["coll_by_kind"]["counts"]
     assert counts["all-gather"] > 0 and counts["all-reduce"] > 0
-    assert rec["roofline"]["flops"] > rec["roofline"]["model_flops"] / 256
-    assert "not split over data" in rec["program"]
+    assert not any(counts[k] for k in ("reduce-scatter", "all-to-all",
+                                       "collective-permute"))
+    # the split program: the rank's rows; the MLP and the embedding split
+    # over model, attention (4 heads on 16) gathered whole on every rank
+    assert "the rank's rows" in rec["program"]
+    assert "the MLP on d_ff" in rec["program"]
+    assert "attention on heads" not in rec["program"]
+    whole = records["whole"]["train_4k"]
+    assert whole / 256 < rec["roofline"]["flops"] < whole / 16
+
+
+def test_lower_one_tensor_parallel_record(records):
+    """Heads, d_ff and vocab divide 16: every block split over model and the
+    batch over data, each rank's FLOPs within 10% of the whole program's
+    1/256 (the replicated heads and loss are the rest)."""
+    rec = records["train_4k_tp"]
+    assert rec["accum"] == 1 and rec["fits"]
+    for part in ("attention on heads", "the MLP on d_ff",
+                 "the embedding on vocab", "the rank's rows"):
+        assert part in rec["program"], part
+    flops = rec["roofline"]["flops"]
+    want = records["whole"]["train_4k_tp"] / 256
+    assert abs(flops - want) <= 0.1 * want, (flops, want)
+    counts = rec["roofline"]["coll_by_kind"]["counts"]
+    assert set(k for k, v in counts.items() if v) == {"all-gather",
+                                                      "all-reduce"}
 
 
 def test_lower_one_decode_record(records):

@@ -229,7 +229,7 @@ def test_entry_points_default_to_cuda(tmp_path):
                                                TransportServer)
     from repro_torch.runtime.transport.codec import encode_pytree
     from repro_torch.runtime.transport.resilience import RecoveredState
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
     from repro_torch.runtime.step_program import build_train_step_program
     from repro_torch.launch import serve, train
     checkpoint.save(str(tmp_path), 1, {"w": np.zeros(2, np.float32)})
@@ -301,6 +301,7 @@ def test_entry_points_default_to_cuda(tmp_path):
         lambda: RecoveredState(store=(1, encode_pytree(
             {"w": np.zeros(2, np.float32)}))).store_params(),
         lambda: make_local_mesh(),
+        lambda: make_mesh(1, 1),
         lambda: TrainerWorker(cfg, tconfigs.RLConfig(),
                               tconfigs.RuntimeConfig(pipeline=True),
                               FifoChannel(1), VersionedWeightStore()),

@@ -181,7 +181,18 @@ Phases, each printing one line of its numbers:
      decodes each, held against the one-rank program run first in the same
      child from the same params and batch (f32 within SPMD_F32_BOUND of
      the largest value, bf16 within LIVE_ROUTE_BOUND / LIVE_LEAF_BOUND);
-     each child's K1-K4 launches, peak memory and walls printed.
+     each child's K1-K4 launches, peak memory and walls printed. Then the
+     other families split over model: mamba2-2.7b,
+     zamba2-1.2b (its shared block where its schedule places it) and
+     granite-moe-1b-a400m at full width and 2 layers on 2 x 1 and 1 x 2,
+     granite-20b at full width and 1 layer on 1 x 2 (its one KV head:
+     ``wk``/``wv`` used whole, the cache on ``head_dim``), each an f32 copy
+     and bf16 held as openvla-7b's (granite-moe on its f32 copy alone, the
+     closest top-k gap of its routers printed beside it), each child's
+     K1-K4, K6 and K7 launches checked against the counts its programs
+     make, its peak and walls printed per model. Two such pairs of ranks
+     run at once (SPMD_GROUPS: openvla-7b and granite-20b in one, the other
+     three in the other).
  19. steps (last; ``[steps]`` lines): the step programs of
      ``repro_torch.launch.steps`` at the production shapes, on openvla-7b
      at full width (bf16, random weights from a seed). Kernels: K1 (+LSE)
@@ -1775,8 +1786,8 @@ def _moe_choices():
     from repro_torch.models import moe
     calls, inner = [], moe._group_dispatch
 
-    def wrapped(params, xg, cfg, cap):
-        out, logits, keep = inner(params, xg, cfg, cap)
+    def wrapped(params, xg, cfg, cap, tp=None):
+        out, logits, keep = inner(params, xg, cfg, cap, tp)
         with torch.no_grad():
             idx = torch.topk(torch.softmax(logits.detach(), dim=-1),
                              cfg.top_k, dim=-1).indices
@@ -1800,8 +1811,8 @@ def _router_gaps():
     from repro_torch.models import moe
     gaps, inner = [], moe._group_dispatch
 
-    def wrapped(params, xg, cfg, cap):
-        out, logits, keep = inner(params, xg, cfg, cap)
+    def wrapped(params, xg, cfg, cap, tp=None):
+        out, logits, keep = inner(params, xg, cfg, cap, tp)
         with torch.no_grad():
             top = torch.topk(logits.detach().float(), cfg.top_k + 1,
                              dim=-1).values
@@ -4717,7 +4728,7 @@ def phase_plane(dev, smi, counters, remote):
     return out
 
 
-# --- the placed step programs on two ranks sharing the card (``spmd``) ------
+# --- the placed step programs on ranks sharing the card (``spmd``) ----------
 # openvla-7b at full width (d 4096, 32 heads, vocab 32,000) and SPMD_LAYERS
 # layers, an f32 copy and bf16, from one seed: each of two spawned
 # processes is a gloo rank (NCCL takes one rank a device; gloo stages CUDA
@@ -4736,6 +4747,31 @@ def phase_plane(dev, smi, counters, remote):
 # keep about 40% of the first's mask entries. The behaviour log-probs are
 # the one-rank kernel route's own + 0.1 N(0, 1), so ω's mean stays above
 # 0.5. Two processes sharing one card's SMs say nothing of a mesh's speed.
+#
+# Then the other families split over model, each held the same way in the
+# same children: mamba2-2.7b (Mamba2 blocks on heads, K6/K7 on each rank's
+# heads), zamba2-1.2b (its 2 Mamba2 layers so, behind its shared attention
+# + MLP block, which its schedule applies once, on heads and d_ff) and
+# granite-moe-1b-a400m (its experts on model, attention on heads; 512
+# tokens a sequence, so that a micro-batch's two capacity groups fall one a
+# data rank) at full width and SPMD_LAYERS layers on both meshes, and
+# granite-20b at full width and 1 layer on 1 x 2 (48 query heads over 1 KV
+# head: wk/wv used whole, each rank projecting the one KV head; the cache
+# holds its head_dim slice). mamba2's f32 copy runs at SSD chunk
+# SSM_F32_CHUNK (K7's f32 tiles at chunk 128 and N 128 exceed shared
+# memory), as the training phase's f32 witness does. granite-moe's bf16
+# model is chaotic (C6): it is held on its f32 copy, its bf16 figures
+# printed, with the closest gap between a token's k-th and (k+1)-th router
+# logit of each run (C8). In bf16 a leaf that starts at zero (conv_b,
+# A_log, the value head's biases) sits at about -lr sign(g) after the
+# step (a fraction of lr where the clipped gradient is near AdamW's eps):
+# besides |a - b| / |b| it is held element by element to 0.1 lr, one ulp
+# of its dtype and the difference of the moves AdamW's first step makes
+# of the two programs' moments (first_move). The Mamba2 blocks' (conv_b,
+# A_log) are held by that rule alone, their |a - b| / |b| printed: conv_b
+# read 0.11 to 0.16 on the card, the data split alone included, a count
+# of near-zero gradients whose sign two bf16 programs round apart; their
+# moments stay held by LIVE_LEAF_BOUND.
 SPMD_LAYERS = 2
 SPMD_BATCH = 4                     # accum 2 x 2 rows: one a data rank
 SPMD_ACCUM = 2
@@ -4745,6 +4781,20 @@ SPMD_DECODES = 3
 SPMD_MESHES = ((2, 1), (1, 2))
 SPMD_F32_BOUND = 1e-4
 SPMD_TIMEOUT_S = 300
+# (arch, layers, sequence, meshes, held in bf16)
+SPMD_MODELS = (
+    ("openvla-7b", SPMD_LAYERS, SPMD_SEQ, SPMD_MESHES, True),
+    ("mamba2-2.7b", SPMD_LAYERS, SPMD_SEQ, SPMD_MESHES, True),
+    ("zamba2-1.2b", SPMD_LAYERS, SPMD_SEQ, SPMD_MESHES, True),
+    (MOE_ARCH, SPMD_LAYERS, 512, SPMD_MESHES, False),
+    ("granite-20b", 1, SPMD_SEQ, ((1, 2),), True),
+)
+# Two groups of two ranks run at once, each its models in turn, each
+# group over its own FileStore: their walls about balance, and their peaks
+# (granite-20b's f32 copy 19.3 GB a rank, mamba2-2.7b's 5.8 GB the other
+# group's largest, on the H100) leave the card room.
+SPMD_GROUPS = (("openvla-7b", "granite-20b"),
+               ("mamba2-2.7b", "zamba2-1.2b", MOE_ARCH))
 
 _SPMD_SCRIPT = r"""
 import time
@@ -4759,9 +4809,10 @@ from repro_torch.kernels import gipo_loss as gl
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.launch import steps, train
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.policy import init_policy_params
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules, spmd
@@ -4772,6 +4823,7 @@ a = json.loads(sys.argv[3])
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda", 0)
+torch.empty(0, device=dev)          # the allocator's stats need a context
 dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
                         world_size=2)
 T_READY = time.perf_counter()
@@ -4780,9 +4832,26 @@ COUNTED = {"flash_attention": flash_attention,
            "flash_attention_bwd": flash_attention_bwd,
            "fused_policy_loss_fwd": gl.policy_loss_fwd,
            "fused_policy_loss_bwd": gl.policy_loss_bwd,
+           "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
+           "ssd_scan tensor-core body": ssd_scan.tc,
            "fused_policy_loss_fwd tensor-core body": gl.policy_loss_fwd.tc,
            "fused_policy_loss_bwd tensor-core body": gl.policy_loss_bwd.tc}
-ACC, SEQ, BATCH = a["accum"], a["seq"], a["batch"]
+ACC, BATCH = a["accum"], a["batch"]
+GAPS = []
+_dispatch = moe._group_dispatch
+
+
+def gapped(params, xg, cfg, cap, tp=None):
+    # the smallest gap between a token's k-th and (k+1)-th router logit
+    out, logits, keep = _dispatch(params, xg, cfg, cap, tp)
+    with torch.no_grad():
+        top = torch.topk(logits.detach().float(), cfg.top_k + 1,
+                         dim=-1).values
+        GAPS.append(float((top[..., -2] - top[..., -1]).min()))
+    return out, logits, keep
+
+
+moe._group_dispatch = gapped
 
 
 def zero():
@@ -4794,35 +4863,39 @@ def counts():
     return {k: fn.launches for k, fn in COUNTED.items()}
 
 
-def make_batch(cfg):
+def make_batch(cfg, seq):
     g = torch.Generator(device=dev).manual_seed(17)
     mb = BATCH // ACC
     lead = (ACC, mb)
-    mask = (torch.rand(lead + (SEQ - 1,), generator=g, device=dev)
+    mask = (torch.rand(lead + (seq - 1,), generator=g, device=dev)
             > 0.1).float()
-    keep = (torch.rand(lead + (SEQ - 1,), generator=g, device=dev)
+    keep = (torch.rand(lead + (seq - 1,), generator=g, device=dev)
             < 0.4).float()
     mask[:, mb // 2:] *= keep[:, mb // 2:]
-    return {
-        "tokens": torch.randint(0, cfg.vocab_size, lead + (SEQ,),
+    b = {
+        "tokens": torch.randint(0, cfg.vocab_size, lead + (seq,),
                                 generator=g, device=dev, dtype=torch.int32),
-        "behavior_logp": torch.zeros(lead + (SEQ,), device=dev),
-        "rewards": torch.randn(lead + (SEQ - 1,), generator=g, device=dev),
-        "dones": (torch.rand(lead + (SEQ - 1,), generator=g, device=dev)
+        "behavior_logp": torch.zeros(lead + (seq,), device=dev),
+        "rewards": torch.randn(lead + (seq - 1,), generator=g, device=dev),
+        "dones": (torch.rand(lead + (seq - 1,), generator=g, device=dev)
                   < 1 / 64).float(),
         "mask": mask,
-        "prefix": torch.randn(lead + (cfg.num_prefix_tokens, 1024),
-                              generator=g, device=dev),
-    }, g
+    }
+    if cfg.num_prefix_tokens:
+        b["prefix"] = torch.randn(lead + (cfg.num_prefix_tokens, 1024),
+                                  generator=g, device=dev)
+    return b, g
 
 
-def behaviour(cfg, params, b, g):
+def behaviour(cfg, params, b, g, seq):
     out = torch.zeros_like(b["behavior_logp"])
     with torch.no_grad():
         for i in range(ACC):
             tok = b["tokens"][i]
-            fw = transformer.forward(cfg, params, tok, b["prefix"][i])
-            p = fw["logits"].shape[1] - SEQ
+            fw = transformer.forward(cfg, params, tok,
+                                     b["prefix"][i] if "prefix" in b
+                                     else None)
+            p = fw["logits"].shape[1] - seq
             lp = torch.log_softmax(fw["logits"][:, p:-1].float(), dim=-1)
             tg = (tok[:, 1:] % cfg.action_vocab_size).long()[..., None]
             out[i, :, 1:] = lp.gather(-1, tg)[..., 0] + 0.1 * torch.randn(
@@ -4830,31 +4903,35 @@ def behaviour(cfg, params, b, g):
     return out
 
 
-def serve(cfg, params, tokens, prefix, decode):
+def serve(cfg, params, tokens, prefix, decode, split=True):
     out = []
     logits, cache = steps.prefill_step(
         params, tokens, prefix, cfg=cfg, window=None,
-        cache_len=cfg.num_prefix_tokens + tokens.shape[1] + len(decode))
+        cache_len=cfg.num_prefix_tokens + tokens.shape[1] + len(decode),
+        data_split=split)
     out.append(logits.float())
     for tok in decode:
         logits, cache = steps.serve_step(params, tok, cache, cfg=cfg,
-                                         window=None)
+                                         window=None, data_split=split)
         out.append(logits.float())
     return torch.stack(out)
 
 
-def leaf_worst(got, ref, mesh, f32):
+def leaf_worst(got, ref, mesh, f32, skip=()):
     # each local leaf (each layer of a stacked one) against the one-rank
     # leaf's same region: f32 |a - b| over the leaf's largest |b|; bf16
-    # |a - b| / |b| in Frobenius norm
+    # |a - b| / |b| in Frobenius norm; the leaves in ``skip`` left out
     want = dict(tree_leaves_with_path(ref))
     worst, where = 0.0, None
     for path, x in tree_leaves_with_path(got):
+        if path in skip:
+            continue
         full = want[path]
         shape, off = rules.local_region(tuple(full.shape), mesh,
                                         x.placements)
         b, l = rules.region(full, shape, off).float(), x.to_local().float()
-        layers = range(b.shape[0]) if path[0] == "layers" else [None]
+        layers = range(b.shape[0]) if path[0] in ("layers", "layers_rem") \
+            else [None]
         for i in layers:
             bi, li = (b, l) if i is None else (b[i], l[i])
             if f32:
@@ -4871,22 +4948,53 @@ def leaf_worst(got, ref, mesh, f32):
     return worst, where
 
 
-def params_worst(got, ref, ref_mu, mesh, lr, bar):
-    # f32: each element's move from the one-rank params over what AdamW's
-    # first step allows (test_torch_steps.py's rule): 0.1 lr where the
+def first_move(mu, nu):
+    # the move over lr that AdamW's first step makes of its moments
+    # (adamw.update's b1 0.9, b2 0.999, eps 1e-8, bias-corrected)
+    return (mu / (1 - 0.9)) / (torch.sqrt(nu / (1 - 0.999)) + 1e-8)
+
+
+def params_worst(got, ref, ref_mu, mesh, lr, bar, only=None, moments=None):
+    # each element's move from the one-rank params over what AdamW's first
+    # step allows. f32 (test_torch_steps.py's rule): 0.1 lr where the
     # one-rank first moment is past ``bar`` of its leaf's largest value,
     # 2 lr where it is within (a step moves an element by about lr
-    # whatever its gradient's size, its sign by the gradient's)
+    # whatever its gradient's size, its sign by the gradient's). With
+    # ``moments`` (the one-rank second moments of the leaves in ``only``,
+    # this program's state) instead 0.1 lr beside the difference of the
+    # two programs' first moves (first_move): the element moves apart
+    # only as far as its moments do, which are held on their own.
     want, mus = dict(tree_leaves_with_path(ref)), dict(
         tree_leaves_with_path(ref_mu))
+    if moments is not None:
+        ref_nu, opt = moments
+        gmus, gnus = (dict(tree_leaves_with_path(t))
+                      for t in (opt.mu, opt.nu))
     worst, where = 0.0, None
     for path, x in tree_leaves_with_path(got):
+        if only is not None and path not in only:
+            continue
+        if moments is not None:
+            # collectives: every rank gathers, whatever its region holds
+            gmu, gnu = (spmd.gather(t[path]).float() for t in (gmus, gnus))
+        if not x.numel():
+            continue
         shape, off = rules.local_region(tuple(want[path].shape), mesh,
                                         x.placements)
         b = rules.region(want[path], shape, off).float()
         mu = rules.region(mus[path], shape, off).float()
-        big = mu.abs() > bar * float(mus[path].abs().max())
-        held = torch.where(big, 0.1 * lr, 2 * lr)
+        if moments is None:
+            big = mu.abs() > bar * float(mus[path].abs().max())
+            held = torch.where(big, 0.1 * lr, 2 * lr)
+        else:
+            apart = first_move(*(rules.region(t, shape, off)
+                                 for t in (gmu, gnu))) - first_move(
+                mu, rules.region(ref_nu[path], shape, off).float())
+            held = 0.1 * lr + lr * apart.abs()
+        if x.dtype != torch.float32:
+            # each side rounded to the leaf's dtype (bf16: lr itself
+            # rounds up by 0.14%)
+            held = held + torch.finfo(x.dtype).eps * lr
         r = float(((x.to_local().float() - b).abs() / held).max())
         if not math.isfinite(r) or r > worst:
             worst, where = r, ".".join(path)
@@ -4902,98 +5010,158 @@ def metric_worst(got, ref, floor):
     return worst, where
 
 
-report = {"rank": rank, "imports_s": T_READY - T_START, "runs": []}
-for label, dtype in (("f32 copy", "float32"), ("bf16", "bfloat16")):
-    cfg = dataclasses.replace(get_config("openvla-7b"),
-                              num_layers=a["layers"], param_dtype=dtype,
-                              compute_dtype=dtype)
-    f32 = dtype == "float32"
-    bound_m, bound_l = (a["f32"], a["f32"]) if f32 else (a["route"],
-                                                         a["leaf"])
-    rl = RLConfig(warmup_steps=1)
-    b, g = make_batch(cfg)
-    params = init_policy_params(cfg, 0, device=dev)
-    b["behavior_logp"] = behaviour(cfg, params, b, g)
-    t0 = time.perf_counter()
-    st = steps.SeqTrainState(params, adamw.init(params), init_adv_state(dev))
-    st, m = steps.seq_train_step(st, b, cfg=cfg, rl=rl, accum=ACC)
-    torch.cuda.synchronize()
-    one_wall = time.perf_counter() - t0
-    ref_m = {k: float(v) for k, v in m.items()}
-    ref_mu, ref_p = st.opt.mu, st.params
-    del st, params
-    gs = torch.Generator(device=dev).manual_seed(23)
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, a["prompt"]),
-                           generator=gs, device=dev, dtype=torch.int32)
-    prefix = torch.randn((BATCH, cfg.num_prefix_tokens, 1024), generator=gs,
-                         device=dev)
-    decode = torch.randint(0, cfg.vocab_size, (a["decodes"], BATCH),
-                           generator=gs, device=dev, dtype=torch.int32)
-    with torch.no_grad():
-        ref_logits = serve(cfg, init_policy_params(cfg, 0, device=dev),
-                           tokens, prefix, decode)
-    torch.cuda.empty_cache()
-    for d, mdl in a["meshes"]:
-        mesh = make_mesh(d, mdl, device="cuda")
-        shape = dataclasses.replace(get_shape("train_4k"), global_batch=BATCH,
-                                    seq_len=SEQ)
-        _, _, sspec, _ = steps.train_specs(cfg, shape, mesh, accum=ACC)
-        state = train.init_state(cfg, mesh, sspec, dev)
-        lay = spmd.layout(cfg, state.params)
-        rows = spmd.rows(b, mesh, dim=1)
-        zero()
-        torch.cuda.synchronize()
+def run_model(arch, layers, seq, meshes, held_bf16):
+    for label, dtype in (("f32 copy", "float32"), ("bf16", "bfloat16")):
+        t_model = time.perf_counter()
+        print(f"[spmd child] rank {rank}: {arch} {label} one rank",
+              file=sys.stderr, flush=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  param_dtype=dtype, compute_dtype=dtype)
+        f32 = dtype == "float32"
+        if f32 and cfg.ssm is not None and cfg.ssm.state_dim > 64:
+            # K7's f32 tiles at chunk 128 and N 128 exceed shared memory
+            cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, chunk=a["f32_chunk"]))
+        held = f32 or held_bf16
+        bound_m, bound_l = (a["f32"], a["f32"]) if f32 else (a["route"],
+                                                             a["leaf"])
+        rl = RLConfig(warmup_steps=1)
+        b, g = make_batch(cfg, seq)
+        params = init_policy_params(cfg, 0, device=dev)
+        # leaves that start at zero: one step leaves them at about
+        # -lr sign(g); those of the Mamba2 blocks (conv_b, A_log) are held
+        # by the AdamW rule alone in bf16, not by |a - b| / |b|
+        zeros = {p for p, x in tree_leaves_with_path(params) if not x.any()}
+        mamba_zeros = {p for p in zeros if "ssm" in p}
+        b["behavior_logp"] = behaviour(cfg, params, b, g, seq)
         t0 = time.perf_counter()
-        state, m = steps.seq_train_step(state, rows, cfg=cfg, rl=rl,
-                                        accum=ACC,
-                                        grad_shardings=sspec.params)
+        st = steps.SeqTrainState(params, adamw.init(params),
+                                 init_adv_state(dev))
+        GAPS.clear()
+        st, m = steps.seq_train_step(st, b, cfg=cfg, rl=rl, accum=ACC)
         torch.cuda.synchronize()
-        train_wall = time.perf_counter() - t0
-        train_counts = counts()
-        mw = metric_worst(m, ref_m, 1e-3)
-        lw = leaf_worst(state.opt.mu, ref_mu, mesh, f32)
-        pw = (params_worst(state.params, ref_p, ref_mu, mesh, rl.lr_policy,
-                           a["f32"]) if f32
-              else leaf_worst(state.params, ref_p, mesh, False))
-        del state
-        p0 = init_policy_params(cfg, 0, device=dev)
-        placed = rules.place_tree(p0, mesh, rules.param_specs(cfg, p0, mesh))
-        del p0
-        data = spmd.DataAxes(mesh)
-        sl = slice(data.index * BATCH // data.size,
-                   (data.index + 1) * BATCH // data.size)
-        zero()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        one_wall = time.perf_counter() - t0
+        one_gap = min(GAPS, default=None)
+        ref_m = {k: float(v) for k, v in m.items()}
+        ref_mu, ref_p = st.opt.mu, st.params
+        ref_nu = {p: x for p, x in tree_leaves_with_path(st.opt.nu)
+                  if p in zeros}
+        del st, params
+        gs = torch.Generator(device=dev).manual_seed(23)
+        tokens = torch.randint(0, cfg.vocab_size, (BATCH, a["prompt"]),
+                               generator=gs, device=dev, dtype=torch.int32)
+        prefix = torch.randn((BATCH, cfg.num_prefix_tokens, 1024),
+                             generator=gs, device=dev) \
+            if cfg.num_prefix_tokens else None
+        decode = torch.randint(0, cfg.vocab_size, (a["decodes"], BATCH),
+                               generator=gs, device=dev, dtype=torch.int32)
         with torch.no_grad():
-            got = serve(cfg, placed, tokens[sl], prefix[sl], decode[:, sl])
-        torch.cuda.synchronize()
-        serve_wall = time.perf_counter() - t0
-        serve_counts = counts()
-        want = ref_logits[:, sl]
-        gw = float((got - want).abs().max()) / float(want.abs().max())
-        del placed
+            ref_logits = serve(cfg, init_policy_params(cfg, 0, device=dev),
+                               tokens, prefix, decode)
         torch.cuda.empty_cache()
-        run = dict(label=label, mesh=f"{d}x{mdl}", tp=lay.tensor_parallel(),
-                   data_split=lay.data is not None,
-                   metrics=mw, leaves=lw, params=pw, logits=gw,
-                   train_counts=train_counts, serve_counts=serve_counts,
-                   one_rank_wall_s=one_wall, train_wall_s=train_wall,
-                   serve_wall_s=serve_wall,
-                   omega_mean=float(m["omega_mean"]),
-                   ref_omega_mean=ref_m["omega_mean"])
-        report["runs"].append(run)
-        bad = [n for n, (v, bound) in (
-            ("metrics", (mw[0], bound_m)), ("moments", (lw[0], bound_l)),
-            ("params", (pw[0], 1.0 if f32 else bound_l)),
-            ("logits", (gw, bound_m))) if not v <= bound]
-        if bad:
-            print(json.dumps(report))
-            raise AssertionError(f"rank {rank} {label} {d}x{mdl}: {bad}: "
-                                 f"{run}")
-    del ref_mu, ref_p, ref_logits
-    torch.cuda.empty_cache()
-report["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        for d, mdl in meshes:
+            # where a failing child got to (its stderr is printed)
+            print(f"[spmd child] rank {rank}: {arch} {label} {d}x{mdl}",
+                  file=sys.stderr, flush=True)
+            mesh = make_mesh(d, mdl, device="cuda")
+            shape = dataclasses.replace(get_shape("train_4k"),
+                                        global_batch=BATCH, seq_len=seq)
+            _, _, sspec, _ = steps.train_specs(cfg, shape, mesh, accum=ACC)
+            state = train.init_state(cfg, mesh, sspec, dev)
+            lay = spmd.layout(cfg, state.params)
+            rows = spmd.rows(b, mesh, dim=1)
+            zero()
+            GAPS.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps.seq_train_step(state, rows, cfg=cfg, rl=rl,
+                                            accum=ACC,
+                                            grad_shardings=sspec.params)
+            torch.cuda.synchronize()
+            train_wall = time.perf_counter() - t0
+            train_counts = counts()
+            gap = min(GAPS, default=None)
+            mw = metric_worst(m, ref_m, 1e-3)
+            lw = leaf_worst(state.opt.mu, ref_mu, mesh, f32)
+            if f32:
+                pw = params_worst(state.params, ref_p, ref_mu, mesh,
+                                  rl.lr_policy, a["f32"])
+                zw = zr = (0.0, None)
+            else:
+                pw = leaf_worst(state.params, ref_p, mesh, False,
+                                mamba_zeros)
+                zw = params_worst(state.params, ref_p, ref_mu, mesh,
+                                  rl.lr_policy, None, zeros,
+                                  moments=(ref_nu, state.opt))
+                # printed beside it: the Mamba2 zero-start leaves' |a - b|
+                # / |b|, a count of sign flips of near-zero gradients
+                zr = leaf_worst(state.params, ref_p, mesh, False,
+                                set(dict(tree_leaves_with_path(ref_p)))
+                                - mamba_zeros) if mamba_zeros else (0.0,
+                                                                    None)
+            del state
+            p0 = init_policy_params(cfg, 0, device=dev)
+            placed = rules.place_tree(p0, mesh,
+                                      rules.param_specs(cfg, p0, mesh))
+            del p0
+            # a MoE prompt batch whose one capacity group would straddle
+            # the data ranks is served whole on each (spmd.splits)
+            split = spmd.splits(cfg, mesh, BATCH,
+                                cfg.num_prefix_tokens + a["prompt"])
+            data = spmd.DataAxes(mesh)
+            sl = slice(data.index * BATCH // data.size,
+                       (data.index + 1) * BATCH // data.size) \
+                if split else slice(None)
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                got = serve(cfg, placed, tokens[sl],
+                            None if prefix is None else prefix[sl],
+                            decode[:, sl], split)
+            torch.cuda.synchronize()
+            serve_wall = time.perf_counter() - t0
+            serve_counts = counts()
+            want = ref_logits[:, sl]
+            gw = float((got - want).abs().max()) / float(want.abs().max())
+            del placed
+            torch.cuda.empty_cache()
+            run = dict(arch=arch, layers=layers, seq=seq, label=label,
+                       mesh=f"{d}x{mdl}", tp=lay.tensor_parallel(),
+                       kv_whole=lay.split.attn is not None
+                       and lay.split.attn.kv is not None,
+                       summed=len(lay.summed),
+                       data_split=lay.data is not None, held=held,
+                       metrics=mw, leaves=lw, params=pw, zero_start=zw,
+                       zero_start_ratio=zr, logits=gw,
+                       train_counts=train_counts, serve_counts=serve_counts,
+                       one_rank_wall_s=one_wall, train_wall_s=train_wall,
+                       serve_wall_s=serve_wall, gap=gap, one_rank_gap=one_gap,
+                       omega_mean=float(m["omega_mean"]),
+                       ref_omega_mean=ref_m["omega_mean"])
+            report["runs"].append(run)
+            bad = [n for n, (v, bound) in (
+                ("metrics", (mw[0], bound_m)), ("moments", (lw[0], bound_l)),
+                ("params", (pw[0], 1.0 if f32 else bound_l)),
+                ("zero-start params", (zw[0], 1.0)),
+                ("logits", (gw, bound_m))) if not v <= bound]
+            if bad and held:
+                print(json.dumps(report))
+                raise AssertionError(f"rank {rank} {arch} {label} "
+                                     f"{d}x{mdl}: {bad}: {run}")
+        del ref_mu, ref_nu, ref_p, ref_logits
+        torch.cuda.empty_cache()
+        report["models"].append(dict(
+            arch=arch, label=label,
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+            wall_s=time.perf_counter() - t_model))
+
+
+report = {"rank": rank, "imports_s": T_READY - T_START, "runs": [],
+          "models": []}
+for arch, layers, seq, meshes, held_bf16 in a["models"]:
+    run_model(arch, layers, seq, meshes, held_bf16)
 report["wall_s"] = time.perf_counter() - T_START
 dist.barrier()
 dist.destroy_process_group()
@@ -5001,83 +5169,141 @@ print(json.dumps(report))
 """
 
 
+def _spmd_want(arch: str, layers: int):
+    """The launches one rank's programs make on a model of ``layers``
+    layers: (the train step's, prefill + decodes'). Each block is
+    checkpointed, so the backward runs K1 and K6 once more; an attention
+    block (the hybrid's shared block each time its schedule applies it)
+    runs K1 and K3, a Mamba2 block K6 and K7, the loss K4 once a
+    micro-batch; prefill runs K1 and K6 once a block, each decode K2 once
+    an attention block (the recurrent Mamba2 step is plain)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import num_shared_applications
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    n_ssm = layers if cfg.arch_type in ("ssm", "hybrid") else 0
+    n_attn = (num_shared_applications(cfg) if cfg.arch_type == "hybrid"
+              else 0 if cfg.arch_type == "ssm" else layers)
+    acc = SPMD_ACCUM
+    train_n = dict(flash_attention=2 * n_attn * acc,
+                   flash_attention_bwd=n_attn * acc,
+                   ssd_scan=2 * n_ssm * acc, ssd_scan_bwd=n_ssm * acc,
+                   fused_policy_loss_fwd=acc, fused_policy_loss_bwd=acc)
+    serve_n = dict(flash_attention=n_attn, ssd_scan=n_ssm,
+                   decode_attention=n_attn * SPMD_DECODES)
+    return train_n, serve_n
+
+
 def phase_spmd(dev, smi, counting):
-    """The placed step programs on two gloo ranks sharing the card (the
-    block above): each child's checks, its K1-K4 launches on each mesh's
-    train step and serving, its peak memory and walls printed; each
-    child's launches for the kernels line. A child that fails fails the
-    run."""
+    """The placed step programs on pairs of gloo ranks sharing the card
+    (the block above; the SPMD_GROUPS at once): each child's checks, its K1-K4, K6 and K7 launches on
+    each model's and mesh's train step and serving checked against
+    ``_spmd_want``, its peak memory and walls per model printed; each
+    child's launches per model for the kernels line. A child that fails
+    fails the run."""
     import tempfile
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
-    args = json.dumps(dict(
-        layers=SPMD_LAYERS, batch=SPMD_BATCH, accum=SPMD_ACCUM,
-        seq=SPMD_SEQ, prompt=SPMD_PROMPT, decodes=SPMD_DECODES,
-        meshes=SPMD_MESHES, f32=SPMD_F32_BOUND, route=LIVE_ROUTE_BOUND,
-        leaf=LIVE_LEAF_BOUND))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="2")
-    procs = [(r, subprocess.Popen(
-        [sys.executable, "-c", _SPMD_SCRIPT, os.path.join(tmp, "store"),
-         str(r), args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)) for r in range(2)]
+    procs = []
+    for g, archs in enumerate(SPMD_GROUPS):
+        args = json.dumps(dict(
+            batch=SPMD_BATCH, accum=SPMD_ACCUM, prompt=SPMD_PROMPT,
+            decodes=SPMD_DECODES, f32=SPMD_F32_BOUND,
+            models=[m for m in SPMD_MODELS if m[0] in archs],
+            f32_chunk=SSM_F32_CHUNK,
+            route=LIVE_ROUTE_BOUND, leaf=LIVE_LEAF_BOUND))
+        procs += [(g, r, subprocess.Popen(
+            [sys.executable, "-c", _SPMD_SCRIPT,
+             os.path.join(tmp, f"store{g}"), str(r), args], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)) for r in range(2)]
     try:
-        done = [(r, *p.communicate(timeout=SPMD_TIMEOUT_S), p.returncode)
-                for r, p in procs]
+        done = [(g, r, *p.communicate(timeout=SPMD_TIMEOUT_S), p.returncode)
+                for g, r, p in procs]
     finally:
-        for _, p in procs:
+        for _, _, p in procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
-    for r, out, err, code in done:
+    for g, r, out, err, code in done:
         if code:
-            raise AssertionError(f"[spmd] rank {r} exited {code}: "
-                                 f"{out[-3000:]}{err[-5000:]}")
+            where = [ln for ln in err.splitlines()
+                     if ln.startswith("[spmd child]")][-1:]
+            raise AssertionError(f"[spmd] group {g} rank {r} exited {code} "
+                                 f"({where}): {out[-3000:]}{err[-5000:]}")
     by_path = {}
-    for r, out, _, _ in done:
+    names = {"flash_attention": "K1", "decode_attention": "K2",
+             "flash_attention_bwd": "K3", "fused_policy_loss_fwd": "K4 fwd",
+             "fused_policy_loss_bwd": "K4 bwd", "ssd_scan": "K6",
+             "ssd_scan_bwd": "K7"}
+    for g, r, out, _, _ in done:
         rep = json.loads(out.strip().splitlines()[-1])
-        total = dict.fromkeys(counting(), 0)
         for run in rep["runs"]:
+            arch = run["arch"]
+            meshes = next(m for a, _, _, m, _ in SPMD_MODELS if a == arch)
+            key = (f"{arch} spmd, rank {r} ("
+                   + " and ".join(f"{d} x {m}" for d, m in meshes) + ")")
+            total = by_path.setdefault(key, dict.fromkeys(counting(), 0))
             tc, sc = run["train_counts"], run["serve_counts"]
             for k in total:
                 total[k] += tc.get(k, 0) + sc.get(k, 0)
-            want_t = dict(flash_attention=2 * SPMD_LAYERS * SPMD_ACCUM,
-                          flash_attention_bwd=SPMD_LAYERS * SPMD_ACCUM,
-                          fused_policy_loss_fwd=SPMD_ACCUM,
-                          fused_policy_loss_bwd=SPMD_ACCUM)
-            want_s = dict(flash_attention=SPMD_LAYERS,
-                          decode_attention=SPMD_LAYERS * SPMD_DECODES)
+            want_t, want_s = _spmd_want(arch, run["layers"])
             for name, got, want in (("train", tc, want_t),
                                     ("serving", sc, want_s)):
                 body = {k: v for k, v in got.items() if "tensor-core" not in k}
                 if body != {k: want.get(k, 0) for k in body}:
-                    raise AssertionError(f"[spmd] rank {r} {run['label']} "
-                                         f"{run['mesh']} {name}: launches "
-                                         f"{got}, want {want}")
-            mesh = run["mesh"]
-            print(f"[spmd] rank {r}, {run['label']}, mesh {mesh} (data x "
-                  f"model; split over data: {run['data_split']}, tensor "
-                  f"parallel: {run['tp'] or 'none'}) vs the one-rank program"
-                  f": metrics {run['metrics'][0]:.3e} ({run['metrics'][1]}),"
-                  f" first moments {run['leaves'][0]:.3e} "
-                  f"({run['leaves'][1]}), params {run['params'][0]:.3e} "
-                  f"({run['params'][1]}{'; of the AdamW rule' if 'f32' in run['label'] else ''}), prefill + {SPMD_DECODES} decode "
-                  f"logits {run['logits']:.3e} | ω mean "
-                  f"{run['omega_mean']:.4f} (one rank "
-                  f"{run['ref_omega_mean']:.4f}) | launches: train "
-                  f"{ {k: v for k, v in run['train_counts'].items() if v} }, "
-                  f"serving {run['serve_counts']['flash_attention']} K1 + "
-                  f"{run['serve_counts']['decode_attention']} K2 | walls: "
-                  f"one-rank step {run['one_rank_wall_s'] * 1e3:.1f} ms, "
-                  f"this step {run['train_wall_s'] * 1e3:.1f} ms, serving "
-                  f"{run['serve_wall_s'] * 1e3:.1f} ms")
-        print(f"[spmd] rank {r}: imports + group {rep['imports_s']:.1f} s, "
-              f"wall {rep['wall_s']:.1f} s, peak "
-              f"{rep['peak_gb']:.2f} GB (two processes share the card's "
-              f"SMs: these walls say nothing of a mesh's speed) | {smi}")
-        by_path[f"openvla-7b spmd, rank {r} (2 x 1 and 1 x 2)"] = total
+                    raise AssertionError(f"[spmd] rank {r} {arch} "
+                                         f"{run['label']} {run['mesh']} "
+                                         f"{name}: launches {got}, want "
+                                         f"{want}")
+            f32 = "f32" in run["label"]
+            parts = [
+                f"[spmd] rank {r}, {arch} ({run['layers']} layers, T "
+                f"{run['seq']}), {run['label']}, mesh {run['mesh']} (data x "
+                f"model; split over data: {run['data_split']}, tensor "
+                f"parallel: {run['tp'] or 'none'}"
+                + (", wk/wv whole" if run["kv_whole"] else "")
+                + f", {run['summed']} leaves summed over model) vs the "
+                f"one-rank program"
+                + ("" if run["held"] else " (not held: granite-moe's bf16 "
+                   "routes are chaotic, C6; held on its f32 copy)")
+                + f": metrics {run['metrics'][0]:.3e} ({run['metrics'][1]}),"
+                f" first moments {run['leaves'][0]:.3e} ({run['leaves'][1]})"
+                f", params {run['params'][0]:.3e} ({run['params'][1]}"
+                + ("; of the AdamW rule)" if f32 else
+                   f"), leaves that start at zero "
+                   f"{run['zero_start'][0]:.3e} of the AdamW rule beside "
+                   f"the moments' moves ({run['zero_start'][1]})"
+                   + (f", the Mamba2 blocks' held by it alone (|a - b| / "
+                      f"|b| {run['zero_start_ratio'][0]:.3e}, "
+                      f"{run['zero_start_ratio'][1]})"
+                      if run["zero_start_ratio"][1] else ""))
+                + f", prefill + {SPMD_DECODES} decode logits "
+                f"{run['logits']:.3e}"]
+            if run["gap"] is not None:
+                parts.append(f"closest top-k gap {run['gap']:.3e} (one rank "
+                             f"{run['one_rank_gap']:.3e})")
+            parts.append(f"ω mean {run['omega_mean']:.4f} (one rank "
+                         f"{run['ref_omega_mean']:.4f})")
+            parts.append("launches (as worked out): train " + ", ".join(
+                f"{names[k]} {v}" for k, v in tc.items() if v and k in names)
+                + "; serving " + ", ".join(
+                f"{names[k]} {v}" for k, v in sc.items() if v and k in names))
+            parts.append(f"walls: one-rank step "
+                         f"{run['one_rank_wall_s'] * 1e3:.1f} ms, this step "
+                         f"{run['train_wall_s'] * 1e3:.1f} ms, serving "
+                         f"{run['serve_wall_s'] * 1e3:.1f} ms")
+            print(" | ".join(parts))
+        for m in rep["models"]:
+            print(f"[spmd] rank {r}, {m['arch']} {m['label']}: peak "
+                  f"{m['peak_gb']:.2f} GB, wall {m['wall_s']:.1f} s")
+        print(f"[spmd] group {g} ({', '.join(SPMD_GROUPS[g])}) rank {r}: "
+              f"imports + group {rep['imports_s']:.1f} s, wall "
+              f"{rep['wall_s']:.1f} s (four processes share the card's SMs: "
+              f"these walls say nothing of a mesh's speed) | {smi}")
     print(f"[spmd] phase wall {time.perf_counter() - t_phase:.1f} s")
     return by_path
 
@@ -6189,7 +6415,7 @@ def main() -> int:
                  note=", f32 copy without drops")
 
     mark("spmd")
-    # the placed step programs: two gloo ranks sharing the card
+    # the placed step programs: pairs of gloo ranks sharing the card
     by_path.update(phase_spmd(dev, smi, counting))
     mark("steps")
     # the step programs at the production shapes, the CLIs and the dry run

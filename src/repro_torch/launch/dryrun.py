@@ -25,13 +25,16 @@ and ``cost_analysis()``. The port measures the program it runs instead:
 
 The records keep the reference's keys. The program is the split one of
 ``sharding/spmd.py``: each rank takes its rows of the batch (``spmd.rows``,
-where ``spmd.splits`` puts the batch on the data axes), the dense family
-runs attention, the MLP and the embedding on the rank's shards over
-``model``, and every other leaf is gathered whole. The ``program`` field
-says, per arch and shape, what ran (``spmd.program``): the split, the
-tensor-parallel blocks and the gathered leaves; attention and the loss
-are counted on their plain PyTorch versions (the card runs K1–K4 on the
-same products). The dry run does not estimate what the port does not run.
+where ``spmd.splits`` puts the batch on the data axes), every block whose
+leaves sit on their split axes runs on the rank's shards over ``model``
+(attention on query heads, the MLP on ``d_ff``, MoE on experts, Mamba2 on
+heads, the embedding on vocab), the leaves used whole inside a split block
+have their grads summed over ``model``, and every other leaf is gathered
+whole. The ``program`` field says, per arch and shape, what ran
+(``spmd.program``): the split, the tensor-parallel blocks, the summed and
+the gathered leaves; attention, the SSD scan and the loss are counted on
+their plain PyTorch versions (the card runs K1–K4, K6 and K7 on the same
+products). The dry run does not estimate what the port does not run.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \

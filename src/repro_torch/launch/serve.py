@@ -8,7 +8,9 @@ Runs on the card unless ``--device cpu``. ``--local`` reduces the config
 and runs on the local one-rank mesh; without it the production mesh needs
 a process group of 256 ranks (512 with ``--multi-pod``) started first,
 and each rank decodes its rows against its part of the cache
-(``sharding.spmd``: its rows, and on the dense family its KV heads).
+(``sharding.spmd``: its rows, and where a block is split over ``model``
+its region of that block's cache: KV heads or their ``head_dim`` slices,
+Mamba2 heads, a chunk of the conv tail's channels).
 """
 from __future__ import annotations
 

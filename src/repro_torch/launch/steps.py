@@ -22,15 +22,29 @@ runs its part of the split program (``sharding/spmd.py``):
     loss term is weighted by the rank's mask count over the global
     micro-batch's, and the grads, metrics and advantage stats are
     all-reduced over the data axes;
-  * on the dense family (dense, vlm, audio) attention runs on the rank's
-    heads, the MLP on its ``d_ff`` columns and the embedding on its
-    vocabulary rows (Megatron's layout: an all-reduce after each
-    row-parallel product and on each sublayer input's gradient); prefill
-    and decode take and emit the rank's KV heads of the cache
-    (``rules.cache_specs``);
-  * every other leaf sharded over the mesh is gathered whole before use and
-    its grad cut back to the rank's region; the grads then go to ZeRO-2 as
-    DTensors placed as the parameters.
+  * every block whose leaves the rules put on their split axes runs on
+    the rank's part (Megatron's layout: an all-reduce after each
+    row-parallel product and on each block input's gradient): attention
+    on its query heads (``wk``/``wv`` on its KV heads, or used whole where
+    the KV heads do not divide ``model``: granite-moe, dbrx, internlm2,
+    llava, starcoder2, granite-20b on 16), the MLP on its ``d_ff``
+    columns, a MoE block on its experts (the router, top-k and capacity
+    whole on every rank), a Mamba2 block on its heads (``in_proj``, the
+    conv, ``A_log``, ``D`` and ``dt_bias`` used whole on the rank's
+    columns, K6/K7 on its heads), zamba2's shared block as the dense
+    family's, the embedding on its vocabulary rows; prefill and decode
+    take and emit the rank's region of the cache (``rules.cache_specs``:
+    KV heads or their ``head_dim`` slices, the SSM state's heads, a chunk
+    of the conv tail's channels), and decode against a cache on
+    ``head_dim`` all-gathers its KV heads' slices (C10d queues the
+    partial-score split);
+  * the grads of the leaves used whole inside a split block are each
+    rank's part and are summed over ``model`` once a step, beside the data
+    all-reduce (``spmd.Layout.sum_parts``); every other leaf sharded over
+    the mesh (a block off its split axes, the action and value heads,
+    ``prefix_proj``) is gathered whole before use and its grad cut back to
+    the rank's region; the grads then go to ZeRO-2 as DTensors placed as
+    the parameters.
 
 A one-device program (plain tensors) issues no collective. The reference's
 ``unroll`` and ``act_sharding`` (scan unrolling and a GSPMD layout pin)
@@ -215,7 +229,9 @@ def seq_grads(params, batch, adv_state, *, cfg: ModelConfig, rl: RLConfig,
 
     With params placed as DTensors this is the rank's part of the split
     program (the module's docstring): the grads come out as DTensors placed
-    as the params (f32), the metrics and stats as the global batch's."""
+    as the params (f32; the parts of the leaves used whole inside a split
+    block summed over ``model``), the metrics and stats as the global
+    batch's."""
     kw = dict(cfg=cfg, rl=rl, remat=remat, block=block)
     lay = spmd.layout(cfg, params)
     if lay is None:
@@ -245,10 +261,11 @@ def seq_grads(params, batch, adv_state, *, cfg: ModelConfig, rl: RLConfig,
         del g
     if lay is None:
         return grads, metrics, stats
-    if split.data is not None:
-        metrics, stats = spmd.sum_metrics(metrics, stats, split.data)
-        with torch.no_grad():
+    with torch.no_grad():
+        if split.data is not None:
+            metrics, stats = spmd.sum_metrics(metrics, stats, split.data)
             tree_map(split.data.sum_, grads)
+        lay.sum_parts(grads)
     return spmd.place_grads(grads, params, lay), metrics, stats
 
 
@@ -319,8 +336,8 @@ def prefill_step(params, tokens, prefix, *, cfg: ModelConfig,
     params placed as DTensors, ``tokens`` and ``prefix`` are the rank's rows
     (``data_split`` as in ``seq_train_step``), the logits come out whole
     over the action vocabulary on every model rank, and the cache holds
-    the rank's rows and, where attention is split over ``model``, its KV
-    heads (``spmd.local_cache`` of the whole one)."""
+    the rank's rows and, where a block is split over ``model``, its region
+    of that block's cache (``spmd.local_cache`` of the whole one)."""
     live, split = _serving(cfg, params, data_split)
     out, cache = transformer.prefill(cfg, live, tokens, prefix,
                                      cache_len=cache_len, window=window,

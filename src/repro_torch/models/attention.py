@@ -10,10 +10,15 @@ decode attention goes through ``dispatch.decode_attention``: the CUDA
 kernels for CUDA tensors, the plain versions on the CPU.
 
 ``tp`` (a ``sharding.spmd.TensorParallel``, or ``None``) runs a layer on
-the rank's heads in a tensor-parallel step program: ``wq``/``wk``/``wv``
-hold its query and KV heads (``_proj`` reads the count from the weight),
-``wo`` its rows of them, the output's partial sums are all-reduced, and
-the KV cache holds the rank's KV heads.
+the rank's heads in a tensor-parallel step program: ``wq`` holds its query
+heads (``_proj`` reads the count from the weight), ``wo`` its rows of
+them, and the output's partial sums are all-reduced. Where the KV heads
+divide ``model`` (``tp.kv is None``) ``wk``/``wv`` hold the rank's KV
+heads and the cache holds them too. Where they do not, ``wk``/``wv`` are
+whole and the rank projects only the KV heads ``tp.kv`` its query heads
+read; prefill projects every KV head and keeps its ``head_dim`` slice of
+each in the cache (``rules.cache_specs``), and decode attends its query
+heads against its KV heads' slices all-gathered over ``model``.
 """
 from __future__ import annotations
 
@@ -66,10 +71,14 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
-                 rope_theta: float):
+                 rope_theta: float, kv: Optional[slice] = None):
+    """q, k, v; ``kv`` projects only those KV heads of whole ``wk``/``wv``."""
+    wk, wv = params["wk"], params["wv"]
+    if kv is not None:
+        wk, wv = wk[:, kv], wv[:, kv]
     q = apply_rope(_proj(x, params["wq"]), positions, rope_theta)
-    k = apply_rope(_proj(x, params["wk"]), positions, rope_theta)
-    v = _proj(x, params["wv"])
+    k = apply_rope(_proj(x, wk), positions, rope_theta)
+    v = _proj(x, wv)
     return q, k, v
 
 
@@ -131,7 +140,8 @@ def attention_forward(params: Params, x: torch.Tensor, *, rope_theta: float,
         positions = torch.arange(t, device=x.device)[None, :]
     if tp is not None:
         x = tp.enter(x)
-    q, k, v = _project_qkv(params, x, positions, rope_theta)
+    q, k, v = _project_qkv(params, x, positions, rope_theta,
+                           None if tp is None else tp.kv)
     out = _out_proj(_attend(q, k, v, window, block, x.dtype), params["wo"])
     return out if tp is None else tp.reduce(out)
 
@@ -202,9 +212,15 @@ def attention_prefill(params: Params, x: torch.Tensor, *, rope_theta: float,
     if tp is not None:
         x = tp.enter(x)
     q, k, v = _project_qkv(params, x, positions, rope_theta)
-    out = _out_proj(_attend(q, k, v, window, block, x.dtype), params["wo"])
+    kv = None if tp is None else tp.kv
+    ka, va = (k, v) if kv is None else (k[:, :, kv], v[:, :, kv])
+    out = _out_proj(_attend(q, ka, va, window, block, x.dtype), params["wo"])
     if tp is not None:
         out = tp.reduce(out)
+    if kv is not None:
+        # the cache's region: this rank's head_dim slice of every KV head
+        dims = tp.part(k.shape[3])
+        k, v = k[..., dims], v[..., dims]
 
     pos = positions.expand(b, t).to(torch.int32)
     if cache_len >= t:
@@ -251,6 +267,10 @@ def attention_decode(params: Params, x: torch.Tensor, cache: KVCache, *,
     q = apply_rope(_proj(x, params["wq"]), pos[:, None], rope_theta)
     k_new = apply_rope(_proj(x, params["wk"]), pos[:, None], rope_theta)
     v_new = _proj(x, params["wv"])
+    kv = None if tp is None else tp.kv
+    if kv is not None:
+        dims = tp.part(k_new.shape[3])
+        k_new, v_new = k_new[..., dims], v_new[..., dims]
 
     slot = (pos % cache_len).long()   # ring layout (== pos when S_cache > pos)
     if uniform:
@@ -269,7 +289,11 @@ def attention_decode(params: Params, x: torch.Tensor, cache: KVCache, *,
     if window is not None:
         valid &= (pos[:, None] - pos_c) < window
     valid &= pos_c <= pos[:, None]
-    out = dispatch.decode_attention(q, cache.k, cache.v, valid)
+    k_c, v_c = cache.k, cache.v
+    if kv is not None:
+        # the KV heads the rank's query heads read, whole over head_dim
+        k_c, v_c = (tp.gather(c[:, :, kv], 3) for c in (k_c, v_c))
+    out = dispatch.decode_attention(q, k_c, v_c, valid)
     out = _out_proj(out, params["wo"])
     if tp is not None:
         out = tp.reduce(out)

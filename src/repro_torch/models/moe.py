@@ -14,6 +14,15 @@ The auxiliary load-balance and router-z losses (scaled by their
 coefficients) and the dropped share of assignments are returned so the RL
 train step can fold them into the GIPO objective. The reference has no
 Pallas kernel here; the products stay ``torch.einsum``.
+
+``tp`` (a ``sharding.spmd.TensorParallel``, or ``None``) runs the layer on
+the rank's experts in a tensor-parallel step program (``w_gate``,
+``w_up``, ``w_down`` hold them): the router, top-k, priority, capacity and
+keep masks are computed whole on every rank from the block's input as it
+comes, the dispatch and combine products and the SwiGLU on the rank's
+experts from that input through ``tp.enter``; the gates go through
+``tp.enter`` too (each rank's experts give a part of their gradient), and
+the output's partial sums are all-reduced.
 """
 from __future__ import annotations
 
@@ -65,10 +74,11 @@ def capacity(group_tokens: int, cfg: MoEConfig) -> int:
 
 
 def _group_dispatch(params: Params, xg: torch.Tensor, cfg: MoEConfig,
-                    cap: int
+                    cap: int, tp=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """xg: [..., n, d], one token group per leading index. Returns (out
-    [..., n, d], logits [..., n, e] f32, keep [..., n, k] bool)."""
+    [..., n, d], logits [..., n, e] f32, keep [..., n, k] bool); ``tp`` as
+    in the module's docstring."""
     n = xg.shape[-2]
     e, k = cfg.num_experts, cfg.top_k
     lead = xg.shape[:-2]
@@ -89,6 +99,10 @@ def _group_dispatch(params: Params, xg: torch.Tensor, cfg: MoEConfig,
 
     cap_onehot = F.one_hot(torch.where(keep, within, cap),
                            cap + 1).to(xg.dtype)[..., :cap]         # [.., n, k, cap]
+    if tp is not None:
+        # the rank's experts: their columns of the one-hot choices
+        gates, xg = tp.enter(gates), tp.enter(xg)
+        onehot = onehot[..., tp.part(e)]
     # "nk,nke,nkc->nec": the k choices of a token go to distinct experts,
     # so each (n, e, c) sums one nonzero term, the gate, exactly
     weighted = gates[..., None] * onehot.to(xg.dtype)               # [.., n, k, e]
@@ -101,11 +115,11 @@ def _group_dispatch(params: Params, xg: torch.Tensor, cfg: MoEConfig,
     h = h * torch.einsum("...ecd,edf->...ecf", expert_in, params["w_up"])
     expert_out = torch.einsum("...ecf,efd->...ecd", h, params["w_down"])
     out = torch.einsum("...ecd,...nec->...nd", expert_out, combine)
-    return out, logits, keep
+    return out if tp is None else tp.reduce(out), logits, keep
 
 
 def moe_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
-                group_tokens: int = GROUP_TOKENS, data=None
+                group_tokens: int = GROUP_TOKENS, data=None, tp=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, T, d] -> (out [B, T, d], aux losses). The B·T tokens form
     ``g = max(B·T // group_tokens, 1)`` equal groups; where B·T is not a
@@ -116,7 +130,8 @@ def moe_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
     rank's rows of a batch split over the data axes. The groups are then
     the global batch's (a ``ValueError`` where one would straddle two
     ranks), and the aux terms are the global batch's: the token means
-    summed over the data axes."""
+    summed over the data axes. ``tp``: the rank's experts (the module's
+    docstring)."""
     b, t, d = x.shape
     n = b * t
     n_all = n * (data.size if data is not None else 1)
@@ -133,7 +148,7 @@ def moe_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
                          f"data ranks' {n} tokens each")
     cap = capacity(ng, cfg)
     out, logits, keep = _group_dispatch(params, x.reshape(n // ng, ng, d),
-                                        cfg, cap)
+                                        cfg, cap, tp)
 
     e = cfg.num_experts
     logits2 = logits.reshape(n, e)

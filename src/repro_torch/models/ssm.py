@@ -6,6 +6,22 @@ A fresh-sequence scan goes through ``dispatch.ssd_scan`` (kernels K6/K7 on
 the card, at every length); a prefill that
 carries state in (``init_state``) stays on the plain chunked form, as in the
 reference. Tests hold the two forms against each other (the SSD duality).
+
+``tp`` (a ``sharding.spmd.TensorParallel``, or ``None``) runs a block on
+the rank's heads in a tensor-parallel step program. ``out_proj`` holds the
+rank's rows of d_inner and ``norm_scale`` its part of it (both aligned
+with whole heads); ``in_proj*``, ``conv_w``, ``conv_b``, ``A_log``, ``D``
+and ``dt_bias`` are whole, and the rank takes its columns of them
+(:class:`_Cols`): its z, x and dt, and B and C whole (on one rank all of
+them: the leaves themselves). The scan (K6/K7 on
+the card) runs on the rank's heads, the gated norm's mean of squares over
+the whole d_inner is summed over ``model`` (``tp.sum``), and
+``out_proj``'s partial sums are all-reduced. The block's input goes
+through ``tp.enter``. The cache holds the rank's heads of the SSM state
+and, as ``rules.cache_specs`` places it, its contiguous chunk of the conv
+tail's channels (``tp.part``), which does not follow the x | B | C
+layout: the tail is all-gathered whole over ``model`` where a step reads
+or writes it.
 """
 from __future__ import annotations
 
@@ -59,20 +75,66 @@ def ssm_init(gen: torch.Generator, d_model: int, cfg: SSMConfig, dtype,
     return params
 
 
+class _Cols(NamedTuple):
+    """A rank's columns of a Mamba2 block: its heads, its slice of d_inner,
+    and its conv channels (its x channels, then B and C); all of them on
+    one rank."""
+
+    heads: slice
+    inner: slice
+    conv: Tuple[slice, slice]
+
+
+def _cols(params: Params, d_model: int, cfg: SSMConfig, tp) -> _Cols:
+    di, p = cfg.d_inner(d_model), cfg.head_dim
+    rank, size = (0, 1) if tp is None else (tp.rank, tp.size)
+    hl = cfg.num_heads(d_model) // size
+    heads = slice(rank * hl, (rank + 1) * hl)
+    inner = slice(heads.start * p, heads.stop * p)
+    return _Cols(heads, inner, (inner, slice(di, params["conv_b"].shape[0])))
+
+
+def _take(x: torch.Tensor, *parts: slice) -> torch.Tensor:
+    """``x``'s last-axis slices ``parts`` joined in order: a view where they
+    are adjacent, ``x`` itself where they cover it (on one rank)."""
+    runs = []
+    for s in parts:
+        if runs and runs[-1].stop == s.start:
+            runs[-1] = slice(runs[-1].start, s.stop)
+        else:
+            runs.append(s)
+    if len(runs) > 1:
+        return torch.cat([x[..., s] for s in runs], dim=-1)
+    if (runs[0].start, runs[0].stop) == (0, x.shape[-1]):
+        return x
+    return x[..., runs[0]]
+
+
 def _split_proj(params: Params, u: torch.Tensor, d_model: int,
-                cfg: SSMConfig):
+                cfg: SSMConfig, cols: _Cols):
+    """z, xbc (pre-conv), dt and the sizes, on the rank's columns (B and C
+    whole) and its heads."""
     di = cfg.d_inner(d_model)
-    g, n = cfg.n_groups, cfg.state_dim
-    nh = cfg.num_heads(d_model)
+    gn = cfg.n_groups * cfg.state_dim
+    zs, hs = cols.inner, cols.heads
+    xs = slice(di + zs.start, di + zs.stop)
+    bc = slice(2 * di, 2 * di + 2 * gn)
+    dts = slice(bc.stop + hs.start, bc.stop + hs.stop)
+    dl, nl = zs.stop - zs.start, hs.stop - hs.start
     if cfg.fused_in_proj:
-        proj = u @ params["in_proj"]
-        z, xbc, dt_raw = torch.split(proj, [di, di + 2 * g * n, nh], dim=-1)
+        proj = u @ _take(params["in_proj"], zs, xs, bc, dts)
+        z, xbc, dt_raw = torch.split(proj, [dl, dl + 2 * gn, nl], dim=-1)
     else:
-        z = u @ params["in_proj_z"]
-        xbc = u @ params["in_proj_x"]
-        dt_raw = u @ params["in_proj_dt"]
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])       # [..., nh]
-    return z, xbc, dt, di, g, n, nh
+        z = u @ _take(params["in_proj_z"], zs)
+        xbc = u @ _take(params["in_proj_x"], zs, slice(di, di + 2 * gn))
+        dt_raw = u @ _take(params["in_proj_dt"], hs)
+    dt = F.softplus(dt_raw.float() + _take(params["dt_bias"], hs))
+    return z, xbc, dt, dl, cfg.n_groups, cfg.state_dim, nl
+
+
+def _conv_params(params: Params, cols: _Cols) -> Params:
+    """``conv_w``/``conv_b`` on the rank's channels."""
+    return {k: _take(params[k], *cols.conv) for k in ("conv_w", "conv_b")}
 
 
 def _causal_conv(params: Params, xbc: torch.Tensor) -> torch.Tensor:
@@ -85,11 +147,44 @@ def _causal_conv(params: Params, xbc: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_norm(params: Params, y: torch.Tensor, z: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
+                eps: float = 1e-5, tp=None) -> torch.Tensor:
+    """RMS norm of ``y * silu(z)`` over d_inner; under ``tp`` ``y``/``z``
+    are the rank's part and the sum of squares is summed over ``model``."""
     g = y.float() * F.silu(z.float())
-    var = g.square().mean(dim=-1, keepdim=True)
+    if tp is None:
+        var = g.square().mean(dim=-1, keepdim=True)
+    else:
+        var = tp.sum(g.square().sum(dim=-1, keepdim=True)) / (
+            g.shape[-1] * tp.size)
     g = g * torch.rsqrt(var + eps)
     return (g * params["norm_scale"].float()).to(y.dtype)
+
+
+def _out(params: Params, y: torch.Tensor, z: torch.Tensor, tp=None):
+    """The gated norm and ``out_proj`` (its partial sums all-reduced under
+    ``tp``)."""
+    out = _gated_norm(params, y, z, tp=tp) @ params["out_proj"]
+    return out if tp is None else tp.reduce(out)
+
+
+def _rank_tail(conv: torch.Tensor, cols: _Cols, tp) -> torch.Tensor:
+    """A cache's conv tail on the rank's channels: under ``tp`` the cache
+    holds the rank's region of it (``tp.part``), gathered whole over
+    ``model`` first."""
+    if conv.shape[-1] != cols.conv[1].stop:
+        conv = tp.gather(conv, -1)
+    return _take(conv, *cols.conv)
+
+
+def _cache_tail(tail: torch.Tensor, dl: int, tp) -> torch.Tensor:
+    """A conv tail on the rank's channels (``dl`` x channels, then B and C)
+    as the cache holds it: under ``tp`` the x channels all-gathered over
+    ``model`` and the cache's region (``tp.part``) cut from the whole."""
+    if tp is None:
+        return tail
+    whole = torch.cat([tp.gather(tail[..., :dl], -1), tail[..., dl:]],
+                      dim=-1)
+    return whole[..., tp.part(whole.shape[-1])]
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -119,26 +214,32 @@ def ssd_recurrent_step(state: torch.Tensor, x_t: torch.Tensor,
 
 def ssm_forward(params: Params, u: torch.Tensor, d_model: int,
                 cfg: SSMConfig, init_state: Optional[SSMState] = None,
-                return_state: bool = False):
-    """Full-sequence Mamba2 block. u: [B, T, d_model]."""
+                return_state: bool = False, tp=None):
+    """Full-sequence Mamba2 block. u: [B, T, d_model]. ``tp``: the rank's
+    heads (the module's docstring)."""
     b, t, _ = u.shape
-    z, xbc_raw, dt, di, g, n, nh = _split_proj(params, u, d_model, cfg)
+    if tp is not None:
+        u = tp.enter(u)
+    cols = _cols(params, d_model, cfg, tp)
+    z, xbc_raw, dt, di, g, n, nh = _split_proj(params, u, d_model, cfg, cols)
+    conv = _conv_params(params, cols)
     p = cfg.head_dim
     kk = cfg.conv_dim
 
     if init_state is not None:
-        padded = torch.cat([init_state.conv, xbc_raw], dim=1)
-        conv_out = sum(padded[:, i:i + t] * params["conv_w"][i]
+        padded = torch.cat([_rank_tail(init_state.conv, cols, tp), xbc_raw],
+                           dim=1)
+        conv_out = sum(padded[:, i:i + t] * conv["conv_w"][i]
                        for i in range(kk))
-        xbc = F.silu(conv_out + params["conv_b"])
+        xbc = F.silu(conv_out + conv["conv_b"])
         ssm0 = init_state.ssm
     else:
-        xbc = _causal_conv(params, xbc_raw)
+        xbc = _causal_conv(conv, xbc_raw)
         ssm0 = None
 
     xs, Bm, Cm = torch.split(xbc, [di, g * n, g * n], dim=-1)
     x = xs.reshape(b, t, nh, p)
-    A = -torch.exp(params["A_log"])
+    A = -torch.exp(_take(params["A_log"], cols.heads))
     if ssm0 is None:
         # a fresh-sequence scan goes through the kernel dispatch layer;
         # carried-state prefill keeps the plain chunked form below
@@ -146,44 +247,51 @@ def ssm_forward(params: Params, u: torch.Tensor, d_model: int,
     else:
         y, s_final = ssd_chunked(x, dt, A, Bm, Cm, cfg.chunk,
                                  init_state=ssm0)
-    y = y + params["D"][None, None, :, None] * x.float()
+    y = y + _take(params["D"], cols.heads)[None, None, :, None] * x.float()
     y = y.reshape(b, t, di).to(u.dtype)
-    out = _gated_norm(params, y, z) @ params["out_proj"]
+    out = _out(params, y, z, tp)
     if not return_state:
         return out
+    raw = xbc_raw[:, max(t - (kk - 1), 0):]
     if t < kk - 1:
-        new_tail = torch.cat([xbc_raw.new_zeros((b, kk - 1 - t,
-                                                 xbc_raw.shape[-1])),
-                              xbc_raw], dim=1)
+        new_tail = torch.cat([raw.new_zeros((b, kk - 1 - t, raw.shape[-1])),
+                              raw], dim=1)
     else:
-        new_tail = xbc_raw[:, t - (kk - 1):]
+        new_tail = raw
     length = (init_state.length if init_state is not None
               else torch.zeros((b,), dtype=torch.int32, device=u.device)) + t
-    return out, SSMState(conv=new_tail, ssm=s_final, length=length)
+    return out, SSMState(conv=_cache_tail(new_tail, di, tp), ssm=s_final,
+                         length=length)
 
 
 def ssm_decode(params: Params, u: torch.Tensor, state: SSMState,
-               d_model: int, cfg: SSMConfig
+               d_model: int, cfg: SSMConfig, tp=None
                ) -> Tuple[torch.Tensor, SSMState]:
-    """Single-token recurrent decode. u: [B, 1, d_model]."""
+    """Single-token recurrent decode. u: [B, 1, d_model]. ``tp``: the
+    rank's heads, ``state`` the rank's region of the cache."""
     b = u.shape[0]
-    z, xbc_raw, dt, di, g, n, nh = _split_proj(params, u, d_model, cfg)
+    if tp is not None:
+        u = tp.enter(u)
+    cols = _cols(params, d_model, cfg, tp)
+    z, xbc_raw, dt, di, g, n, nh = _split_proj(params, u, d_model, cfg, cols)
+    conv = _conv_params(params, cols)
     p = cfg.head_dim
 
-    window = torch.cat([state.conv, xbc_raw], dim=1)           # [B, K, C]
-    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"])
-    xbc = F.silu(conv_out + params["conv_b"])[:, None, :]
+    window = torch.cat([_rank_tail(state.conv, cols, tp), xbc_raw],
+                       dim=1)                                  # [B, K, C]
+    conv_out = torch.einsum("bkc,kc->bc", window, conv["conv_w"])
+    xbc = F.silu(conv_out + conv["conv_b"])[:, None, :]
 
     xs, Bm, Cm = torch.split(xbc, [di, g * n, g * n], dim=-1)
     x_t = xs[:, 0].reshape(b, nh, p)
-    A = -torch.exp(params["A_log"])
+    A = -torch.exp(_take(params["A_log"], cols.heads))
     y_t, new_ssm = ssd_recurrent_step(state.ssm, x_t, dt[:, 0], A,
                                       Bm[:, 0], Cm[:, 0])
-    y_t = y_t + params["D"][None, :, None] * x_t.float()
+    y_t = y_t + _take(params["D"], cols.heads)[None, :, None] * x_t.float()
     y = y_t.reshape(b, 1, di).to(u.dtype)
-    out = _gated_norm(params, y, z) @ params["out_proj"]
-    return out, SSMState(conv=window[:, 1:], ssm=new_ssm,
-                         length=state.length + 1)
+    out = _out(params, y, z, tp)
+    return out, SSMState(conv=_cache_tail(window[:, 1:], di, tp),
+                         ssm=new_ssm, length=state.length + 1)
 
 
 def init_ssm_state(batch: int, d_model: int, cfg: SSMConfig, dtype,

@@ -23,12 +23,14 @@ load-balance and router-z terms and their mean dropped share in ``aux``,
 while prefill and decode drop them, as the reference does.
 
 ``split`` (a ``sharding.spmd.Split``, or ``None``) runs an entry point in
-a placed step program on the rank's part: attention on its heads, the MLP
-on its ``d_ff`` columns and the embedding on its vocabulary rows where
-those are split over ``model`` (the dense family), a MoE block's groups
-and aux terms over the global batch where the batch is split over the
-data axes. The parameters given are then the rank's live leaves
-(``spmd.live_params``).
+a placed step program on the rank's part, block by block where the block
+is split over ``model``: attention on its query heads (the hybrid's
+shared block too), the MLP on its ``d_ff`` columns, a MoE block on its
+experts, a Mamba2 block on its heads, the embedding on its vocabulary
+rows; a MoE block's groups and aux terms over the global batch where the
+batch is split over the data axes. The parameters given are then the
+rank's live leaves (``spmd.live_params``), and the decode cache the
+rank's region of it (``spmd.local_cache``).
 """
 from __future__ import annotations
 
@@ -176,7 +178,8 @@ def _attn_blocks_init(gen, cfg: ModelConfig, n: int, d_ff: int, dtype,
 
 def _part(split, kind: str):
     """``split``'s tensor-parallel group for ``kind`` ("attn", "mlp",
-    "vocab"), or its data axes ("data"); ``None`` without a split."""
+    "moe", "ssm", "vocab"), or its data axes ("data"); ``None`` without a
+    split."""
     return None if split is None else getattr(split, kind)
 
 
@@ -221,7 +224,8 @@ def _moe_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     x, h = _attn_sublayer(p, x, cfg, window, block, split)
     out, aux = moe_lib.moe_forward(p["moe"], h, cfg.moe,
-                                   data=_part(split, "data"))
+                                   data=_part(split, "data"),
+                                   tp=_part(split, "moe"))
     return x + out, aux
 
 
@@ -229,7 +233,8 @@ def _ssm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                        window: Optional[int], block: Optional[int],
                        split=None) -> torch.Tensor:
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
-    return x + ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm)
+    return x + ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm,
+                                   tp=_part(split, "ssm"))
 
 
 def _schedule(cfg: ModelConfig, params: Params) -> List[Tuple[str, Params,
@@ -346,7 +351,8 @@ def _feed_forward(kind: str, p: Params, h: torch.Tensor,
     prefill and decode drop them."""
     if kind == "moe":
         return moe_lib.moe_forward(p["moe"], h, cfg.moe,
-                                   data=_part(split, "data"))[0]
+                                   data=_part(split, "data"),
+                                   tp=_part(split, "moe"))[0]
     return mlp(p["mlp"], h, _part(split, "mlp"))
 
 
@@ -384,7 +390,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         if kind == "ssm":
             hn = rmsnorm(p["norm"], x, cfg.norm_eps)
             out, st = ssm_lib.ssm_forward(p["ssm"], hn, cfg.d_model, cfg.ssm,
-                                          return_state=True)
+                                          return_state=True,
+                                          tp=_part(split, "ssm"))
             x = x + out
             ssm_stack = _fill(ssm_stack, i, cfg.num_layers, st)
             continue
@@ -426,7 +433,7 @@ def decode(cfg: ModelConfig, params: Params, token: torch.Tensor,
             hn = rmsnorm(p["norm"], x, cfg.norm_eps)
             out, new = ssm_lib.ssm_decode(
                 p["ssm"], hn, SSMState(st.conv[i], st.ssm[i], st.length[i]),
-                cfg.d_model, cfg.ssm)
+                cfg.d_model, cfg.ssm, tp=_part(split, "ssm"))
             st.conv[i].copy_(new.conv)
             st.ssm[i].copy_(new.ssm)
             ssm_lengths.append(new.length)

@@ -3,9 +3,9 @@ reference, done here by hand for the port's eager programs.
 
 The reference jits ``seq_train_step``, ``prefill_step`` and ``serve_step``
 (``repro/launch/steps.py``) with the batch sharded over the data axes
-(``rules.data_spec``) and heads, ``d_ff`` and vocab sharded over ``model``
-(the rules table); GSPMD then splits the compute accordingly. Each rank of
-the port runs the split program itself:
+(``rules.data_spec``) and heads, ``d_ff``, experts, Mamba2 channels and
+vocab sharded over ``model`` (the rules table); GSPMD then splits the
+compute accordingly. Each rank of the port runs the split program itself:
 
   * **The data split** (every arch). The rank takes its rows of each
     micro-batch (:func:`rows`: ``rules.data_spec`` on its coordinate over
@@ -17,21 +17,45 @@ the port runs the split program itself:
     all-reduced over the data axes. A MoE block takes its capacity groups
     from the global micro-batch's token count and its load-balance and
     router-z means over the global micro-batch (:meth:`DataAxes.sum`).
-  * **Tensor parallelism over model** (the dense family: dense, vlm and
-    audio), Megatron's layout on each rank's local shards: ``attn/wq``,
-    ``wk`` and ``wv`` on heads and ``mlp/w_gate`` and ``w_up`` on
-    ``d_ff`` (column-parallel), ``attn/wo`` and ``mlp/w_down`` each
-    followed by an all-reduce (row-parallel, :class:`_Reduce`), the
-    sublayer's input through :class:`_Enter` (identity forward, all-reduce
-    of its gradient), the embedding vocab-parallel
-    (:meth:`TensorParallel.embed`). A group whose leaves the rules put on
-    another axis (heads that do not divide ``model``) is not split.
+  * **Tensor parallelism over model**, Megatron's layout on each rank's
+    local shards, block by block where the rules put the block's leaves on
+    their split axes (every family: a layer-stacked block's axis is one
+    higher than a shared one's, as in the rules table):
+
+      - attention (``attn``): ``wq`` on heads and ``wo`` on its rows of
+        them; ``wk`` and ``wv`` on heads too where the KV heads divide
+        ``model``, else (on ``head_dim``) used whole, each rank projecting
+        only the KV heads its query heads read (``TensorParallel.kv``);
+      - the MLP (``mlp``): ``w_gate``/``w_up`` on ``d_ff`` columns,
+        ``w_down`` on its rows;
+      - MoE (``moe``): each rank's experts; the router, top-k, priority,
+        capacity and keep masks whole on every rank (from the block input
+        before :class:`_Enter`), the dispatch and combine products and the
+        SwiGLU on the rank's experts, the gates through :class:`_Enter`;
+      - Mamba2 (``ssm``): each rank's heads (``out_proj``'s rows and
+        ``norm_scale`` aligned with them), the fused ``in_proj`` and the
+        conv used whole on the rank's z, x and dt columns plus B and C,
+        K6/K7 on the rank's heads, the gated norm's mean of squares summed
+        over ``model``;
+      - the embedding (``vocab``): vocab-parallel
+        (:meth:`TensorParallel.embed`).
+
+    A block's input goes through :class:`_Enter` (identity forward, its
+    gradient all-reduced), its row-parallel output through
+    :class:`_Reduce` (the partial sums all-reduced).
+  * **Leaves used whole inside a split block** (``Layout.summed``: ``wk``/
+    ``wv`` off the heads axis, Mamba2's ``in_proj*``, ``conv_w``,
+    ``conv_b``, ``A_log``, ``D``, ``dt_bias``): each model rank
+    back-propagates only its heads, so its gradient of such a leaf is a
+    part; the parts are summed over ``model`` once a step, after the
+    accumulation, beside the data all-reduce (:meth:`Layout.sum_parts`).
   * **Gathered leaves.** Every other leaf sharded over the mesh (the action
-    and value heads, ``prefix_proj``, every leaf of the ssm, moe and hybrid
-    families) is gathered whole before use, and its gradient cut back to
-    the rank's region (:func:`place_grads`). Replicated leaves (norm
-    scales, biases) are used as they are; their gradients come out equal
-    on every model rank and are not summed over ``model``.
+    and value heads, ``prefix_proj``, a block whose leaves the rules put
+    off their split axes) is gathered whole before use, and its gradient
+    cut back to the rank's region (:func:`place_grads`). Leaves read
+    outside every split block, or before its :class:`_Enter` (norm scales,
+    the router), give every model rank the same gradient and are not
+    summed.
 
 Only all-reduce and all-gather are issued, the two kinds the reference's
 record shows, as ``torch.distributed`` calls on plain tensors: the program
@@ -49,18 +73,26 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import rules
 from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
-#: the arch types whose attention and MLP blocks split over ``model``
-TP_ARCHS = ("dense", "vlm", "audio")
-
-# leaf path -> (group, the tensor dim that carries ``model``; the stacked
-# layer axis counted)
+# leaf (the last two keys of its path) -> (block, the dim of the unstacked
+# leaf that carries ``model`` where the block is split)
 _TP_LEAVES = {
-    "layers/attn/wq": ("attn", 2), "layers/attn/wk": ("attn", 2),
-    "layers/attn/wv": ("attn", 2), "layers/attn/wo": ("attn", 1),
-    "layers/mlp/w_gate": ("mlp", 2), "layers/mlp/w_up": ("mlp", 2),
-    "layers/mlp/w_down": ("mlp", 1),
+    "attn/wq": ("attn", 1), "attn/wk": ("attn", 1), "attn/wv": ("attn", 1),
+    "attn/wo": ("attn", 0),
+    "mlp/w_gate": ("mlp", 1), "mlp/w_up": ("mlp", 1), "mlp/w_down": ("mlp", 0),
+    "moe/w_gate": ("moe", 0), "moe/w_up": ("moe", 0), "moe/w_down": ("moe", 0),
+    "ssm/out_proj": ("ssm", 0), "ssm/norm_scale": ("ssm", 0),
     "embed/table": ("vocab", 0),
 }
+# leaves a split block uses whole after its input's _Enter (gathered; each
+# model rank's gradient a part): attention's where its KV heads are off the
+# heads axis, every Mamba2 leaf but the two split ones
+_WHOLE_IN = {
+    "attn": ("attn/wk", "attn/wv"),
+    "ssm": tuple(f"ssm/{k}" for k in (
+        "in_proj", "in_proj_z", "in_proj_x", "in_proj_dt", "conv_w",
+        "conv_b", "A_log", "D", "dt_bias")),
+}
+_KINDS = ("attn", "mlp", "moe", "ssm", "vocab")
 
 
 def _dist():
@@ -128,10 +160,14 @@ def _needs_grad(x: torch.Tensor) -> bool:
 
 class TensorParallel:
     """The ``model`` group of a mesh and the rank's place in it: the
-    collectives of Megatron's layout."""
+    collectives of Megatron's layout. ``kv`` (attention only) is the slice
+    of KV heads the rank's query heads read where ``wk``/``wv`` are used
+    whole (their heads do not divide ``model``); ``None`` where the KV
+    heads are split with the query heads."""
 
-    def __init__(self, group, rank: int, size: int):
-        self.group, self.rank, self.size = group, rank, size
+    def __init__(self, group, rank: int, size: int,
+                 kv: Optional[slice] = None):
+        self.group, self.rank, self.size, self.kv = group, rank, size, kv
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """A column-parallel sublayer's input (:class:`_Enter`)."""
@@ -143,6 +179,30 @@ class TensorParallel:
         if _needs_grad(x):
             return _Reduce.apply(x, [self.group])
         return _all_reduce(x.contiguous(), [self.group])
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over ``model`` where every rank uses the sum for its
+        own part: its gradient is summed there too (:class:`_SumData` over
+        the model group)."""
+        if _needs_grad(x):
+            return _SumData.apply(x, [self.group])
+        return _all_reduce(_fresh(x), [self.group])
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` concatenated on ``dim`` in rank order (no
+        gradient: the serving paths' cache regions)."""
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        _dist().all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def part(self, n: int) -> slice:
+        """The rank's contiguous chunk of an axis of ``n`` placed on
+        ``model`` where ``n`` splits (``rules._first_fit``), else all of
+        it."""
+        if n % self.size or n == 1:
+            return slice(0, n)
+        k = n // self.size
+        return slice(self.rank * k, (self.rank + 1) * k)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor
               ) -> torch.Tensor:
@@ -194,6 +254,8 @@ class Split(NamedTuple):
     mlp: Optional[TensorParallel] = None
     vocab: Optional[TensorParallel] = None
     data: Optional[DataAxes] = None
+    moe: Optional[TensorParallel] = None
+    ssm: Optional[TensorParallel] = None
 
 
 @dataclasses.dataclass
@@ -204,6 +266,8 @@ class Layout:
     data: Optional[DataAxes]            # None where the data axes hold 1
     split: Split                        # the tensor-parallel groups
     keep: Dict[str, Tuple[int, ...]]    # leaf path -> mesh dims kept local
+    summed: Tuple[str, ...] = ()        # leaves whose grads sum over model
+    unsplit: Tuple[str, ...] = ()       # blocks present but not split
 
     def run(self, data_split: bool) -> Split:
         """The forward's :class:`Split`, with the data axes where the batch
@@ -212,8 +276,7 @@ class Layout:
 
     def tensor_parallel(self) -> List[str]:
         """The block kinds split over ``model``."""
-        return [k for k in ("attn", "mlp", "vocab")
-                if getattr(self.split, k) is not None]
+        return [k for k in _KINDS if getattr(self.split, k) is not None]
 
     def gathered(self, params) -> List[str]:
         """The leaves sharded over ``model`` that are gathered whole."""
@@ -226,10 +289,52 @@ class Layout:
                 out.append(key)
         return out
 
+    def sum_parts(self, grads) -> None:
+        """The gradients of the leaves used whole inside a split block
+        (``summed``), each model rank's part, summed in place over
+        ``model``."""
+        if not self.summed:
+            return
+        group = self.mesh.get_group("model")
+
+        def one(path, g):
+            if "/".join(path) in self.summed:
+                _all_reduce(g, [group])
+            return g
+        tree_map_with_path(one, grads)
+
+
+def _group_of(key: str):
+    """(block, unstacked model dim or ``None``, the leaf's last two keys)
+    of a leaf path the split knows, or ``None``."""
+    leaf = "/".join(key.split("/")[-2:])
+    if leaf in _TP_LEAVES:
+        return (*_TP_LEAVES[leaf], leaf)
+    if leaf in _WHOLE_IN["ssm"]:
+        return "ssm", None, leaf
+    return None
+
+
+def _kv_slice(cfg: ModelConfig, size: int, rank: int) -> Optional[slice]:
+    """The one KV head the rank's query heads read where ``wk``/``wv`` sit
+    off the heads axis (the KV heads do not divide ``model``, so a rank's
+    query heads never span whole groups); ``None`` where they span two
+    groups, or ``head_dim``, which then carries the cache, does not split
+    over ``model``."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hl, g = h // size, h // kv
+    if not hl or hd % size or g % hl:
+        return None
+    lo = rank * hl // g
+    return slice(lo, lo + 1)
+
 
 def layout(cfg: ModelConfig, params) -> Optional[Layout]:
     """The :class:`Layout` of a parameter tree placed as DTensors (by
-    ``rules.param_specs``), or ``None`` for plain tensors (one device)."""
+    ``rules.param_specs``), or ``None`` for plain tensors (one device).
+    A block splits over ``model`` where every one of its leaves sits on
+    its split axis (attention's ``wk``/``wv`` may instead be used whole,
+    :func:`_kv_slice`; Mamba2's heads must divide ``model``)."""
     placed = [("/".join(p), x) for p, x in tree_leaves_with_path(params)
               if rules.is_dtensor(x)]
     if not placed:
@@ -237,27 +342,44 @@ def layout(cfg: ModelConfig, params) -> Optional[Layout]:
     mesh = placed[0][1].device_mesh
     names = tuple(mesh.mesh_dim_names)
     data = DataAxes(mesh)
-    split, keep = Split(), {}
+    split, keep, summed, unsplit = Split(), {}, (), ()
     m = names.index("model") if "model" in names else None
-    if cfg.arch_type in TP_ARCHS and m is not None and mesh.size(m) > 1:
-        tp = TensorParallel(mesh.get_group("model"),
-                            mesh.get_local_rank("model"), mesh.size(m))
-        found: Dict[str, List[Tuple[str, bool]]] = {}
+    if m is not None and mesh.size(m) > 1:
+        size, rank = mesh.size(m), mesh.get_local_rank("model")
+        # block -> [(path, leaf, on its split axis)]
+        found: Dict[str, List[Tuple[str, str, bool]]] = {}
         for key, x in placed:
-            if key not in _TP_LEAVES:
+            got = _group_of(key)
+            if got is None:
                 continue
-            group, dim = _TP_LEAVES[key]
+            block, dim, leaf = got
             plc = x.placements[m]
-            found.setdefault(group, []).append(
-                (key, plc.is_shard() and plc.dim == dim))
-        want = {"attn": 4, "mlp": 3, "vocab": 1}
-        on = {g for g, leaves in found.items()
-              if len(leaves) == want[g] and all(ok for _, ok in leaves)}
-        split = Split(*(tp if g in on else None
-                        for g in ("attn", "mlp", "vocab")))
-        keep = {key: (m,) for g in on for key, _ in found[g]}
+            on = dim is not None and plc.is_shard() and plc.dim == dim + (
+                1 if rules._is_stacked(key) else 0)
+            found.setdefault(block, []).append((key, leaf, on))
+        tps, kept, parts = {}, [], []
+        for block, leaves in found.items():
+            whole = _WHOLE_IN["ssm"] if block == "ssm" else ()
+            kv = None
+            if block == "attn" and not all(on for _, _, on in leaves):
+                # wq/wo on heads, wk/wv off them: used whole
+                kv, whole = _kv_slice(cfg, size, rank), _WHOLE_IN["attn"]
+                if kv is None:
+                    continue
+            if not all(on for _, leaf, on in leaves if leaf not in whole):
+                continue
+            if block == "ssm" and cfg.ssm.num_heads(cfg.d_model) % size:
+                continue
+            tps[block] = TensorParallel(mesh.get_group("model"), rank, size,
+                                        kv=kv)
+            kept += [k for k, leaf, _ in leaves if leaf not in whole]
+            parts += [k for k, leaf, _ in leaves if leaf in whole]
+        split = Split(**tps)
+        keep = {key: (m,) for key in kept}
+        summed = tuple(parts)
+        unsplit = tuple(k for k in _KINDS if k in found and k not in tps)
     return Layout(mesh=mesh, data=data if data.size > 1 else None,
-                  split=split, keep=keep)
+                  split=split, keep=keep, summed=summed, unsplit=unsplit)
 
 
 def gather(x, keep: Tuple[int, ...] = ()) -> torch.Tensor:
@@ -380,21 +502,28 @@ def rows(tree, mesh, *, dim: int = 0, split: bool = True):
 
 def local_cache(cache, lay: Optional[Layout], *, split: bool = True):
     """The rank's part of a whole decode cache (leaves ``[L, B, ...]``): its
-    rows (``split``), and where attention is split over ``model`` its KV
-    heads, as ``rules.cache_specs`` places them; each leaf a copy of its
-    own (the cache ``prefill_step`` emits on the mesh, built here from a
-    whole one)."""
+    rows (``split``), and where a block is split over ``model`` its region
+    of that block's cache, as ``rules.cache_specs`` places it: split
+    attention's KV heads, or with its KV heads off the heads axis its
+    ``head_dim`` slice of each; split Mamba2's heads of ``SSMState.ssm``
+    and its contiguous chunk of ``SSMState.conv``'s channels. Each leaf a
+    copy of its own (the cache ``prefill_step`` emits on the mesh, built
+    here from a whole one)."""
     if lay is None:
         return cache
-    tp = lay.split.attn
+    attn, ssm = lay.split.attn, lay.split.ssm
 
-    def heads(path, x):
-        if tp is not None and path[-1] in ("k", "v") and path[0] == "attn":
-            n = x.shape[3] // tp.size
-            x = x.narrow(3, tp.rank * n, n)
+    def region(path, x):
+        if attn is not None and path[0] == "attn" and path[-1] in ("k", "v"):
+            dim = 3 if attn.kv is None else 4
+            x = x[(slice(None),) * dim + (attn.part(x.shape[dim]),)]
+        elif ssm is not None and path[0] == "ssm" and path[-1] in ("ssm",
+                                                                   "conv"):
+            dim = 2 if path[-1] == "ssm" else 3
+            x = x[(slice(None),) * dim + (ssm.part(x.shape[dim]),)]
         return x.clone()
-    return tree_map_with_path(heads, rows(cache, lay.mesh, dim=1,
-                                          split=split))
+    return tree_map_with_path(region, rows(cache, lay.mesh, dim=1,
+                                           split=split))
 
 
 def weights(mask: torch.Tensor, accum: int, data: Optional[DataAxes]):
@@ -445,33 +574,62 @@ def program(cfg: ModelConfig, lay: Optional[Layout], params, kind: str,
                      + (", or a MoE capacity group straddles two ranks"
                         if cfg.arch_type == "moe" else "") + ")")
     tp = lay.tensor_parallel()
-    what = {"attn": "attention on heads (wq/wk/wv column-, wo row-parallel)",
-            "mlp": "the MLP on d_ff (w_gate/w_up column-, w_down "
-                   "row-parallel)",
-            "vocab": "the embedding on vocab"}
+    serving = kind != "train"
+    attn = lay.split.attn
+    what = {
+        "attn": "attention on heads (wq/wk/wv column-, wo row-parallel"
+                + (", the cache's KV heads" if serving else "") + ")"
+                if attn is None or attn.kv is None else
+                "attention on query heads (wq column-, wo row-parallel; wk/wv "
+                "off the heads axis used whole, each rank projecting only the "
+                "KV heads its query heads read"
+                + {"train": "",
+                   "prefill": "; prefill projects every KV head and keeps "
+                              "its head_dim slice of each in the cache",
+                   "decode": "; decode attends against those KV heads' "
+                             "head_dim slices of the cache all-gathered "
+                             "over model, the partial-score split being "
+                             "queued (C10d)"}[kind] + ")",
+        "mlp": "the MLP on d_ff (w_gate/w_up column-, w_down row-parallel)",
+        "moe": "MoE on experts (the router, top-k, priority, capacity and "
+               "keep masks whole on every rank; the dispatch and combine "
+               "products and the SwiGLU on the rank's experts, the output "
+               "all-reduced)",
+        "ssm": "Mamba2 on heads (in_proj, the conv, A_log, D and dt_bias "
+               "used whole on the rank's z, x and dt columns plus B and C; "
+               "the SSD scan on the rank's heads; the gated norm's sum of "
+               "squares and out_proj's rows all-reduced"
+               + ("; the cache's SSM state on the rank's heads, its conv "
+                  "tail's channels in contiguous chunks, all-gathered "
+                  "whole where a step reads or writes it" if serving else "")
+               + ")",
+        "vocab": "the embedding on vocab"}
     if tp:
         parts.append("tensor parallelism over model: "
-                     + "; ".join(what[k] for k in tp)
-                     + (", the local KV cache's heads" if "attn" in tp
-                        and kind != "train" else ""))
-    else:
-        sizes = rules.mesh_shape(lay.mesh)
-        parts.append("no tensor parallelism over model ("
-                     + ("the model axis holds one rank"
-                        if sizes.get("model", 1) == 1
-                        else f"arch type {cfg.arch_type}"
-                        if cfg.arch_type not in TP_ARCHS
-                        else "no block's leaves on their split axes") + ")")
+                     + "; ".join(what[k] for k in tp))
+    sizes = rules.mesh_shape(lay.mesh)
+    if sizes.get("model", 1) == 1:
+        parts.append("no tensor parallelism over model (the model axis "
+                     "holds one rank)")
+    elif lay.unsplit:
+        parts.append("not split over model (the rules put a leaf off its "
+                     "split axis, or the heads do not split): "
+                     + ", ".join(lay.unsplit))
+    if kind == "train" and lay.summed:
+        parts.append("grads of the leaves used whole inside a split block "
+                     "summed over model once a step: " + ", ".join(
+                         sorted({_short(k) for k in lay.summed})))
     gathered = lay.gathered(params)
     if gathered:
         parts.append("gathered whole before use: " + ", ".join(
             sorted({_short(k) for k in gathered})))
     if kind == "train":
         parts.append("ZeRO-2 moments updated slice by slice, the slices "
-                     "all-gathered over data; attention (blockwise) and the "
-                     "fused loss counted on their plain versions")
+                     "all-gathered over data; attention (blockwise), the SSD "
+                     "scan and the fused loss counted on their plain versions")
     else:
-        parts.append("attention counted on its plain version")
+        parts.append("attention and the SSD scan counted on their plain "
+                     "versions")
     return "; ".join(parts)
 
 

@@ -19,7 +19,14 @@
     heads, ``d_ff`` and vocab divide 16 (reduced deepseek-7b at 16 heads,
     d 256, 4 layers: every block split over model), and between its 1/256
     and its 1/16 at the reduced configs' 4 heads, where attention is
-    gathered whole on every model rank.
+    gathered whole on every model rank. A reduced mamba2-2.7b (16 SSD
+    heads, ``in_proj`` and the conv dividing 16) and a reduced
+    granite-moe-1b-a400m (16 experts, 16 query heads over 8 KV heads):
+    every block split over model (Mamba2 on heads, MoE on experts,
+    attention on query heads with ``wk``/``wv`` used whole and their
+    grads summed), no expert, ``out_proj`` or ``norm_scale`` leaf
+    gathered, each rank's FLOPs between the whole program's 1/256 and
+    1/16.
 """
 import dataclasses
 import json
@@ -162,13 +169,24 @@ small = reduced(get_config("deepseek-7b"), layers=2, d_model=64)
 tp = dataclasses.replace(reduced(get_config("deepseek-7b"), layers=4,
                                  d_model=256),
                          num_heads=16, num_kv_heads=16, head_dim_override=16)
+# Mamba2 at d 256: 16 SSD heads of 32, in_proj's 1072 columns and the
+# conv's 544 channels all divide 16
+ssm = reduced(get_config("mamba2-2.7b"), layers=2, d_model=256)
+# 16 experts top-2; 16 query heads over 8 KV heads (wk/wv on head_dim)
+gm = reduced(get_config("granite-moe-1b-a400m"), layers=2, d_model=256)
+moe = dataclasses.replace(
+    gm, num_heads=16, num_kv_heads=8, head_dim_override=16,
+    moe=dataclasses.replace(gm.moe, num_experts=16, capacity_factor=8.0))
 out = {"train_4k": dryrun.lower_one("deepseek-7b", "train_4k", cfg=small),
+       "ssm": dryrun.lower_one("mamba2-2.7b", "train_4k", cfg=ssm),
+       "moe": dryrun.lower_one("granite-moe-1b-a400m", "train_4k", cfg=moe),
        "decode_32k": dryrun.lower_one(
            "openvla-7b", "decode_32k",
            cfg=reduced(get_config("openvla-7b"), layers=2, d_model=64)),
        "train_4k_tp": dryrun.lower_one("deepseek-7b", "train_4k", cfg=tp)}
 out["whole"] = {"train_4k": whole(small, "train_4k"),
-                "train_4k_tp": whole(tp, "train_4k")}
+                "train_4k_tp": whole(tp, "train_4k"),
+                "ssm": whole(ssm, "train_4k"), "moe": whole(moe, "train_4k")}
 print(json.dumps(out))
 """
 
@@ -237,3 +255,35 @@ def test_lower_one_decode_record(records):
     assert rec["state_bytes_per_dev"] > 0
     assert rec["roofline"]["model_flops"] == 2.0 * rec[
         "active_param_count"] * 128
+
+
+@pytest.mark.parametrize("family", ["ssm", "moe"])
+def test_lower_one_split_family_records(records, family):
+    """A reduced mamba2-2.7b (16 SSD heads, ``in_proj`` and the conv
+    dividing 16) and a reduced granite-moe-1b-a400m (16 experts top-2, 16
+    query heads over 8 KV heads) on the fake 16 x 16 group: the Mamba2
+    blocks split on heads, the MoE blocks on experts, attention on query
+    heads with ``wk``/``wv`` used whole; no expert, ``out_proj`` or
+    ``norm_scale`` leaf gathered. Each rank's FLOPs below the whole
+    program's 1/16 (what a rank running every head and expert, split over
+    data alone, would count) and above its 1/256."""
+    rec = records[family]
+    program = rec["program"]
+    want = {"ssm": ["Mamba2 on heads", "the embedding on vocab"],
+            "moe": ["MoE on experts", "attention on query heads",
+                    "the embedding on vocab"]}[family]
+    for part in want + ["the rank's rows"]:
+        assert part in program, part
+    assert "not split over model" not in program
+    gathered = program.split("gathered whole before use: ")[1].split(";")[0]
+    for leaf in ("moe/w_gate", "moe/w_up", "moe/w_down", "ssm/out_proj",
+                 "ssm/norm_scale"):
+        assert leaf not in gathered, (leaf, gathered)
+    summed = {"ssm": "ssm/in_proj", "moe": "attn/wk"}[family]
+    assert summed in program.split("summed over model once a step: ")[1]
+    flops = rec["roofline"]["flops"]
+    whole = records["whole"][family]
+    assert whole / 256 < flops < whole / 16, (flops, whole)
+    counts = rec["roofline"]["coll_by_kind"]["counts"]
+    assert set(k for k, v in counts.items() if v) == {"all-gather",
+                                                      "all-reduce"}

@@ -26,9 +26,34 @@ logits gathered over data.
     granite-moe-1b-a400m (1024 tokens a micro-batch: the reference's two
     capacity groups, one a rank; the load-balance and router-z terms over
     the global batch) on 2 x 1.
+  * The other families split over model, on 1 x 2 and 2 x 2 with ``accum``
+    1 and 2, held as the dense family is: reduced mamba2-2.7b (4 SSD heads,
+    two a rank, K6/K7's plain versions on each rank's heads), zamba2-1.2b
+    (its Mamba2 blocks so, its shared attention + MLP block on heads and
+    ``d_ff``), granite-moe-1b-a400m (4 experts top-2, two a rank; at
+    ``accum`` 2, 4 rows of T = 256 a micro-batch keep its two capacity
+    groups) and granite-20b, whose MQA (4 query heads, 1 KV head) puts
+    ``wk``/``wv`` on ``head_dim`` on a ``model`` of 2: each rank projects
+    the one KV head from them whole. Reduced mamba2's fused ``in_proj`` has
+    292 columns, 146 a rank, against the z | x boundary at 128 (its conv's
+    160 channels, 80 a rank, against 64 x channels a rank plus B and C), so
+    a rank's shards do not hold its heads' columns: the misaligned leaves
+    are gathered whole and the rank takes its columns of them. Prefill and
+    three decodes of each on 1 x 2 against the reference's, the cache
+    holding the rank's region as ``rules.cache_specs`` places it. Reduced
+    mamba2 with its ``in_proj`` unfused (``in_proj_z`` / ``in_proj_x`` /
+    ``in_proj_dt``, the layout the reference's rules also place) runs the
+    same on 1 x 2 at ``accum`` 1: ``in_proj_x``'s 160 columns, 80 a rank,
+    against 64 x columns a rank plus B and C.
+  * The gradient rule for leaves used whole inside a split block (summed
+    over model once a step): on 1 x 2 the router's, mamba2's ``in_proj``
+    B/C columns, ``A_log``, granite-20b's ``wk`` on ``head_dim`` and the
+    block norm's scale against the one-rank program's, and the global grad
+    norm (a part summed twice, or not at all, is off by a whole part).
   * A one-rank mesh issues no collective in any step program (the c10d
-    record of ``roofline.analysis.terms_from_program``).
+    record of ``roofline.analysis.terms_from_program``), for every family.
 """
+import dataclasses
 import functools
 import json
 import os
@@ -63,16 +88,47 @@ RL_KW = dict(lr_policy=LR, warmup_steps=2)
 B = 8
 # (arch, accum, S, meshes)
 DENSE = ("deepseek-7b", "openvla-7b")
+SPLIT = ("mamba2-2.7b", "zamba2-1.2b", "granite-moe-1b-a400m", "granite-20b")
+UNFUSED = "mamba2-2.7b+unfused"     # its Mamba2 in_proj as three leaves
+_SEQ = {"mamba2-2.7b": (64, 64), "zamba2-1.2b": (64, 64),
+        "granite-moe-1b-a400m": (128, 256), "granite-20b": (40, 40)}
 CASES = [(a, acc, 40, ("2x1", "1x2", "2x2")) for a in DENSE
          for acc in (1, 2)] + [
-    ("mamba2-2.7b", 1, 64, ("2x1",)),
-    ("granite-moe-1b-a400m", 1, 128, ("2x1",)),
-]
+    ("mamba2-2.7b", 1, 64, ("2x1", "1x2", "2x2")),
+    ("granite-moe-1b-a400m", 1, 128, ("2x1", "1x2", "2x2")),
+] + [(a, acc, _SEQ[a][acc - 1], ("1x2", "2x2")) for acc in (1, 2)
+     for a in SPLIT if (a, acc) not in (("mamba2-2.7b", 1),
+                                        ("granite-moe-1b-a400m", 1))] + [
+    (UNFUSED, 1, 64, ("1x2",))]
+# the block kinds split over a model axis of 2
+WANT_TP = {"mamba2-2.7b": ["ssm", "vocab"], UNFUSED: ["ssm", "vocab"],
+           "zamba2-1.2b": ["attn", "mlp", "ssm", "vocab"],
+           "granite-moe-1b-a400m": ["attn", "moe", "vocab"],
+           "granite-20b": ["attn", "mlp", "vocab"],
+           **{a: ["attn", "mlp", "vocab"] for a in DENSE}}
+# the gradient rule's leaves (path, columns of the last axis or None)
+RULE_LEAVES = {
+    "mamba2-2.7b": [(("layers", "ssm", "in_proj"), (256, 288)),
+                    (("layers", "ssm", "A_log"), None),
+                    (("layers", "norm", "scale"), None)],
+    "granite-moe-1b-a400m": [(("layers", "moe", "router"), None),
+                             (("layers", "attn_norm", "scale"), None)],
+    "granite-20b": [(("layers", "attn", "wk"), None),
+                    (("layers", "attn", "wv"), None),
+                    (("layers", "attn_norm", "scale"), None)],
+}
 SERVE_PROMPT, SERVE_DECODES, CACHE_LEN = 12, 3, 16
 
 
 def _cfg(arch, pkg=tconfigs):
-    return pkg.reduced(pkg.get_config(arch), layers=2, d_model=64)
+    """The reduced config of ``arch``; ``<arch>+unfused`` with its Mamba2
+    ``in_proj`` as three leaves."""
+    name, _, unfused = arch.partition("+")
+    cfg = pkg.reduced(pkg.get_config(name), layers=2, d_model=64)
+    if unfused:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, fused_in_proj=False))
+    return cfg
 
 
 def _case_id(case):
@@ -124,8 +180,9 @@ from repro_torch.configs.base import RLConfig
 from repro_torch.launch import steps, train
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.policy import init_policy_params
+from repro_torch.optim import adamw
 from repro_torch.sharding import rules, spmd
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves_with_path, tree_map, tree_map_with_path
 
 store, rank, world, path, out = sys.argv[1:6]
 rank, world = int(rank), int(world)
@@ -155,7 +212,11 @@ for tag in meshes:
     for key, case in inp["cases"].items():
         if tag not in case["meshes"]:
             continue
-        cfg = reduced(get_config(case["arch"]), layers=2, d_model=64)
+        name, _, unfused = case["arch"].partition("+")
+        cfg = reduced(get_config(name), layers=2, d_model=64)
+        if unfused:
+            cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, fused_in_proj=False))
         rl = RLConfig(**inp["rl"])
         accum, batch = case["accum"], case["batch"]
         lead = batch["tokens"].shape
@@ -166,15 +227,26 @@ for tag in meshes:
         state = train.init_state(cfg, mesh, sspec, "cpu")
         lay = spmd.layout(cfg, state.params)
         rows = spmd.rows(batch, mesh, dim=1 if accum > 1 else 0)
+        rule = None
+        if case.get("rule") and tag == "1x2":
+            grads, _, _ = steps.seq_grads(state.params, rows, state.adv_norm,
+                                          cfg=cfg, rl=rl, accum=accum)
+            rule = dict(grads=whole(grads),
+                        norm=float(adamw.global_norm(grads)),
+                        summed=sorted(lay.summed))
         state, metrics = steps.seq_train_step(
             state, rows, cfg=cfg, rl=rl, accum=accum,
             grad_shardings=sspec.params)
+        placements = {"/".join(p): [x.dim if x.is_shard() else None
+                                    for x in v.placements]
+                      for p, v in tree_leaves_with_path(state.params)}
         got = dict(metrics={k: float(v) for k, v in metrics.items()},
                    adv=[float(x) for x in state.adv_norm],
                    mu=whole(state.opt.mu), params=whole(state.params),
-                   tp=lay.tensor_parallel())
+                   tp=lay.tensor_parallel(), placements=placements,
+                   rule=rule)
         serve = case.get("serve")
-        if serve is not None and tag != "2x2":
+        if serve is not None and tag in case["serve_meshes"]:
             p0 = init_policy_params(cfg, 0, device="cpu")
             placed = rules.place_tree(p0, mesh,
                                       rules.param_specs(cfg, p0, mesh))
@@ -191,7 +263,11 @@ for tag in meshes:
                     window=None)
                 out_logits.append(over_data(logits, mesh))
             got["serve"] = torch.stack(out_logits)
-            got["kv_heads"] = cache.attn.k.shape[3]
+            shapes = {}
+            tree_map_with_path(
+                lambda p, x: shapes.__setitem__("/".join(p), tuple(x.shape)),
+                cache)
+            got["cache"] = shapes
         res[(key, tag)] = got
 if rank == 0:
     torch.save(res, out)
@@ -216,9 +292,12 @@ def runs(tmp_path_factory):
         case = dict(arch=arch, accum=accum, meshes=meshes,
                     batch={k: torch.from_numpy(v) for k, v in
                            _batch(cfg, accum, s).items()})
-        if arch in DENSE and accum == 1:
+        if accum == 1 and (arch in DENSE or "1x2" in meshes):
             case["serve"] = {k: torch.from_numpy(v) for k, v in
                              _serve_inputs(cfg).items()}
+            case["serve_meshes"] = ("2x1", "1x2") if arch in DENSE \
+                else ("1x2",)
+        case["rule"] = accum == 1 and arch in RULE_LEAVES
         cases[_case_id((arch, accum))] = case
     path = str(tmp / "inputs.pt")
     torch.save({"cases": cases, "rl": RL_KW, "cache_len": CACHE_LEN}, path)
@@ -233,8 +312,10 @@ def runs(tmp_path_factory):
         # the references while the ranks run
         for arch, accum, s, _ in CASES:
             _references(arch, accum, s)
-        for arch in DENSE:
+        for arch in DENSE + SPLIT + (UNFUSED,):
             _reference_serving(arch)
+        for arch in RULE_LEAVES:
+            _one_rank_grads(arch)
         for p in procs:
             logs.append(p.communicate(timeout=150))
     finally:
@@ -267,7 +348,11 @@ def _references(arch, accum, s):
     numpy batch."""
     tcfg, jcfg = _cfg(arch), _cfg(arch, jconfigs)
     tp = init_policy_params(tcfg, 0, device="cpu")
-    jp = jax.tree.map(jnp.asarray, params_to_numpy(tp))
+    # copies: on the CPU jnp.asarray may alias the numpy views of ``tp``,
+    # which the port's step below updates in place while the jitted
+    # reference may still be running
+    jp = jax.tree.map(lambda x: jnp.asarray(np.array(x)),
+                      params_to_numpy(tp))
     nb = _batch(tcfg, accum, s)
     jstate = jsteps.SeqTrainState(jp, jadamw.init(jp), j_init_adv_state())
     js, jm = jax.jit(functools.partial(
@@ -318,15 +403,19 @@ def test_placed_train_step_matches_reference_and_one_rank(runs, arch, accum,
     """``seq_train_step`` on the mesh, each rank fed its rows of a batch
     whose data ranks hold unequal mask counts: against the reference's
     single-device step (test_torch_steps.py's bars) and the port's
-    one-rank step (1e-5 of each moment leaf's largest value). The dense
-    family splits attention, the MLP and the embedding over model where
-    the mesh has a model axis; the others split the data alone."""
+    one-rank step (1e-5 of each moment leaf's largest value). Where the
+    mesh has a model axis every block of every family splits over it
+    (``WANT_TP``): granite-20b's attention with ``wk``/``wv`` on
+    ``head_dim``; on 2 x 1 the batch alone is split."""
     _, res = runs
     got = res[(_case_id((arch, accum)), mesh)]
     model = int(mesh.split("x")[1])
-    want_tp = ["attn", "mlp", "vocab"] if arch in DENSE and model > 1 \
-        else []
-    assert got["tp"] == want_tp
+    assert got["tp"] == (WANT_TP[arch] if model > 1 else [])
+    if arch == "granite-20b" and model > 1:
+        # [L, d, KV, head_dim]: the one KV head does not split, head_dim
+        # does (the mesh's model dim is its last)
+        for leaf in ("wk", "wv"):
+            assert got["placements"][f"layers/attn/{leaf}"][-1] == 3
     jref, tref = _references(arch, accum, s)
     _hold(got, jref, moment_bar=lambda e: 1e-5 * 0.1
           + 1e-4 * float(np.abs(e).max()))
@@ -355,6 +444,14 @@ def _reference_serving(arch):
     return np.stack(out)
 
 
+def _hold_serving(got, arch):
+    want = _reference_serving(arch)
+    g = got["serve"].numpy()
+    assert g.shape == want.shape
+    np.testing.assert_allclose(g, want, rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
+
+
 @pytest.mark.parametrize("mesh", ["2x1", "1x2"])
 @pytest.mark.parametrize("arch", DENSE)
 def test_placed_prefill_and_decode_match_reference(runs, arch, mesh):
@@ -363,13 +460,71 @@ def test_placed_prefill_and_decode_match_reference(runs, arch, mesh):
     logits of every rank's rows against the reference's."""
     _, res = runs
     got = res[(_case_id((arch, 1)), mesh)]
-    want = _reference_serving(arch)
     heads = _cfg(arch).num_kv_heads // int(mesh.split("x")[1])
-    assert got["kv_heads"] == heads
-    g = got["serve"].numpy()
-    assert g.shape == want.shape
-    np.testing.assert_allclose(g, want, rtol=0,
-                               atol=1e-4 * float(np.abs(want).max()))
+    assert got["cache"]["attn/k"][3] == heads
+    _hold_serving(got, arch)
+
+
+@pytest.mark.parametrize("arch", SPLIT + (UNFUSED,))
+def test_split_families_prefill_and_decode_match_reference(runs, arch):
+    """The same on 1 x 2 for the families split over model: each rank's
+    cache holds its region as ``rules.cache_specs`` places it (the Mamba2
+    state's heads, a contiguous chunk of the conv tail's channels, the KV
+    heads or, for granite-20b's one KV head, its ``head_dim`` slice)."""
+    _, res = runs
+    got = res[(_case_id((arch, 1)), "1x2")]
+    cfg = _cfg(arch)
+    cache = got["cache"]
+    if cfg.ssm is not None:
+        nh = cfg.ssm.num_heads(cfg.d_model)
+        ch = cfg.ssm.d_inner(cfg.d_model) + 2 * cfg.ssm.state_dim
+        assert cache["ssm/ssm"][2] == nh // 2
+        assert cache["ssm/conv"][3] == ch // 2
+    if cfg.num_heads:
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        want = (kv // 2, hd) if kv % 2 == 0 else (kv, hd // 2)
+        assert cache["attn/k"][3:] == cache["attn/v"][3:] == want
+    _hold_serving(got, arch)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_rank_grads(arch):
+    """The port's one-rank ``seq_grads`` (seed-0 params, the accum-1 batch)
+    and their global norm."""
+    cfg = _cfg(arch)
+    tp = init_policy_params(cfg, 0, device="cpu")
+    s = next(c[2] for c in CASES if c[0] == arch and c[1] == 1)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 1, s).items()}
+    grads, _, _ = tsteps.seq_grads(tp, batch, init_adv_state("cpu"),
+                                   cfg=cfg, rl=RLConfig(**RL_KW))
+    return _tflat(grads), float(adamw.global_norm(grads))
+
+
+@pytest.mark.parametrize("arch", list(RULE_LEAVES))
+def test_grads_of_leaves_used_whole_inside_a_split_block(runs, arch):
+    """On 1 x 2 each rank back-propagates its own heads or experts only, so
+    its gradient of a leaf used whole inside the block is a part, summed
+    over model once a step (``Layout.summed``); a leaf read before the
+    block's ``_Enter`` (the norm scale, the router) gives every rank the
+    whole gradient and is not summed. Each leaf against the one-rank
+    program's within 1e-5 of its largest value (a part summed twice, or
+    not at all, is off by at least one whole rank's part), and the global
+    grad norm within 1e-5."""
+    _, res = runs
+    rule = res[(_case_id((arch, 1)), "1x2")]["rule"]
+    want, norm = _one_rank_grads(arch)
+    got = _tflat(rule["grads"])
+    summed = set(rule["summed"])
+    for path, cols in RULE_LEAVES[arch]:
+        key = "/".join(path)
+        assert (key in summed) == (path[-1] not in ("scale", "router")), key
+        g, w = got[path], want[path]
+        if cols is not None:
+            g, w = g[..., cols[0]:cols[1]], w[..., cols[0]:cols[1]]
+        scale = float(np.abs(w).max())
+        assert scale > 0, key
+        assert float(np.abs(g - w).max()) <= 1e-5 * scale, key
+    assert abs(rule["norm"] - norm) <= 1e-5 * norm
 
 
 _ONE_RANK = r"""
@@ -384,11 +539,12 @@ from repro_torch.roofline.analysis import terms_from_program
 from repro_torch.sharding import rules
 
 mesh = make_local_mesh(device="cpu")
-cfg = reduced(get_config("openvla-7b"), layers=2, d_model=64)
 shape = dataclasses.replace(get_shape("train_4k"), global_batch=4,
                             seq_len=24)
 out = {}
-for placed in (False, True):
+for arch, placed in [(a, p) for a in sys.argv[1].split(",")
+                     for p in (False, True)]:
+    cfg = reduced(get_config(arch), layers=2, d_model=64)
     _, structs, sspec, _ = steps.train_specs(cfg, shape, mesh, accum=2)
     state = train.init_state(cfg, mesh, sspec, "cpu")
     if placed:
@@ -407,7 +563,8 @@ for placed in (False, True):
                            grad_shardings=sspec.params)
     params = state.params
     toks = torch.zeros((2, 12), dtype=torch.int32)
-    prefix = torch.zeros((2, cfg.num_prefix_tokens, 1024))
+    prefix = torch.zeros((2, cfg.num_prefix_tokens, 1024)) \
+        if cfg.num_prefix_tokens else None
     with torch.no_grad():
         p = terms_from_program(steps.prefill_step, params, toks, prefix,
                                cfg=cfg, window=None, cache_len=16)
@@ -415,24 +572,27 @@ for placed in (False, True):
                                       window=None, cache_len=16)
         d = terms_from_program(steps.serve_step, params, toks[:, 0], cache,
                                cfg=cfg, window=None)
-    out[str(placed)] = [t["counts"], p["counts"], d["counts"]]
+    out[f"{arch} {placed}"] = [t["counts"], p["counts"], d["counts"]]
 print(json.dumps(out))
 """
 
 
 def test_one_rank_mesh_issues_no_collective():
     """On the one-rank mesh (``make_local_mesh``, a gloo group of one in a
-    subprocess) the train, prefill and decode programs record no c10d
-    collective: with the state as ``train.init_state`` leaves it (plain
-    tensors) and placed as DTensors on that mesh."""
+    subprocess) the train, prefill and decode programs of every family
+    (reduced openvla-7b, mamba2-2.7b, zamba2-1.2b, granite-moe-1b-a400m,
+    granite-20b) record no c10d collective: with the state as
+    ``train.init_state`` leaves it (plain tensors) and placed as DTensors
+    on that mesh."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", _ONE_RANK], cwd=ROOT,
-                         env=env, capture_output=True, text=True,
+    archs = ("openvla-7b",) + SPLIT
+    res = subprocess.run([sys.executable, "-c", _ONE_RANK, ",".join(archs)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr[-4000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert set(out) == {"False", "True"}
+    assert set(out) == {f"{a} {p}" for a in archs for p in (False, True)}
     for counts in out.values():
         for c in counts:
             assert c and not any(c.values()), counts
